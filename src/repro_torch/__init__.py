@@ -1,0 +1,31 @@
+"""repro_torch — the PyTorch/CUDA port of ``repro``'s fleet online-learning
+loop.
+
+The package mirrors ``repro``'s layout (``fleet/dynamics.py`` here is the
+counterpart of ``repro/fleet/dynamics.py``, and so on) but imports
+neither JAX nor anything of ``repro``: it keeps its own copy of the data
+it needs. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; on a host without CUDA the default raises rather than
+moving to the CPU on its own (``resolve_device``).
+
+The two hot-path kernels of the loop (``kernels.tabular_rl`` and
+``kernels.dqn_head``) are hand-written CUDA C++ for Hopper
+(``csrc/*.cu``), built with ``nvcc`` at first use and bound with
+``ctypes``. Each has a plain PyTorch version beside it, which is what a
+CPU tensor takes.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``cuda`` by default, which
+    raises when CUDA is missing — the port never falls back to the CPU
+    unless the caller asks for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path")
+    return dev

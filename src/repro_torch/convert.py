@@ -1,0 +1,60 @@
+"""Carry the JAX package's state across into the port's, from numpy.
+
+The caller turns each JAX array into numpy (``np.asarray``) and hands
+the result over, so this module never touches JAX. Layouts are kept as
+they are: weights stay ``(in, out)``, the Q-table ``(cells, S, K)``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.fleet.dynamics import Calibration
+from repro_torch.fleet.scenarios import FleetScenario
+from repro_torch.fleet.topology import Topology
+
+
+def scenario(end_b, edge_b, member, active, t=0, topo=None, calib=None,
+             device=None) -> FleetScenario:
+    """A ``FleetScenario`` from its seven fields as numpy: ``topo`` is
+    ``(cell_edge, edge_capacity, cloud_servers)`` or None, ``calib`` is
+    ``(compute_scale, hop_offset_ms)`` or None."""
+    dev = resolve_device(device)
+
+    def arr(x, dtype):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    if topo is not None:
+        cell_edge, cap, servers = topo
+        topo = Topology(arr(cell_edge, torch.int32), arr(cap, torch.float32),
+                        float(np.asarray(servers)))
+    if calib is not None:
+        calib = Calibration(arr(calib[0], torch.float32),
+                            arr(calib[1], torch.float32))
+    return FleetScenario(arr(end_b, torch.int32), arr(edge_b, torch.int32),
+                         arr(member, torch.bool), arr(active, torch.bool),
+                         int(np.asarray(t)), topo, calib)
+
+
+def q_table(q, device=None) -> torch.Tensor:
+    """A ``(cells, S, K)`` float32 Q-table."""
+    return torch.tensor(np.asarray(q), dtype=torch.float32,
+                        device=resolve_device(device))
+
+
+def mlp_params(params, device=None, requires_grad: bool = True):
+    """The MLP param list ``[{"w", "b"}] * layers``, as float32 leaf
+    tensors (trainable by default, as the agent's are)."""
+    dev = resolve_device(device)
+    return [{k: torch.tensor(np.asarray(p[k]), dtype=torch.float32,
+                             device=dev).requires_grad_(requires_grad)
+             for k in ("w", "b")} for p in params]
+
+
+def opt_state(state, device=None) -> dict:
+    """The AdamW state ``{"m", "v", "step"}`` (moments mirror the
+    params)."""
+    return {"m": mlp_params(state["m"], device, requires_grad=False),
+            "v": mlp_params(state["v"], device, requires_grad=False),
+            "step": int(np.asarray(state["step"]))}

@@ -1,0 +1,149 @@
+"""Plain PyTorch versions of the fleet loop's kernels — the port of the
+oracles in ``repro/kernels/ref.py``. A CPU tensor takes these; on the
+card they are what ``chip_smoke.py`` holds each CUDA kernel against.
+"""
+from __future__ import annotations
+
+import itertools
+
+import torch
+
+NEG_INF = -1e30
+
+
+def first_argmax_ref(x: torch.Tensor) -> torch.Tensor:
+    """First-index argmax along the last axis (max, then the lowest index
+    holding it), as int32 — the tie-break of ``jnp.argmax``."""
+    k = x.shape[-1]
+    m = x.max(-1, keepdim=True).values
+    iota = torch.arange(k, dtype=torch.int32, device=x.device)
+    cand = torch.where(x == m, iota, torch.tensor(k, dtype=torch.int32,
+                                                  device=x.device))
+    return cand.min(-1).values
+
+
+def fused_tabular_ref(q, s, a, r, s2, *, alpha: float, gamma: float):
+    """Fused tabular act+update, updating ``q`` IN PLACE.
+
+    ``q``: (cells, S, K) f32; ``s``/``a``/``s2``: (cells,) int32;
+    ``r``: (cells,) f32. Returns ``(q, greedy2, td)`` where
+
+    * ``td = r + gamma * max_k q[c, s2] - q[c, s, a]`` on the table
+      before the update,
+    * ``q[c, s, a] += alpha * td`` (written in place, as the reference
+      kernel's ``input_output_aliases`` did),
+    * ``greedy2`` = first-index argmax of row ``s2`` AFTER the update
+      (when ``s2 == s`` the freshly written entry takes part).
+    """
+    cells = torch.arange(q.shape[0], device=q.device)
+    s, a, s2 = s.long(), a.long(), s2.long()
+    q_sa = q[cells, s, a]
+    row2 = q[cells, s2]                                    # (cells, K)
+    td = r + gamma * row2.max(-1).values - q_sa
+    v_new = q_sa + alpha * td
+    col = torch.arange(q.shape[2], device=q.device)
+    hit = (s2 == s)[:, None] & (col[None, :] == a[:, None])
+    greedy2 = first_argmax_ref(torch.where(hit, v_new[:, None], row2))
+    q[cells, s, a] = v_new
+    return q, greedy2, td
+
+
+def stable_topk_ref(q: torch.Tensor, k: int):
+    """k rounds of (max, first-argmax, mask): values descending, ties by
+    ascending index (``torch.topk`` does not promise that order).
+    Exhausted rows re-yield ``NEG_INF`` values, which the constraint
+    head's invalid filter culls."""
+    iota = torch.arange(q.shape[-1], device=q.device)
+    vals, idx, cur = [], [], q
+    for _ in range(k):
+        i = first_argmax_ref(cur)
+        vals.append(cur.gather(-1, i.long()[..., None])[..., 0])
+        idx.append(i)
+        cur = torch.where(iota == i[..., None], NEG_INF, cur)
+    return torch.stack(vals, -1), torch.stack(idx, -1)
+
+
+def head_q_ref(active, member, end_b, agg, w1, b1, w2, b2, w3, b3,
+               allowed) -> torch.Tensor:
+    """The head's masked per-user values: per-user 11-wide feature rows
+    ``[active, member, end_b, agg...]`` through the shared 3-layer ReLU
+    MLP, disallowed entries set to exactly ``NEG_INF``. (cells, N, A)."""
+    cells, n = active.shape
+    feats = torch.cat([active[..., None], member[..., None],
+                       end_b[..., None],
+                       agg[:, None, :].expand(cells, n, agg.shape[-1])], -1)
+    x = feats.reshape(cells * n, feats.shape[-1])
+    h = torch.relu(x @ w1 + b1)
+    h = torch.relu(h @ w2 + b2)
+    q = (h @ w3 + b3).reshape(cells, n, -1)
+    return torch.where(allowed[None] > 0.5, q, NEG_INF)
+
+
+def combo_table(topk: int, users: int, device=None) -> torch.Tensor:
+    """(topk^N, N) int64 per-user top-k slot of every combination, in
+    ``itertools.product`` order."""
+    return torch.tensor(list(itertools.product(range(topk), repeat=users)),
+                        dtype=torch.int64, device=device)
+
+
+def combo_scores_ref(q, member, acc_table, *, threshold: float,
+                     topk: int):
+    """The constraint head's scoring of the per-user top-k combinations:
+    returns ``(score, idx, combos)`` — (cells, topk^N) summed member
+    values, ``-inf`` where a member entry is masked or the mean member
+    accuracy misses ``threshold``; the (cells, N, k) top-k ids; and the
+    (topk^N, N) combination table."""
+    cells, n, _ = q.shape
+    vals, idx = stable_topk_ref(q, topk)                   # (cells, N, k)
+    acc_k = acc_table[idx.long()]
+    combos = combo_table(topk, n, q.device)                # (Kc, N)
+    mem = member > 0.5
+    nm = torch.clamp(mem.sum(-1), min=1)[:, None].to(q.dtype)
+    score = torch.zeros((cells, combos.shape[0]), dtype=q.dtype,
+                        device=q.device)
+    macc_sum = torch.zeros_like(score)
+    invalid = torch.zeros(score.shape, dtype=torch.bool, device=q.device)
+    for u in range(n):
+        cu = combos[:, u]
+        v_u, a_u = vals[:, u, cu], acc_k[:, u, cu]         # (cells, Kc)
+        m_u = mem[:, u:u + 1]
+        score = score + torch.where(m_u, v_u, 0.0)
+        macc_sum = macc_sum + torch.where(m_u, a_u, 0.0)
+        invalid = invalid | ((v_u < -1e29) & m_u)
+    macc = torch.where(mem.any(-1, keepdim=True), macc_sum / nm, 100.0)
+    feas = macc >= threshold - 1e-9        # dynamics.feasible, inlined
+    return torch.where(feas & ~invalid, score, -torch.inf), idx, combos
+
+
+def greedy_head_ref(q, member, acc_table, *, threshold: float, topk: int):
+    """The head's decisions from its masked values ``q`` (cells, N, A):
+    the plain per-user first-index argmax, or with a ``threshold`` the
+    best-scoring feasible combination of the per-user top-k
+    (``combo_scores_ref``, first index on ties), falling back to the
+    plain argmax in a cell with no feasible combo. (cells, N) int32."""
+    plain = first_argmax_ref(q)
+    if not threshold:
+        return plain
+    score, idx, combos = combo_scores_ref(q, member, acc_table,
+                                          threshold=threshold, topk=topk)
+    j = first_argmax_ref(score).long()                     # (cells,)
+    best = idx.gather(2, combos[j][..., None])[..., 0]
+    has_feasible = torch.isfinite(score.gather(1, j[:, None]))[:, 0]
+    return torch.where(has_feasible[:, None], best, plain)
+
+
+def dqn_head_ref(active, member, end_b, agg, w1, b1, w2, b2, w3, b3,
+                 allowed, acc_table, *, threshold: float, topk: int):
+    """Fused featurize + constraint-aware greedy head.
+
+    ``active``/``member``/``end_b``: (cells, N) f32; ``agg``: (cells, 8)
+    f32 cell aggregates; ``w*``/``b*``: the shared MLP, weights
+    ``(in, out)``; ``allowed``: (N, A) f32 0/1 mask; ``acc_table``: (A,)
+    f32 accuracy ladder. Returns ``(dec, q)``: (cells, N) int32 greedy
+    decisions (``greedy_head_ref``) and the (cells, N, A) masked head
+    values (``head_q_ref``).
+    """
+    q = head_q_ref(active, member, end_b, agg, w1, b1, w2, b2, w3, b3,
+                   allowed)
+    return greedy_head_ref(q, member, acc_table, threshold=threshold,
+                           topk=topk), q
