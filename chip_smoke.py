@@ -5,19 +5,29 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
 ``nvcc`` per source, in parallel), holds each against its plain PyTorch
-version on the card at the main path's shapes, then drives the fleet
-online-learning loop through the entry points a user calls:
-``FleetQLearning`` on a 32,768-cell mixed Table-5 fleet of 5 users and
-``FleetDQN`` (hidden 128, top-5 constraint head at an 85% accuracy
-goal) on a dynamic 32,768-cell synthetic fleet, each scored against
-the brute-force oracle and routed through ``FleetOrchestrator``.
+version on the card at the main paths' shapes, then drives the two main
+paths through the entry points a user calls:
 
-Every phase prints one JSON line; any failed check raises and the exit
-code is non-zero. The line before the card's name lists every kernel
-with its launches on the main path, its error against the plain
-version, its time beside the plain version's and its bound. The last
-line is ``{"ok": true, "device": {...}}``. It needs a CUDA device and
-the ``src/repro_torch`` package beside it, and imports nothing of JAX.
+* the fleet online-learning loop: ``FleetQLearning`` on a 32,768-cell
+  mixed Table-5 fleet of 5 users and ``FleetDQN`` (hidden 128, top-5
+  constraint head at an 85% accuracy goal) on a dynamic 32,768-cell
+  synthetic fleet, each scored against the brute-force oracle and
+  routed through ``FleetOrchestrator`` (kernels K1, K2);
+* the serving path: ``build_engines`` over the edge-ladder config (d0
+  bf16, d4 int8, d7 int8 at width 0.25, full width), a 1,024-cell
+  3-user fleet routed with ``FleetOrchestrator.route(dispatch=engines)``
+  into batches of 64, and each variant's ``generate`` at batch 64,
+  prompt bucket 256, 16 new tokens (kernels K3, K4, K5).
+
+Each path's kernel launch counts are set to 0 just before it and read
+just after. Every phase prints one JSON line; any failed check raises
+and the exit code is non-zero. The line before the card's name lists
+every kernel with its launches on its path, its error against the
+plain version, its time beside the plain version's, its bound and, where
+one PyTorch call computes the same function, that call's time. The
+last line is ``{"ok": true, "device": {...}}``. It needs a CUDA device
+and the ``src/repro_torch`` package beside it, and imports nothing of
+JAX.
 """
 import json
 import os
@@ -28,12 +38,20 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# published peaks of one H100 SXM (dense, 700 W): HBM bytes/s, FP32 FLOP/s
-# on the CUDA cores (the kernels compute in FP32 outside the tensor cores)
+# published peaks of one H100 SXM (dense, 700 W): HBM bytes/s; FP32 FLOP/s
+# on the CUDA cores (K1, K2 compute in FP32 outside the tensor cores); the
+# tensor cores' dense bf16 FLOP/s and int8 OP/s (the bound of K3-K5 by the
+# type of their data)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
+INT8_TC_OPS_PER_S = 1979e12
 
 CELLS, USERS = 32768, 5
+# the serving path: requests per engine batch, prompt bucket, new tokens,
+# cache length; the routed fleet
+SERVE_BATCH, PROMPT, NEW_TOKENS, MAX_LEN = 64, 256, 16, 512
+ROUTE_CELLS, ROUTE_USERS = 1024, 3
 
 
 def emit(**kw):
@@ -88,15 +106,16 @@ def device_events(prof):
             if e.device_type == DeviceType.CUDA]
 
 
-def step_profile(torch, agent, name, steps=5):
-    """Device busy share of ``steps`` fleet steps and the five kernels
-    with the most device time, from one ``torch.profiler`` window."""
+def step_profile(torch, run, steps=5, **label):
+    """Device busy share of ``run()`` (``steps`` steps of a path) and the
+    five kernels with the most device time, from one ``torch.profiler``
+    window."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        agent.run(steps)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name = {}
@@ -104,7 +123,7 @@ def step_profile(torch, agent, name, steps=5):
         by_name[n] = by_name.get(n, 0.0) + us
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    emit(phase="step_profile", agent=name, steps=steps,
+    emit(phase="step_profile", **label, steps=steps,
          wall_ms_per_step=wall_us / steps / 1e3,
          device_ms_per_step=busy / steps / 1e3,
          device_busy_share=busy / wall_us if wall_us else None,
@@ -121,9 +140,9 @@ def timed(fn):
         (wall, wall, "events")
 
 
-def bound(bytes_moved, ops):
+def bound(bytes_moved, ops, ops_per_s=FP32_OPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -258,6 +277,181 @@ def head_phase(torch, dqn_head, ref, dynamics):
                 library_ms=None, **main)
 
 
+# ------------------------------------------------------------ K3-K5 ----
+#: (name, q heads, kv heads) of the served layouts: d0/d4 and d7
+HEAD_LAYOUTS = (("d0/d4", 8, 4), ("d7", 2, 2))
+HEAD_DIM = 32
+#: the (K, N) projections of d4 (wq/wo, wk/wv, gate/up, down) and d7
+#: (wq/wk/wv, wo, gate/up/down)
+INT8_SHAPES = ((256, 256), (256, 128), (256, 1024), (1024, 256),
+               (256, 64), (64, 256))
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+
+
+def sdpa(torch, q, k, v, **kw):
+    """``F.scaled_dot_product_attention`` on the model's (B, S, H, hd)
+    layout (transposed views), GQA enabled — timed as the library's
+    counterpart of K3/K4, never on the path."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        enable_gqa=True, **kw)
+
+
+def flash_phase(torch, flash_attention):
+    """K3 at batch 64, causal, prompt buckets 32 and 256, both head
+    layouts; bf16 (the path's type) and float32."""
+    b = SERVE_BATCH
+    g = torch.Generator(device="cuda").manual_seed(5)
+    errs, main = [], None
+    for name, h, kv in HEAD_LAYOUTS:
+        for s in (32, PROMPT):
+            for dtype in ("bfloat16", "float32"):
+                dt = getattr(torch, dtype)
+                q, k, v = (torch.randn(shape, generator=g, device="cuda")
+                           .to(dt) for shape in ((b, s, h, HEAD_DIM),
+                                                 (b, s, kv, HEAD_DIM),
+                                                 (b, s, kv, HEAD_DIM)))
+                got = flash_attention.flash_attention_cuda(q, k, v)
+                want = flash_attention.plain(q, k, v)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                tol = ATTN_TOL[dtype]
+                check(err <= tol, f"flash_attention {name} S={s} {dtype}: "
+                      f"error {err} > {tol}")
+                errs.append(err)
+                if dtype != "bfloat16":
+                    continue
+                ms, wall_ms, src = timed(
+                    lambda: flash_attention.flash_attention_cuda(q, k, v))
+                plain_ms, _, _ = timed(lambda: flash_attention.plain(q, k, v))
+                lib_ms, _, _ = timed(lambda: sdpa(torch, q, k, v,
+                                                  is_causal=True))
+                # q, k, v read once, o written once (bf16); the causal
+                # products the data needs: 2 * 2 * hd per kept (q, k) pair
+                nbytes = 2 * b * s * HEAD_DIM * (2 * h + 2 * kv)
+                ops = 4 * HEAD_DIM * b * h * s * (s + 1) // 2
+                b_ms, b_by = bound(nbytes, ops, BF16_TC_OPS_PER_S)
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=lib_ms)
+                emit(phase="kernel_parity", kernel="flash_attention",
+                     layout=name, shape=[b, s, h, kv, HEAD_DIM],
+                     dtype=dtype, max_abs_err=err, tolerance=tol, timing=src,
+                     wall_ms=wall_ms, **row)
+                if name == "d0/d4" and s == PROMPT:
+                    main = row
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:84",
+                max_abs_err=max(errs), **main)
+
+
+def decode_phase(torch, ops, decode_attention):
+    """K4 at batch 64, caches of 64 and 512 slots written half way (the
+    ring's unwritten slots masked by the bias), both head layouts."""
+    b = SERVE_BATCH
+    g = torch.Generator(device="cuda").manual_seed(6)
+    errs, main = [], None
+    for name, h, kv in HEAD_LAYOUTS:
+        for sc in (64, MAX_LEN):
+            kv_pos = torch.arange(sc, device="cuda")[None].repeat(b, 1)
+            kv_pos[:, sc // 2:] = -1
+            cur = torch.randint(sc // 4, sc // 2, (b,), generator=g,
+                                device="cuda")
+            valid = (kv_pos >= 0) & (kv_pos <= cur[:, None])
+            bias = torch.where(valid, 0.0, -1e30)
+            for dtype in ("bfloat16", "float32"):
+                dt = getattr(torch, dtype)
+                q = torch.randn((b, h, HEAD_DIM), generator=g,
+                                device="cuda").to(dt)
+                kc, vc = (torch.randn((b, sc, kv, HEAD_DIM), generator=g,
+                                      device="cuda").to(dt)
+                          for _ in range(2))
+                got = ops.decode_attention(q, kc, vc, kv_pos, cur)
+                want = decode_attention.plain(q, kc, vc, bias)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                tol = ATTN_TOL[dtype]
+                check(err <= tol, f"decode_attention {name} Sc={sc} "
+                      f"{dtype}: error {err} > {tol}")
+                errs.append(err)
+                if dtype != "bfloat16":
+                    continue
+                ms, wall_ms, src = timed(
+                    lambda: decode_attention.decode_attention_cuda(
+                        q, kc, vc, bias))
+                plain_ms, _, _ = timed(
+                    lambda: decode_attention.plain(q, kc, vc, bias))
+                mask = bias.to(dt)[:, None, None, :]
+                lib_ms, _, _ = timed(lambda: sdpa(
+                    torch, q[:, None], kc, vc, attn_mask=mask))
+                # both caches read whole (bf16), q and o, the f32 bias row;
+                # 2 * 2 * hd per (head, slot)
+                nbytes = 2 * 2 * b * sc * kv * HEAD_DIM \
+                    + 2 * 2 * b * h * HEAD_DIM + 4 * b * sc
+                ops_n = 4 * HEAD_DIM * b * h * sc
+                b_ms, b_by = bound(nbytes, ops_n, BF16_TC_OPS_PER_S)
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=lib_ms)
+                emit(phase="kernel_parity", kernel="decode_attention",
+                     layout=name, shape=[b, sc, h, kv, HEAD_DIM],
+                     dtype=dtype, max_abs_err=err, tolerance=tol, timing=src,
+                     wall_ms=wall_ms, **row)
+                if name == "d0/d4" and sc == MAX_LEN:
+                    main = row
+    return dict(name="decode_attention", route="cuda",
+                source="src/repro_torch/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:72",
+                max_abs_err=max(errs), **main)
+
+
+def int8_library(torch, xq, wq):
+    """The library's int8 product for ``torch._int_mm``: the row-major
+    weight, or the column-major copy where the build wants one."""
+    try:
+        torch._int_mm(xq, wq)
+        return wq
+    except RuntimeError:
+        return wq.t().contiguous().t()
+
+
+def int8_phase(torch, ref, int8_matmul):
+    """K5 at M = 64 x 256 tokens for every projection of d4 and d7:
+    bit-exact against the plain version."""
+    m = SERVE_BATCH * PROMPT
+    g = torch.Generator(device="cuda").manual_seed(7)
+    main = None
+    for k, n in INT8_SHAPES:
+        xq, sx = ref.quantize_ref(torch.randn((m, k), generator=g,
+                                              device="cuda"))
+        wq, sw = ref.quantize_ref(torch.randn((k, n), generator=g,
+                                              device="cuda"), dim=0)
+        got = int8_matmul.int8_matmul_cuda(xq, sx, wq, sw)
+        want = int8_matmul.plain(xq, sx, wq, sw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"int8_matmul {m}x{k}x{n}: not "
+              f"bit-exact (max err {float((got - want).abs().max())})")
+        ms, wall_ms, src = timed(
+            lambda: int8_matmul.int8_matmul_cuda(xq, sx, wq, sw))
+        plain_ms, _, _ = timed(lambda: int8_matmul.plain(xq, sx, wq, sw))
+        wl = int8_library(torch, xq, wq)
+        lib_ms, _, _ = timed(
+            lambda: torch._int_mm(xq, wl).to(torch.float32) * sx * sw)
+        nbytes = m * k + k * n + 4 * (m + n) + 4 * m * n
+        b_ms, b_by = bound(nbytes, 2 * m * k * n, INT8_TC_OPS_PER_S)
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib_ms)
+        emit(phase="kernel_parity", kernel="int8_matmul", shape=[m, k, n],
+             bit_exact=True, max_abs_err=0.0, timing=src, wall_ms=wall_ms,
+             **row)
+        if (k, n) == (256, 1024):
+            main = row
+    return dict(name="int8_matmul", route="cuda",
+                source="src/repro_torch/csrc/int8_matmul.cu",
+                replaces="src/repro/kernels/int8_matmul.py:40",
+                max_abs_err=0.0, **main)
+
+
 # -------------------------------------------------------------- paths ----
 def tabular_training(torch, R):
     scen = R.scenarios.mixed_table5_fleet(R.Draws(3, "cuda"), CELLS, USERS)
@@ -368,6 +562,169 @@ def cpu_agreement(torch, R):
          decisions_agree=same)
 
 
+def route_dispatch(torch, R, engines):
+    """A 1,024-cell 3-user mixed Table-5 fleet (the full 10^3 joint
+    space) routed into the engines in batches of 64 by the oracle at
+    goals 0 and 85; then, for each engine the oracle left idle, the
+    fixed strategy that targets it (local dk, edge or cloud), so that
+    every engine of ``build_engines`` serves."""
+    import numpy as np
+    scen = R.scenarios.mixed_table5_fleet(R.Draws(11, "cuda"), ROUTE_CELLS,
+                                          ROUTE_USERS, min_users=1,
+                                          max_users=ROUTE_USERS)
+    active = scen.active.cpu().numpy()
+    want = set(zip(*(a.tolist() for a in np.nonzero(active))))
+    served_by = {}
+
+    def route(label, policy):
+        res = R.api.FleetOrchestrator(policy).route(
+            scen=scen, dispatch=engines, batch_size=SERVE_BATCH)
+        keys = [(r.cell, r.user) for r in res.served]
+        check(len(keys) == len(set(keys)) and set(keys) == want,
+              f"{label}: the active users were not served exactly once")
+        t = res.timings
+        check(abs(t["batching_ms"] + t["compute_ms"] + t["dispatch_ms"]
+                  - t["wall_ms"]) <= 1e-6 * t["wall_ms"]
+              and t["dispatch_ms"] >= 0,
+              f"{label}: batching + compute + dispatch != wall")
+        check(all(abs(r.queue_ms + r.measured_ms - r.e2e_ms) <= 1e-9
+                  for r in res.served), f"{label}: queue + measured != e2e")
+        slo = res.slo()
+        check(slo["measured"]["attained"] + slo["measured"]["violated"]
+              == slo["requests"] == len(want),
+              f"{label}: attained + violated != dispatched")
+        per = res.timings["per_tier_variant"]
+        for key, tv in per.items():
+            served_by[key] = served_by.get(key, 0) + tv["requests"]
+        emit(phase="route_dispatch", policy=label, cells=ROUTE_CELLS,
+             users=ROUTE_USERS, requests=len(res.served),
+             batches=res.batches, gap_x=res.gap_x,
+             wall_ms=t["wall_ms"], compute_ms=t["compute_ms"],
+             per_tier_variant={k: {"requests": v["requests"],
+                                   "batches": v["batches"],
+                                   "compute_ms": v["compute_ms"]}
+                               for k, v in per.items()},
+             attainment=slo["measured"]["attainment"])
+
+    for goal in (0.0, 85.0):
+        route(f"oracle@{goal:g}",
+              R.api.OraclePolicy(ROUTE_USERS, threshold=goal))
+    target = {"E/d0": "edge", "C/d0": "cloud"}
+    for key in sorted(f"{t}/{v}" for t, tier in engines.items()
+                      for v in tier):
+        if key not in served_by:
+            strategy = target.get(key, int(key.split("/d")[1]))
+            route(f"static {strategy}",
+                  R.api.StaticPolicy(ROUTE_USERS, strategy))
+    emit(phase="route_coverage", served_by=served_by)
+
+
+def serving(torch, engines):
+    """Each variant's ``generate`` at batch 64, prompt bucket 256, 16 new
+    tokens, cache 512: prefill and decode timed apart, then the whole
+    call; the output checked for its shape and token range."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    out = {}
+    for vid in ("d0", "d4", "d7"):
+        eng = engines["S"][vid]
+        cfg = eng.model.cfg
+        toks = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, PROMPT)) \
+            .astype(np.int32)
+        eng.warmup(SERVE_BATCH, PROMPT)
+        with torch.inference_mode():
+            t_in = torch.tensor(toks, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = eng.model.prefill(eng.params, {"tokens": t_in},
+                                              max_len=MAX_LEN)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            check(bool(torch.isfinite(logits.float()).all()),
+                  f"{vid}: non-finite prefill logits")
+            cur = logits[:, -1:, :cfg.vocab_size].argmax(-1).int()
+            for _ in range(NEW_TOKENS):
+                logits, cache = eng.model.decode(eng.params, cache, cur)
+                cur = logits[:, -1:, :cfg.vocab_size].argmax(-1).int()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        gen, wall = eng.generate(toks, NEW_TOKENS)
+        check(gen.shape == (SERVE_BATCH, NEW_TOKENS) and
+              int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size,
+              f"{vid}: generated tokens out of range")
+        out[vid] = cache
+        emit(phase="serving", variant=vid, quant=cfg.quant,
+             heads=[cfg.n_heads, cfg.n_kv_heads], d_ff=cfg.d_ff,
+             batch=SERVE_BATCH, prompt=PROMPT, new_tokens=NEW_TOKENS,
+             max_len=MAX_LEN, prefill_ms=(t1 - t0) * 1e3,
+             decode_ms_per_token=(t2 - t1) * 1e3 / NEW_TOKENS,
+             generate_ms=wall * 1e3,
+             tokens_per_s=SERVE_BATCH * NEW_TOKENS / wall)
+    return out
+
+
+def decode_profile(torch, engines, caches, steps=5):
+    """Device busy share of ``steps`` decode steps of each variant (the
+    caches of ``serving`` continue)."""
+    for vid in ("d0", "d4", "d7"):
+        eng = engines["S"][vid]
+        cache = caches[vid]
+        cur = torch.zeros((SERVE_BATCH, 1), dtype=torch.int32, device="cuda")
+
+        def run():
+            nonlocal cache
+            with torch.inference_mode():
+                for _ in range(steps):
+                    _, cache = eng.model.decode(eng.params, cache, cur)
+        step_profile(torch, run, steps, path="serving", variant=vid,
+                     what="decode step")
+
+
+def serving_cpu_agreement(torch, engines, build_model, ServingEngine):
+    """The card's engine and the CPU's plain path on the same weights at
+    batch 4: prefill and decode logits within the bf16 tolerance, greedy
+    tokens equal where the top-2 margin is clear."""
+    import numpy as np
+    toks = np.random.default_rng(2).integers(0, 8192, (4, 32)).astype(
+        np.int32)
+    for vid in ("d0", "d4", "d7"):
+        eng = engines["S"][vid]
+        p_cpu = _to_cpu(eng.params)
+        m = build_model(eng.model.cfg)
+        errs = []
+        with torch.inference_mode():
+            lg, cg = eng.model.prefill(eng.params, {"tokens": torch.tensor(
+                toks, device="cuda")}, max_len=48)
+            lc, cc = m.prefill(p_cpu, {"tokens": torch.tensor(toks)},
+                               max_len=48)
+            for _ in range(3):
+                a, b_ = lg.float().cpu(), lc.float()
+                errs.append(float((a - b_).abs().max()))
+                check(bool(torch.allclose(a, b_, atol=0.125, rtol=1e-2)),
+                      f"{vid}: card vs CPU logits differ by {errs[-1]}")
+                cur = b_[:, -1:, :8192].argmax(-1).int()
+                lg, cg = eng.model.decode(eng.params, cg, cur.cuda())
+                lc, cc = m.decode(p_cpu, cc, cur)
+        g_card, _ = eng.generate(toks, 8)
+        g_cpu, _ = ServingEngine(m, p_cpu, max_len=eng.max_len).generate(
+            toks, 8)
+        top2 = torch.sort(lc[:, -1, :8192].float(), -1).values[:, -2:]
+        clear = ((top2[:, 1] - top2[:, 0]) > 0.25).numpy()
+        same = bool((g_card[clear] == g_cpu[clear]).all())
+        check(same, f"{vid}: card and CPU generate different tokens")
+        emit(phase="serving_cpu_agreement", variant=vid,
+             logits_max_abs_err=max(errs), rows_with_clear_margin=int(
+                 clear.sum()), tokens_equal=same)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -379,13 +736,22 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     import types
+    from repro_torch.configs.base import get_config
     from repro_torch.fleet import (api, dynamics, policy, population,
                                    scenarios)
-    from repro_torch.kernels import _build, dqn_head, ref, tabular_rl
+    from repro_torch.kernels import (_build, decode_attention, dqn_head,
+                                     flash_attention, int8_matmul, ops, ref,
+                                     tabular_rl)
+    from repro_torch.launch.serve import build_engines
+    from repro_torch.models import build_model
     from repro_torch.rng import Draws
+    from repro_torch.serving import ServingEngine
     R = types.SimpleNamespace(api=api, policy=policy, population=population,
                               scenarios=scenarios, Draws=Draws)
-    kernels = [tabular_rl.KERNEL, dqn_head.KERNEL]
+    fleet_kernels = [tabular_rl.KERNEL, dqn_head.KERNEL]
+    serving_kernels = [flash_attention.KERNEL, decode_attention.KERNEL,
+                       int8_matmul.KERNEL]
+    kernels = fleet_kernels + serving_kernels
 
     emit(phase="env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
@@ -395,20 +761,35 @@ def main():
                  if "registers" in ln or "spill" in ln] for k in kernels})
 
     entries = [tabular_phase(torch, tabular_rl, ref),
-               head_phase(torch, dqn_head, ref, dynamics)]
+               head_phase(torch, dqn_head, ref, dynamics),
+               flash_phase(torch, flash_attention),
+               decode_phase(torch, ops, decode_attention),
+               int8_phase(torch, ref, int8_matmul)]
     cpu_agreement(torch, R)
+    engines = build_engines(get_config("edge-ladder"), max_len=MAX_LEN,
+                            device="cuda")
+    serving_cpu_agreement(torch, engines, build_model, ServingEngine)
 
-    for k in kernels:                 # the main path's launches only
+    for k in fleet_kernels:           # the fleet loop's launches only
         k.launches = 0
     tab_agent = tabular_training(torch, R)
     dqn_agent = dqn_training(torch, R)
-    launches = {k.name: k.launches for k in kernels}
-    step_profile(torch, tab_agent, "tabular")
-    step_profile(torch, dqn_agent, "dqn")
+    launches = {k.name: k.launches for k in fleet_kernels}
+    for k in serving_kernels:         # the serving path's launches only
+        k.launches = 0
+    route_dispatch(torch, R, engines)
+    caches = serving(torch, engines)
+    launches.update({k.name: k.launches for k in serving_kernels})
+    emit(phase="launches", fleet_loop={k.name: launches[k.name]
+                                       for k in fleet_kernels},
+         serving={k.name: launches[k.name] for k in serving_kernels})
+    step_profile(torch, lambda: tab_agent.run(5), agent="tabular")
+    step_profile(torch, lambda: dqn_agent.run(5), agent="dqn")
+    decode_profile(torch, engines, caches)
     for e in entries:
         e["launches"] = launches[e["name"]]
         check(e["launches"] > 0,
-              f"{e['name']} was never launched on the main path")
+              f"{e['name']} was never launched on its main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}

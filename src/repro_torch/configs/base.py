@@ -1,0 +1,193 @@
+"""Model configuration — the port's own copy of ``repro/configs/base.py``.
+
+``ModelConfig`` keeps every field and derived property of the reference
+(so analytic counts such as ``active_param_count`` agree), and
+``scale_width`` is the variant-ladder scaling. ``get_config`` knows the
+configurations the port can build; so far that is ``edge-ladder``, the
+paper's Table-4 ladder as a small decoder transformer.
+"""
+from __future__ import annotations
+
+import importlib
+import math
+from dataclasses import dataclass, replace
+from typing import Optional
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    state_dim: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0          # 0 -> ceil(d_model / 16)
+
+    def resolved_dt_rank(self, d_model: int) -> int:
+        return self.dt_rank or max(1, math.ceil(d_model / 16))
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture-describing config (decoder-transformer centric);
+    ``arch_type`` in {dense, moe, ssm, hybrid, vlm, audio}."""
+    name: str
+    arch_type: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                    # 0 -> d_model // n_heads
+    attn_pattern: str = "full"           # full | sliding | mixed
+    sliding_window: int = 4096
+    global_interval: int = 0
+    global_layers: tuple = ()
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    n_enc_layers: int = 0
+    enc_seq: int = 0
+    n_img_tokens: int = 0
+    mlp_act: str = "swiglu"              # swiglu | geglu | gelu
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-6
+    dtype: str = "bfloat16"
+    quant: str = "none"                  # none | int8
+    width_mult: float = 1.0
+    tie_embeddings: bool = True
+    logit_softcap: float = 0.0
+    citation: str = ""
+
+    # ---- derived -----------------------------------------------------
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        return _round_up(self.vocab_size, 256)
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.resolved_head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.resolved_head_dim
+
+    @property
+    def d_inner(self) -> int:
+        return (self.ssm.expand * self.d_model) if self.ssm else 0
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_enc_layers > 0
+
+    @property
+    def has_attention(self) -> bool:
+        return self.arch_type != "ssm"
+
+    @property
+    def has_mlp(self) -> bool:
+        return self.d_ff > 0
+
+    def layer_is_global(self, layer_id: int) -> bool:
+        """Whether ``layer_id`` uses full (global) attention."""
+        if self.attn_pattern == "full":
+            return True
+        if self.attn_pattern == "sliding":
+            return False
+        if self.global_layers:
+            return layer_id in self.global_layers
+        if self.global_interval:
+            return (layer_id + 1) % self.global_interval == 0
+        return True
+
+    def global_layer_mask(self) -> tuple:
+        return tuple(self.layer_is_global(i) for i in range(self.n_layers))
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding included once if tied)."""
+        d = self.d_model
+        n_attn = self.n_layers if self.arch_type != "ssm" else 0
+        p = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        if self.has_attention and self.arch_type != "ssm":
+            per = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            p += n_attn * per
+        if self.moe:
+            per = d * self.moe.n_experts \
+                + self.moe.n_experts * 3 * d * self.d_ff
+            p += self.n_layers * per
+        elif self.has_mlp:
+            n_mats = 3 if self.mlp_act in ("swiglu", "geglu") else 2
+            p += self.n_layers * n_mats * d * self.d_ff
+        if self.ssm is not None:
+            di = self.d_inner
+            dtr = self.ssm.resolved_dt_rank(d)
+            per = (d * 2 * di + di * self.ssm.d_conv
+                   + di * (dtr + 2 * self.ssm.state_dim)
+                   + dtr * di + di + di * self.ssm.state_dim + di + di * d)
+            p += self.n_layers * per
+        p += self.n_layers * 2 * d + d
+        if self.is_encdec:
+            enc = self.n_enc_layers * (
+                2 * (d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d)
+                // 2 + 2 * d * self.d_ff + 2 * d)
+            cross = self.n_layers * (d * self.q_dim + 2 * d * self.kv_dim
+                                     + self.q_dim * d + d)
+            p += enc + cross
+        return p
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only top_k experts)."""
+        if not self.moe:
+            return self.param_count()
+        expert_p = self.n_layers * self.moe.n_experts * 3 * self.d_model \
+            * self.d_ff
+        active_p = self.n_layers * self.moe.top_k * 3 * self.d_model \
+            * self.d_ff
+        return self.param_count() - expert_p + active_p
+
+
+#: arch id -> module of ``repro_torch.configs`` holding its ``CONFIG``
+_MODULE_FOR = {"edge-ladder": "edge_ladder"}
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id not in _MODULE_FOR:
+        raise KeyError(f"repro_torch has no config {arch_id!r} yet; it "
+                       f"knows {sorted(_MODULE_FOR)} (ROADMAP queue 1)")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[arch_id]}")
+    return mod.CONFIG
+
+
+def scale_width(cfg: ModelConfig, width_mult: float,
+                quant: str = "none") -> ModelConfig:
+    """Variant-ladder scaling (the paper's MobileNet width multiplier):
+    shrink d_ff and the q/kv head counts uniformly; ``quant`` switches
+    the projections' matmul type."""
+    def rnd(x, m=8):
+        return max(m, int(round(x * width_mult / m)) * m)
+    nh = max(1, int(round(cfg.n_heads * width_mult)))
+    # keep GQA grouping valid: n_kv must divide n_heads
+    nkv = max(d for d in range(1, nh + 1)
+              if nh % d == 0 and d <= max(1, cfg.n_kv_heads))
+    return replace(
+        cfg,
+        d_ff=rnd(cfg.d_ff) if cfg.d_ff else 0,
+        n_heads=nh, n_kv_heads=nkv,
+        width_mult=width_mult, quant=quant,
+        name=f"{cfg.name}-w{width_mult}{'-int8' if quant == 'int8' else ''}",
+    )

@@ -52,6 +52,40 @@ def mlp_params(params, device=None, requires_grad: bool = True):
              for k in ("w", "b")} for p in params]
 
 
+def model_params(params_np, cfg, device=None) -> dict:
+    """The served model's params from the reference's, as nested dicts of
+    numpy arrays (bfloat16 leaves upcast to float32 by the caller, which
+    is exact; ``torch`` cannot take numpy's bfloat16).
+
+    Each segment's stacked leaves (leading layer axis) become the port's
+    list of per-layer dicts. A dense linear ``{"w"}`` and the embedding
+    are cast back to ``cfg.dtype`` (exact again); an int8 linear
+    ``{"w_q", "s"}`` keeps int8 weights and float32 scales; norm gains
+    stay float32. Weights stay ``(in, out)``."""
+    from repro_torch.models.layers import dt
+    dev = resolve_device(device)
+    wdtype = dt(cfg.dtype)
+    types = {"w": wdtype, "w_q": torch.int8, "s": torch.float32,
+             "g": torch.float32}
+
+    def leaves(tree, name=None):
+        if isinstance(tree, dict):
+            return {k: leaves(v, k) for k, v in tree.items()}
+        return torch.tensor(np.asarray(tree), dtype=types[name], device=dev)
+
+    def layer(tree, i):
+        if isinstance(tree, dict):
+            return {k: layer(v, i) for k, v in tree.items()}
+        return np.asarray(tree)[i]
+
+    out = {k: leaves(v) for k, v in params_np.items() if k != "segments"}
+    out["segments"] = []
+    for seg in params_np["segments"]:
+        n = len(np.asarray(seg["ln1"]["g"]))
+        out["segments"].append([leaves(layer(seg, i)) for i in range(n)])
+    return out
+
+
 def opt_state(state, device=None) -> dict:
     """The AdamW state ``{"m", "v", "step"}`` (moments mirror the
     params)."""

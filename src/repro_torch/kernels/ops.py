@@ -1,13 +1,18 @@
-"""The fleet loop's fused ops, dispatched by the device of their tensors:
-a CPU tensor takes the kernel's plain PyTorch version, a CUDA tensor
-launches the hand-written kernel or raises. There is no fallback from
-one to the other and no switch to choose."""
+"""The port's fused ops — the fleet loop's and the served model's —
+dispatched by the device of their tensors: a CPU tensor takes the
+kernel's plain PyTorch version, a CUDA tensor launches the hand-written
+kernel or raises. There is no fallback from one to the other and no
+switch to choose."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _decode_attention
 from repro_torch.kernels import dqn_head as _dqn_head
+from repro_torch.kernels import flash_attention as _flash_attention
+from repro_torch.kernels import int8_matmul as _int8_matmul
 from repro_torch.kernels import tabular_rl as _tabular_rl
+from repro_torch.kernels.ref import NEG_INF
 
 
 def _route(t: torch.Tensor) -> str:
@@ -41,3 +46,36 @@ def dqn_head(active, member, end_b, agg, params, allowed, acc_table, *,
         _dqn_head.dqn_head_cuda
     return fn(active, member, end_b, agg, w1, b1, w2, b2, w3, b3, allowed_f,
               acc_table, threshold=threshold, topk=topk)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Prefill attention. q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) ->
+    (B, Sq, H, hd), q right-aligned against the kv sequence; see
+    ``ref.attention_ref``."""
+    fn = _flash_attention.plain if _route(q) == "cpu" else \
+        _flash_attention.flash_attention_cuda
+    return fn(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k_cache, v_cache, kv_pos, cur_pos, *,
+                     window: int = 0):
+    """One query token against a cache. q: (B, H, hd); caches: (B, S,
+    KV, hd); kv_pos: (B, S) absolute position of each slot (-1 empty);
+    cur_pos: (B,). A slot attends iff ``0 <= kv_pos <= cur_pos`` (and
+    ``kv_pos > cur_pos - window`` with a window), carried into the
+    kernel as an additive float32 bias row."""
+    valid = (kv_pos >= 0) & (kv_pos <= cur_pos[:, None])
+    if window:
+        valid &= kv_pos > cur_pos[:, None] - window
+    bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
+    fn = _decode_attention.plain if _route(q) == "cpu" else \
+        _decode_attention.decode_attention_cuda
+    return fn(q, k_cache, v_cache, bias)
+
+
+def int8_matmul(x_q, sx, w_q, sw):
+    """(M, K) int8 x (K, N) int8 -> (M, N) float32 ``(acc * sx) * sw``
+    with ``sx`` (M, 1) and ``sw`` (1, N); see ``ref.int8_matmul_ref``."""
+    fn = _int8_matmul.plain if _route(x_q) == "cpu" else \
+        _int8_matmul.int8_matmul_cuda
+    return fn(x_q, sx, w_q, sw)

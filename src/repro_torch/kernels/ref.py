@@ -1,14 +1,70 @@
-"""Plain PyTorch versions of the fleet loop's kernels — the port of the
-oracles in ``repro/kernels/ref.py``. A CPU tensor takes these; on the
-card they are what ``chip_smoke.py`` holds each CUDA kernel against.
+"""Plain PyTorch versions of the port's kernels — the port of the oracles
+in ``repro/kernels/ref.py``: the fleet loop's (K1, K2) and the served
+model's (K3 attention, K4 decode attention, K5 int8 matmul). A CPU
+tensor takes these; on the card they are what ``chip_smoke.py`` holds
+each CUDA kernel against.
 """
 from __future__ import annotations
 
 import itertools
+import math
 
 import torch
 
 NEG_INF = -1e30
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                  bias=None):
+    """Naive exact attention in float32. q: (B, Sq, H, hd); k, v: (B,
+    Skv, KV, hd) with H = KV * G (q head h reads kv head h // G). q is
+    right-aligned against the kv sequence; ``window > 0`` keeps kv_pos in
+    (q_pos - window, q_pos]; ``bias``: (B, Skv) additive (invalid cache
+    slots). Returns q's dtype."""
+    b, sq, h, hd = q.shape
+    skv, n_kv = k.shape[1], k.shape[2]
+    g = h // n_kv
+    qg = q.reshape(b, sq, n_kv, g, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
+    s = s * (1.0 / math.sqrt(hd))
+    q_pos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    kv_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kv_pos <= q_pos
+    if window:
+        mask &= kv_pos > q_pos - window
+    s = torch.where(mask, s, NEG_INF)
+    if bias is not None:
+        s = s + bias[:, None, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, bias):
+    """q: (B, H, hd); caches: (B, S, KV, hd); bias: (B, S) additive."""
+    return attention_ref(q[:, None], k_cache, v_cache, causal=False,
+                         bias=bias)[:, 0]
+
+
+def int8_matmul_ref(x_q, sx, w_q, sw):
+    """x_q: (M, K) int8; sx: (M, 1) f32; w_q: (K, N) int8; sw: (1, N)
+    f32 -> (M, N) f32 ``(float(acc) * sx) * sw``. The integer product is
+    taken in float64, exact while |acc| < 2^53 (K <= 2^38 at int8), so
+    the result is the int32 accumulation's on every device."""
+    acc = x_q.to(torch.float64) @ w_q.to(torch.float64)
+    return acc.to(torch.float32) * sx * sw
+
+
+def quantize_ref(x, dim: int = -1):
+    """Symmetric int8 quantization along ``dim`` -> (x_q, scale): scale
+    = (max |x| + 1e-8) / 127, x_q = clip(round(x / scale), +-127) with
+    round half to even."""
+    amax = x.abs().amax(dim=dim, keepdim=True).float() + 1e-8
+    s = amax / 127.0
+    x_q = torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
+    return x_q, s
 
 
 def first_argmax_ref(x: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,189 @@
+"""Core building blocks of the served model — the port of
+``repro/models/layers.py``: linear (incl. int8), RMSNorm, RoPE, the two
+attention cores and the attention/MLP blocks.
+
+All functions are plain tensor functions over dict params, as in the
+reference; weights are ``(in, out)``. The attention cores and the int8
+projection go through ``kernels.ops``, so on the card they launch the
+hand-written kernels (K3 flash attention, K4 decode attention, K5 int8
+matmul) and on the CPU their plain versions. Initialisers draw from an
+explicit ``torch.Generator`` on the CPU, so a seed gives the same
+weights on every device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+
+def dt(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+# ---------------------------------------------------------------------------
+# Linear (dense or int8-quantized)
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int,
+                dtype=torch.bfloat16, quant: str = "none",
+                scale: Optional[float] = None):
+    std = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen) * std
+    if quant == "int8":
+        s = w.abs().amax(0, keepdim=True) / 127.0 + 1e-8
+        w_q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+        return {"w_q": w_q, "s": s}
+    return {"w": w.to(dtype)}
+
+
+def linear(params, x):
+    """y = x @ W. The int8 path quantizes each token's activations
+    (scale = (max |x| + 1e-8) / 127, round half to even, clip to +-127),
+    takes the int8 x int8 product through ``ops.int8_matmul`` (K5) with
+    the per-column weight scales, and casts back to ``x.dtype``."""
+    if "w_q" in params:
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, x.shape[-1])
+        sx = (x2.abs().amax(-1, keepdim=True).to(torch.float32)
+              + 1e-8) / 127.0
+        x_q = torch.clamp(torch.round(x2.to(torch.float32) / sx),
+                          -127, 127).to(torch.int8)
+        y = ops.int8_matmul(x_q, sx, params["w_q"], params["s"])
+        return y.reshape(*lead, -1).to(x.dtype)
+    return x @ params["w"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+
+
+def init_rmsnorm(d: int):
+    return {"g": torch.zeros(d)}      # gemma-style (1 + g)
+
+
+def rmsnorm(params, x, eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * (1.0 + params["g"])
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, device=device,
+                                         dtype=torch.float32) / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S). Split
+    halves (not interleaved)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    ang = positions[..., None].to(torch.float32) * freqs     # (..., S, hd/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention cores. q (B, Sq, H, hd), k/v (B, Skv, KV, hd) with H = KV * G.
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
+                      softcap: float = 0.0):
+    """Online-softmax attention over the full sequence through
+    ``ops.flash_attention`` (K3), q right-aligned against the kv
+    sequence. ``window > 0`` keeps kv_pos in (q_pos - window, q_pos].
+
+    The reference's jnp mirror rounds the probabilities to the value
+    dtype before the PV product; the kernel, like the Pallas kernel it
+    replaces, keeps them in float32 (equal in float32 models)."""
+    if softcap:
+        raise NotImplementedError(
+            "logit soft-capping needs a kernel variant the port does not "
+            "have yet (ROADMAP queue 1, other architectures)")
+    return ops.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k_cache, v_cache, kv_pos, cur_pos, *,
+                     window: int = 0, softcap: float = 0.0):
+    """Single-token attention against a (possibly ring-buffered) cache
+    through ``ops.decode_attention`` (K4).
+
+    q: (B, 1, H, hd); caches: (B, Sc, KV, hd); kv_pos: (B, Sc) absolute
+    position of each slot (-1 = empty); cur_pos: (B,) position of the
+    new token."""
+    if softcap:
+        raise NotImplementedError(
+            "logit soft-capping needs a kernel variant the port does not "
+            "have yet (ROADMAP queue 1, other architectures)")
+    o = ops.decode_attention(q[:, 0], k_cache, v_cache, kv_pos, cur_pos,
+                             window=window)
+    return o[:, None]
+
+
+# ---------------------------------------------------------------------------
+# Attention block (projections + rope)
+
+
+def init_attention(gen: torch.Generator, cfg):
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    dtype = dt(cfg.dtype)
+    return {
+        "wq": init_linear(gen, d, qd, dtype, cfg.quant),
+        "wk": init_linear(gen, d, kvd, dtype, cfg.quant),
+        "wv": init_linear(gen, d, kvd, dtype, cfg.quant),
+        "wo": init_linear(gen, qd, d, dtype, cfg.quant,
+                          scale=1.0 / math.sqrt(qd * max(1, 2 * cfg.n_layers))),
+    }
+
+
+def attention_qkv(params, x, cfg, positions=None, *, rope: bool = True):
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = linear(params["wq"], x).reshape(b, s, cfg.n_heads, hd)
+    k = linear(params["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    v = linear(params["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    if rope:
+        if positions is None:
+            positions = torch.arange(s, device=x.device)[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# MLP
+
+
+def init_mlp(gen: torch.Generator, cfg):
+    d, f = cfg.d_model, cfg.d_ff
+    dtype = dt(cfg.dtype)
+    down = 1.0 / math.sqrt(f * max(1, 2 * cfg.n_layers))
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        return {"w_gate": init_linear(gen, d, f, dtype, cfg.quant),
+                "w_up": init_linear(gen, d, f, dtype, cfg.quant),
+                "w_down": init_linear(gen, f, d, dtype, cfg.quant,
+                                      scale=down)}
+    return {"w_up": init_linear(gen, d, f, dtype, cfg.quant),
+            "w_down": init_linear(gen, f, d, dtype, cfg.quant, scale=down)}
+
+
+def mlp(params, x, act: str):
+    if act == "swiglu":
+        h = F.silu(linear(params["w_gate"], x)) * linear(params["w_up"], x)
+    elif act == "geglu":
+        h = F.gelu(linear(params["w_gate"], x), approximate="tanh") \
+            * linear(params["w_up"], x)
+    else:
+        h = F.gelu(linear(params["w_up"], x), approximate="tanh")
+    return linear(params["w_down"], h)

@@ -1,0 +1,122 @@
+"""Model facade — the port of ``repro/models/model.py`` for the dense
+decoder family:
+
+    model = build_model(cfg)
+    params = model.init(seed, device="cuda")
+    logits, cache = model.prefill(params, {"tokens": tokens}, max_len=...)
+    logits, cache = model.decode(params, cache, tokens)   # (B, 1) tokens
+
+Params are a plain dict: ``{"embed": {"w"}, "final_norm": {"g"},
+"segments": [[layer dict, ...], ...]}`` (``convert.model_params``
+carries the reference's stacked params across). The training loss comes
+with the training slice (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+
+class Model:
+    def __init__(self, cfg):
+        T.check_supported(cfg)
+        self.cfg = cfg
+        self.segments = T.segments_of(cfg)
+
+    # ---------------- init ----------------
+    def init(self, seed: int = 0, device=None):
+        """Random params from ``seed``: drawn on the CPU from one
+        ``torch.Generator`` (so every device gets the same weights), then
+        moved to ``device``."""
+        cfg = self.cfg
+        gen = torch.Generator().manual_seed(int(seed))
+        params = {
+            "embed": {"w": (torch.randn((cfg.padded_vocab, cfg.d_model),
+                                        generator=gen)
+                            * cfg.d_model ** -0.5).to(L.dt(cfg.dtype))},
+            "final_norm": L.init_rmsnorm(cfg.d_model),
+            "segments": [T.init_segment(gen, cfg, seg)
+                         for seg in self.segments],
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.init_linear(gen, cfg.d_model,
+                                              cfg.padded_vocab,
+                                              L.dt(cfg.dtype))
+        dev = resolve_device(device)
+        return _tree_map(lambda t: t.to(dev), params)
+
+    # ---------------- shared pieces ----------------
+    def _embed(self, params, tokens):
+        cfg = self.cfg
+        dtype = L.dt(cfg.dtype)
+        x = params["embed"]["w"][tokens.long()]
+        return x.to(dtype) * torch.tensor(math.sqrt(cfg.d_model),
+                                          dtype=dtype)
+
+    def _logits(self, params, x):
+        x = L.rmsnorm(params["final_norm"], x, self.cfg.rms_norm_eps)
+        if self.cfg.tie_embeddings:
+            return x @ params["embed"]["w"].to(x.dtype).T
+        return L.linear(params["lm_head"], x)
+
+    # ---------------- prefill ----------------
+    def prefill(self, params, batch, *, max_len: Optional[int] = None):
+        """Run the full prompt; return (last-token logits (B, 1, Vp),
+        decode cache)."""
+        x = self._embed(params, batch["tokens"])
+        s_total = x.shape[1]
+        max_len = max_len or s_total
+        positions = torch.arange(s_total, device=x.device)[None, :]
+        x, seg_ys = T.run_stack_full(self.segments, params["segments"], x,
+                                     self.cfg, positions, want_cache=True)
+        logits = self._logits(params, x[:, -1:])
+        return logits, self._cache_from_prefill(seg_ys, s_total, max_len)
+
+    def _cache_from_prefill(self, seg_ys, s: int, max_len: int):
+        """The last ``min(s, Sc)`` positions of each layer's K/V go to
+        ring slots ``arange(s - n_keep, s) % Sc``; the rest stays zero."""
+        segs = []
+        for seg, ys in zip(self.segments, seg_ys):
+            sc = self._seg_cache_len(seg, max_len)
+            n_keep = min(s, sc)
+            c = {}
+            for name in ("k", "v"):
+                kv = ys[name]                           # (Lseg, B, S, KV, hd)
+                buf = kv.new_zeros(kv.shape[:2] + (sc,) + kv.shape[3:])
+                slots = torch.arange(s - n_keep, s, device=kv.device) % sc
+                buf[:, :, slots] = kv[:, :, s - n_keep:]
+                c[name] = buf
+            segs.append(c)
+        return {"pos": s, "segments": segs}
+
+    # ---------------- decode ----------------
+    def decode(self, params, cache, tokens):
+        """One decode step. tokens: (B, 1) int. Returns (logits (B, 1,
+        Vp), cache); the cache's K/V buffers are updated in place."""
+        x = self._embed(params, tokens)
+        x, new_cache = T.run_stack_decode(self.segments, params["segments"],
+                                          x, cache, self.cfg, cache["pos"])
+        return self._logits(params, x), new_cache
+
+    def _seg_cache_len(self, seg: T.Segment, ctx: int) -> int:
+        if seg.is_global or self.cfg.attn_pattern == "full":
+            return ctx
+        return min(self.cfg.sliding_window, ctx)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def build_model(cfg) -> Model:
+    return Model(cfg)

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at shapes ``chip_smoke.py`` does not reach: rows wider than the
 tabular kernel's register path, odd hidden widths, masked rows and the
-infeasible fallback of the head. Every test here needs a CUDA device
+infeasible fallback of the head; attention with sequences that are no
+tile multiple, one kv head and a window; the int8 product at M = 17.
+Every test here needs a CUDA device
 and skips without one; run them on the GPU with
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
@@ -10,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import dqn_head, ref, tabular_rl
+from repro_torch.kernels import (decode_attention, dqn_head,
+                                 flash_attention, int8_matmul, ops, ref,
+                                 tabular_rl)
 
 
 @pytest.fixture
@@ -90,3 +94,94 @@ def test_head_kernel_masked_rows(cuda, threshold):
     allowed[1, :] = 0.0           # an all-masked user
     args = _head_args(cuda, 29, 3, 16, 7, allowed)
     _check_head(args, threshold)
+
+
+# ------------------------------------------- served model: K3, K4, K5 ----
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd,causal,window", [
+    (3, 33, 33, 5, 5, 16, True, 0),        # S not a tile multiple
+    (2, 100, 100, 8, 1, 32, True, 48),     # KV = 1, sliding window
+    (1, 70, 130, 4, 2, 64, False, 0),      # cross attention, Sq < Skv
+    (2, 256, 256, 2, 2, 32, True, 0),      # the d7 prefill layout
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, sq, skv, h,
+                                              kv, hd, causal, window):
+    g = torch.Generator(device=cuda).manual_seed(sq + h)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, sq, h, hd), (b, skv, kv, hd),
+                             (b, skv, kv, hd)))
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                               window=window)
+    want = flash_attention.plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.KERNEL.launches == before + 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,hd,s,window", [
+    (3, 8, 1, 32, 97, 0),                  # KV = 1, S not a tile multiple
+    (2, 4, 2, 64, 130, 40),                # window
+    (5, 2, 2, 32, 64, 0),                  # the d7 decode layout
+])
+def test_decode_attention_kernel_matches_plain(cuda, dtype, b, h, kv, hd,
+                                               s, window):
+    g = torch.Generator(device=cuda).manual_seed(s + h)
+    q = torch.randn((b, h, hd), generator=g, device=cuda).to(dtype)
+    kc, vc = (torch.randn((b, s, kv, hd), generator=g, device=cuda)
+              .to(dtype) for _ in range(2))
+    kv_pos = torch.arange(s, device=cuda)[None].repeat(b, 1)
+    kv_pos[:, s // 2:] = -1                         # a half-written ring
+    cur = torch.randint(1, s // 2, (b,), generator=g, device=cuda)
+    before = decode_attention.KERNEL.launches
+    got = ops.decode_attention(q, kc, vc, kv_pos, cur, window=window)
+    valid = (kv_pos >= 0) & (kv_pos <= cur[:, None])
+    if window:
+        valid &= kv_pos > cur[:, None] - window
+    bias = torch.where(valid, 0.0, -1e30)
+    want = decode_attention.plain(q, kc, vc, bias)
+    torch.cuda.synchronize()
+    assert decode_attention.KERNEL.launches == before + 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("m,k,n", [(17, 333, 65), (1, 256, 64),
+                                   (300, 64, 256), (4096, 1024, 256)])
+def test_int8_matmul_kernel_is_bit_exact(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(m + k)
+    xq, sx = ref.quantize_ref(torch.randn((m, k), generator=g, device=cuda))
+    wq, sw = ref.quantize_ref(torch.randn((k, n), generator=g, device=cuda),
+                              dim=0)
+    before = int8_matmul.KERNEL.launches
+    got = int8_matmul.int8_matmul_cuda(xq, sx, wq, sw)
+    want = int8_matmul.plain(xq, sx, wq, sw)
+    torch.cuda.synchronize()
+    assert int8_matmul.KERNEL.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_serving_kernels_refuse_wrong_types_on_the_card(cuda):
+    """A CUDA tensor the kernel does not take raises: nothing falls back
+    to the plain version."""
+    half = torch.zeros((1, 8, 2, 32), dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError):
+        ops.flash_attention(half, half, half)
+    with pytest.raises(TypeError):
+        ops.decode_attention(half[:, 0], half, half,
+                             torch.zeros((1, 8), dtype=torch.long,
+                                         device=cuda),
+                             torch.zeros(1, dtype=torch.long, device=cuda))
+    x = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        ops.int8_matmul(x, torch.ones((4, 1), device=cuda),
+                        torch.zeros((8, 2), dtype=torch.int8, device=cuda),
+                        torch.ones((1, 2), device=cuda))
+    q = torch.zeros((1, 8, 2, 48), device=cuda)          # head_dim 48
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q, q, q)
