@@ -17,7 +17,14 @@ paths through the entry points a user calls:
   bf16, d4 int8, d7 int8 at width 0.25, full width), a 1,024-cell
   3-user fleet routed with ``FleetOrchestrator.route(dispatch=engines)``
   into batches of 64, and each variant's ``generate`` at batch 64,
-  prompt bucket 256, 16 new tokens (kernels K3, K4, K5).
+  prompt bucket 256, 16 new tokens (kernels K3, K4, K5);
+* the state-space path: ``build_engines`` over Falcon-Mamba-7B at its
+  published size (64 Mamba blocks, d_model 4096, d_inner 8192, vocab
+  65,024; d0 bf16 and d4 int8), each variant's ``generate`` at batch 64,
+  prompt 256, 16 new tokens, a ``serve`` drain and a 256-cell 3-user
+  fleet routed into the engines; and Hymba-1.5B at full size (32 hybrid
+  layers, d_model 1600) generating at batch 8 from a 2,048-token prompt,
+  longer than its 1,024-token window (kernels K3, K4, K5, K6).
 
 Each path's kernel launch counts are set to 0 just before it and read
 just after. Every phase prints one JSON line; any failed check raises
@@ -29,6 +36,7 @@ last line is ``{"ok": true, "device": {...}}``. It needs a CUDA device
 and the ``src/repro_torch`` package beside it, and imports nothing of
 JAX.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -52,6 +60,17 @@ CELLS, USERS = 32768, 5
 # cache length; the routed fleet
 SERVE_BATCH, PROMPT, NEW_TOKENS, MAX_LEN = 64, 256, 16, 512
 ROUTE_CELLS, ROUTE_USERS = 1024, 3
+# the state-space path: the two configs, Falcon-Mamba's served variants,
+# Hymba's batch and prompt (longer than its 1,024-token window), the
+# routed fleet
+SSM_ARCH, HYBRID_ARCH = "falcon-mamba-7b", "hymba-1.5b"
+SSM_VARIANTS = ("d0", "d4")
+HYBRID_BATCH, HYBRID_PROMPT = 8, 2048
+HYBRID_MAX_LEN = HYBRID_PROMPT + NEW_TOKENS
+SSM_ROUTE_CELLS = 256
+# the exponentials' own rate: 16 per clock on each SM's special function
+# units x 132 SMs x the 1.98 GHz boost clock (NVIDIA's Hopper white paper)
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 
 def emit(**kw):
@@ -130,12 +149,12 @@ def step_profile(torch, run, steps=5, **label):
          top_kernels=[[n[:80], us / steps / 1e3] for n, us in top])
 
 
-def timed(fn):
+def timed(fn, warmup=3, reps=20):
     """(ms, wall_ms, source): the profiler's device time per call where
     the trace has it, else the CUDA-event time; and the CUDA-event time
     per call, which includes the host's launch overhead."""
-    wall = time_ms(fn)
-    dev = device_ms(fn)
+    wall = time_ms(fn, warmup, reps)
+    dev = device_ms(fn, warmup, reps)
     return (dev, wall, "profiler") if dev is not None else \
         (wall, wall, "events")
 
@@ -278,13 +297,30 @@ def head_phase(torch, dqn_head, ref, dynamics):
 
 
 # ------------------------------------------------------------ K3-K5 ----
-#: (name, q heads, kv heads) of the served layouts: d0/d4 and d7
-HEAD_LAYOUTS = (("d0/d4", 8, 4), ("d7", 2, 2))
-HEAD_DIM = 32
-#: the (K, N) projections of d4 (wq/wo, wk/wv, gate/up, down) and d7
-#: (wq/wk/wv, wo, gate/up/down)
-INT8_SHAPES = ((256, 256), (256, 128), (256, 1024), (1024, 256),
-               (256, 64), (64, 256))
+#: (name, batch, sequence or cache slots, q heads, kv heads, head dim,
+#: window): the edge ladder's d0/d4 and d7 layouts at prompt buckets 32
+#: and 256 (caches of 64 and 512 slots), and Hymba's at its 2,048-token
+#: prompt, global and sliding (window 1,024; at decode the global cache's
+#: 2,064 slots and the sliding layers' 1,024-slot ring)
+FLASH_CASES = tuple((name, SERVE_BATCH, s, h, kv, 32, 0)
+                    for name, h, kv in (("d0/d4", 8, 4), ("d7", 2, 2))
+                    for s in (32, PROMPT)) + (
+    ("hymba global", HYBRID_BATCH, HYBRID_PROMPT, 25, 5, 64, 0),
+    ("hymba sliding", HYBRID_BATCH, HYBRID_PROMPT, 25, 5, 64, 1024))
+DECODE_CASES = tuple((name, SERVE_BATCH, sc, h, kv, 32, 0)
+                     for name, h, kv in (("d0/d4", 8, 4), ("d7", 2, 2))
+                     for sc in (64, MAX_LEN)) + (
+    ("hymba global", HYBRID_BATCH, HYBRID_MAX_LEN, 25, 5, 64, 0),
+    ("hymba sliding", HYBRID_BATCH, 1024, 25, 5, 64, 1024))
+#: (M, K, N) of K5: M = 64 x 256 tokens for every projection of the edge
+#: ladder's d4 (wq/wo, wk/wv, gate/up, down) and d7 (wq/wk/wv, wo,
+#: gate/up/down); Falcon-Mamba d4's in_proj and out_proj at its prefill
+#: (64 x 256 tokens) and at decode (64 tokens)
+INT8_SHAPES = tuple((SERVE_BATCH * PROMPT, k, n) for k, n in (
+    (256, 256), (256, 128), (256, 1024), (1024, 256), (256, 64),
+    (64, 256))) + ((SERVE_BATCH * PROMPT, 4096, 16384),
+                   (SERVE_BATCH * PROMPT, 8192, 4096),
+                   (SERVE_BATCH, 4096, 16384), (SERVE_BATCH, 8192, 4096))
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 
 
@@ -299,47 +335,52 @@ def sdpa(torch, q, k, v, **kw):
 
 
 def flash_phase(torch, flash_attention):
-    """K3 at batch 64, causal, prompt buckets 32 and 256, both head
-    layouts; bf16 (the path's type) and float32."""
-    b = SERVE_BATCH
+    """K3, causal, at every case of ``FLASH_CASES``; bf16 (the path's
+    type) and float32."""
     g = torch.Generator(device="cuda").manual_seed(5)
     errs, main = [], None
-    for name, h, kv in HEAD_LAYOUTS:
-        for s in (32, PROMPT):
-            for dtype in ("bfloat16", "float32"):
-                dt = getattr(torch, dtype)
-                q, k, v = (torch.randn(shape, generator=g, device="cuda")
-                           .to(dt) for shape in ((b, s, h, HEAD_DIM),
-                                                 (b, s, kv, HEAD_DIM),
-                                                 (b, s, kv, HEAD_DIM)))
-                got = flash_attention.flash_attention_cuda(q, k, v)
-                want = flash_attention.plain(q, k, v)
-                torch.cuda.synchronize()
-                err = float((got.float() - want.float()).abs().max())
-                tol = ATTN_TOL[dtype]
-                check(err <= tol, f"flash_attention {name} S={s} {dtype}: "
-                      f"error {err} > {tol}")
-                errs.append(err)
-                if dtype != "bfloat16":
-                    continue
-                ms, wall_ms, src = timed(
-                    lambda: flash_attention.flash_attention_cuda(q, k, v))
-                plain_ms, _, _ = timed(lambda: flash_attention.plain(q, k, v))
-                lib_ms, _, _ = timed(lambda: sdpa(torch, q, k, v,
-                                                  is_causal=True))
-                # q, k, v read once, o written once (bf16); the causal
-                # products the data needs: 2 * 2 * hd per kept (q, k) pair
-                nbytes = 2 * b * s * HEAD_DIM * (2 * h + 2 * kv)
-                ops = 4 * HEAD_DIM * b * h * s * (s + 1) // 2
-                b_ms, b_by = bound(nbytes, ops, BF16_TC_OPS_PER_S)
-                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by, library_ms=lib_ms)
-                emit(phase="kernel_parity", kernel="flash_attention",
-                     layout=name, shape=[b, s, h, kv, HEAD_DIM],
-                     dtype=dtype, max_abs_err=err, tolerance=tol, timing=src,
-                     wall_ms=wall_ms, **row)
-                if name == "d0/d4" and s == PROMPT:
-                    main = row
+    for name, b, s, h, kv, hd, window in FLASH_CASES:
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q, k, v = (torch.randn(shape, generator=g, device="cuda")
+                       .to(dt) for shape in ((b, s, h, hd), (b, s, kv, hd),
+                                             (b, s, kv, hd)))
+            got = flash_attention.flash_attention_cuda(q, k, v,
+                                                       window=window)
+            want = flash_attention.plain(q, k, v, window=window)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = ATTN_TOL[dtype]
+            check(err <= tol, f"flash_attention {name} S={s} {dtype}: "
+                  f"error {err} > {tol}")
+            errs.append(err)
+            if dtype != "bfloat16":
+                continue
+            ms, wall_ms, src = timed(lambda: flash_attention
+                                     .flash_attention_cuda(q, k, v,
+                                                           window=window))
+            plain_ms, _, _ = timed(lambda: flash_attention.plain(
+                q, k, v, window=window))
+            qp = torch.arange(s, device="cuda")[:, None]
+            kp = torch.arange(s, device="cuda")[None, :]
+            band = (kp <= qp) & ((kp > qp - window) if window else True)
+            lib_ms, _, _ = timed(lambda: sdpa(
+                torch, q, k, v, **({"attn_mask": band} if window
+                                   else {"is_causal": True})))
+            # q, k, v read once, o written once (bf16); the products the
+            # data needs: 2 * 2 * hd per (q, k) pair the mask keeps
+            nbytes = 2 * b * s * hd * (2 * h + 2 * kv)
+            pairs = int(band.sum())
+            b_ms, b_by = bound(nbytes, 4 * hd * b * h * pairs,
+                               BF16_TC_OPS_PER_S)
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib_ms)
+            emit(phase="kernel_parity", kernel="flash_attention",
+                 layout=name, shape=[b, s, h, kv, hd], window=window,
+                 dtype=dtype, max_abs_err=err, tolerance=tol, timing=src,
+                 wall_ms=wall_ms, **row)
+            if name == "d0/d4" and s == PROMPT:
+                main = row
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:84",
@@ -347,58 +388,61 @@ def flash_phase(torch, flash_attention):
 
 
 def decode_phase(torch, ops, decode_attention):
-    """K4 at batch 64, caches of 64 and 512 slots written half way (the
-    ring's unwritten slots masked by the bias), both head layouts."""
-    b = SERVE_BATCH
+    """K4 at every case of ``DECODE_CASES``: the edge ladder's caches
+    written half way (the ring's unwritten slots masked by the bias),
+    Hymba's full at its last position, the sliding ring wrapped."""
     g = torch.Generator(device="cuda").manual_seed(6)
     errs, main = [], None
-    for name, h, kv in HEAD_LAYOUTS:
-        for sc in (64, MAX_LEN):
-            kv_pos = torch.arange(sc, device="cuda")[None].repeat(b, 1)
-            kv_pos[:, sc // 2:] = -1
+    for name, b, sc, h, kv, hd, window in DECODE_CASES:
+        idx = torch.arange(sc, device="cuda")[None].repeat(b, 1)
+        if window or sc == HYBRID_MAX_LEN:
+            cur = torch.full((b,), HYBRID_MAX_LEN - 1, device="cuda")
+            kv_pos = cur[:, None] - (cur[:, None] - idx) % sc
+        else:
+            kv_pos = idx.masked_fill(idx >= sc // 2, -1)
             cur = torch.randint(sc // 4, sc // 2, (b,), generator=g,
                                 device="cuda")
-            valid = (kv_pos >= 0) & (kv_pos <= cur[:, None])
-            bias = torch.where(valid, 0.0, -1e30)
-            for dtype in ("bfloat16", "float32"):
-                dt = getattr(torch, dtype)
-                q = torch.randn((b, h, HEAD_DIM), generator=g,
-                                device="cuda").to(dt)
-                kc, vc = (torch.randn((b, sc, kv, HEAD_DIM), generator=g,
-                                      device="cuda").to(dt)
-                          for _ in range(2))
-                got = ops.decode_attention(q, kc, vc, kv_pos, cur)
-                want = decode_attention.plain(q, kc, vc, bias)
-                torch.cuda.synchronize()
-                err = float((got.float() - want.float()).abs().max())
-                tol = ATTN_TOL[dtype]
-                check(err <= tol, f"decode_attention {name} Sc={sc} "
-                      f"{dtype}: error {err} > {tol}")
-                errs.append(err)
-                if dtype != "bfloat16":
-                    continue
-                ms, wall_ms, src = timed(
-                    lambda: decode_attention.decode_attention_cuda(
-                        q, kc, vc, bias))
-                plain_ms, _, _ = timed(
-                    lambda: decode_attention.plain(q, kc, vc, bias))
-                mask = bias.to(dt)[:, None, None, :]
-                lib_ms, _, _ = timed(lambda: sdpa(
-                    torch, q[:, None], kc, vc, attn_mask=mask))
-                # both caches read whole (bf16), q and o, the f32 bias row;
-                # 2 * 2 * hd per (head, slot)
-                nbytes = 2 * 2 * b * sc * kv * HEAD_DIM \
-                    + 2 * 2 * b * h * HEAD_DIM + 4 * b * sc
-                ops_n = 4 * HEAD_DIM * b * h * sc
-                b_ms, b_by = bound(nbytes, ops_n, BF16_TC_OPS_PER_S)
-                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           bound_by=b_by, library_ms=lib_ms)
-                emit(phase="kernel_parity", kernel="decode_attention",
-                     layout=name, shape=[b, sc, h, kv, HEAD_DIM],
-                     dtype=dtype, max_abs_err=err, tolerance=tol, timing=src,
-                     wall_ms=wall_ms, **row)
-                if name == "d0/d4" and sc == MAX_LEN:
-                    main = row
+        valid = (kv_pos >= 0) & (kv_pos <= cur[:, None])
+        if window:
+            valid &= kv_pos > cur[:, None] - window
+        bias = torch.where(valid, 0.0, -1e30)
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q = torch.randn((b, h, hd), generator=g, device="cuda").to(dt)
+            kc, vc = (torch.randn((b, sc, kv, hd), generator=g,
+                                  device="cuda").to(dt) for _ in range(2))
+            got = ops.decode_attention(q, kc, vc, kv_pos, cur, window=window)
+            want = decode_attention.plain(q, kc, vc, bias)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = ATTN_TOL[dtype]
+            check(err <= tol, f"decode_attention {name} Sc={sc} "
+                  f"{dtype}: error {err} > {tol}")
+            errs.append(err)
+            if dtype != "bfloat16":
+                continue
+            ms, wall_ms, src = timed(
+                lambda: decode_attention.decode_attention_cuda(
+                    q, kc, vc, bias))
+            plain_ms, _, _ = timed(
+                lambda: decode_attention.plain(q, kc, vc, bias))
+            mask = bias.to(dt)[:, None, None, :]
+            lib_ms, _, _ = timed(lambda: sdpa(
+                torch, q[:, None], kc, vc, attn_mask=mask))
+            # both caches read whole (bf16), q and o, the f32 bias row;
+            # 2 * 2 * hd per (head, slot)
+            nbytes = 2 * 2 * b * sc * kv * hd + 2 * 2 * b * h * hd \
+                + 4 * b * sc
+            b_ms, b_by = bound(nbytes, 4 * hd * b * h * sc,
+                               BF16_TC_OPS_PER_S)
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib_ms)
+            emit(phase="kernel_parity", kernel="decode_attention",
+                 layout=name, shape=[b, sc, h, kv, hd], window=window,
+                 dtype=dtype, max_abs_err=err, tolerance=tol, timing=src,
+                 wall_ms=wall_ms, **row)
+            if name == "d0/d4" and sc == MAX_LEN:
+                main = row
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:72",
@@ -416,12 +460,11 @@ def int8_library(torch, xq, wq):
 
 
 def int8_phase(torch, ref, int8_matmul):
-    """K5 at M = 64 x 256 tokens for every projection of d4 and d7:
-    bit-exact against the plain version."""
-    m = SERVE_BATCH * PROMPT
+    """K5 at every shape of ``INT8_SHAPES``: bit-exact against the plain
+    version."""
     g = torch.Generator(device="cuda").manual_seed(7)
     main = None
-    for k, n in INT8_SHAPES:
+    for m, k, n in INT8_SHAPES:
         xq, sx = ref.quantize_ref(torch.randn((m, k), generator=g,
                                               device="cuda"))
         wq, sw = ref.quantize_ref(torch.randn((k, n), generator=g,
@@ -444,12 +487,82 @@ def int8_phase(torch, ref, int8_matmul):
         emit(phase="kernel_parity", kernel="int8_matmul", shape=[m, k, n],
              bit_exact=True, max_abs_err=0.0, timing=src, wall_ms=wall_ms,
              **row)
-        if (k, n) == (256, 1024):
+        if (m, k, n) == (SERVE_BATCH * PROMPT, 256, 1024):
             main = row
     return dict(name="int8_matmul", route="cuda",
                 source="src/repro_torch/csrc/int8_matmul.cu",
                 replaces="src/repro/kernels/int8_matmul.py:40",
                 max_abs_err=0.0, **main)
+
+
+# ----------------------------------------------------------------- K6 ----
+#: (label, Bt, S, di, u's type): the Falcon-Mamba d0/d4 prefill (batch 64
+#: x 256 tokens), the Hymba prefill (batch 8 x 2,048 tokens, di = 3,200 no
+#: multiple of the kernel's block), and Hymba's once with float32 u
+SCAN_CASES = (("falcon", SERVE_BATCH, PROMPT, 8192, "bfloat16"),
+              ("hymba", HYBRID_BATCH, HYBRID_PROMPT, 3200, "bfloat16"),
+              ("hymba", HYBRID_BATCH, HYBRID_PROMPT, 3200, "float32"))
+SCAN_STATE = 16
+#: y: float32 within 1e-4 (tests/test_kernels.py); bf16 within one bf16
+#: step, absolute and relative. h_last (float32 on both) within 1e-4
+SCAN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+
+
+def scan_phase(torch, selective_scan):
+    """K6 at the state-space path's prefill shapes, inputs drawn as the
+    reference's scan tests draw them."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(8)
+    n = SCAN_STATE
+    errs, main = [], None
+    for label, bt, s, di, dtype in SCAN_CASES:
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda")
+        u = (rnd(bt, s, di) * 0.5).to(getattr(torch, dtype))
+        dt = F.softplus(rnd(bt, s, di)) * 0.1
+        args = (u, dt, -torch.exp(rnd(di, n) * 0.3), rnd(bt, s, n),
+                rnd(bt, s, n), rnd(di))
+        y, h = selective_scan.selective_scan_cuda(*args)
+        y2, h2 = selective_scan.plain(*args)
+        torch.cuda.synchronize()
+        tol = SCAN_TOL[dtype]
+        dy = (y.float() - y2.float()).abs()
+        err_y, err_h = float(dy.max()), float((h - h2).abs().max())
+        check(bool((dy <= tol + tol * y2.float().abs()).all()) and
+              err_h <= 1e-4, f"selective_scan {label} {dtype}: y error "
+              f"{err_y} (tolerance {tol} + {tol} relative), h_last error "
+              f"{err_h} (tolerance 1e-4)")
+        errs += [err_y, err_h]
+        line = dict(kernel="selective_scan", layout=label,
+                    shape=[bt, s, di, n], dtype=dtype, max_abs_err_y=err_y,
+                    max_abs_err_h=err_h, tolerance_y=tol, tolerance_h=1e-4)
+        if dtype != "bfloat16":
+            emit(phase="kernel_parity", **line)
+            continue
+        ms, wall_ms, src = timed(
+            lambda: selective_scan.selective_scan_cuda(*args))
+        plain_ms, _, _ = timed(lambda: selective_scan.plain(*args),
+                               warmup=1, reps=5)
+        # u, dt read and y written once per (batch, step, channel); A, D,
+        # B, C read and h_last written once. Per state: dt*A, the
+        # exponential (one operation here), h*dA + du*B, the C product and
+        # its sum; per channel: dt*u, u*D and its add
+        exps = bt * s * di * n
+        nbytes = bt * s * di * (2 * u.element_size() + 4) \
+            + 4 * (di * n + di + 2 * bt * s * n + bt * di * n)
+        b_ms, b_by = bound(nbytes, 7 * exps + 3 * bt * s * di)
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None)
+        # the time the special function units alone need when every
+        # exponential runs there, as this kernel's do
+        emit(phase="kernel_parity", **line, timing=src, wall_ms=wall_ms,
+             sfu_ms=exps / SFU_OPS_PER_S * 1e3, **row)
+        if label == "falcon":
+            main = row
+    return dict(name="selective_scan", route="cuda",
+                source="src/repro_torch/csrc/selective_scan.cu",
+                replaces="src/repro/kernels/selective_scan.py:47",
+                max_abs_err=max(errs), **main)
 
 
 # -------------------------------------------------------------- paths ----
@@ -562,14 +675,15 @@ def cpu_agreement(torch, R):
          decisions_agree=same)
 
 
-def route_dispatch(torch, R, engines):
-    """A 1,024-cell 3-user mixed Table-5 fleet (the full 10^3 joint
+def route_dispatch(torch, R, engines, cells=ROUTE_CELLS,
+                   phase="route_dispatch", seed=11):
+    """A ``cells``-cell 3-user mixed Table-5 fleet (the full 10^3 joint
     space) routed into the engines in batches of 64 by the oracle at
     goals 0 and 85; then, for each engine the oracle left idle, the
     fixed strategy that targets it (local dk, edge or cloud), so that
     every engine of ``build_engines`` serves."""
     import numpy as np
-    scen = R.scenarios.mixed_table5_fleet(R.Draws(11, "cuda"), ROUTE_CELLS,
+    scen = R.scenarios.mixed_table5_fleet(R.Draws(seed, "cuda"), cells,
                                           ROUTE_USERS, min_users=1,
                                           max_users=ROUTE_USERS)
     active = scen.active.cpu().numpy()
@@ -596,7 +710,7 @@ def route_dispatch(torch, R, engines):
         per = res.timings["per_tier_variant"]
         for key, tv in per.items():
             served_by[key] = served_by.get(key, 0) + tv["requests"]
-        emit(phase="route_dispatch", policy=label, cells=ROUTE_CELLS,
+        emit(phase=phase, policy=label, cells=cells,
              users=ROUTE_USERS, requests=len(res.served),
              batches=res.batches, gap_x=res.gap_x,
              wall_ms=t["wall_ms"], compute_ms=t["compute_ms"],
@@ -616,13 +730,45 @@ def route_dispatch(torch, R, engines):
             strategy = target.get(key, int(key.split("/d")[1]))
             route(f"static {strategy}",
                   R.api.StaticPolicy(ROUTE_USERS, strategy))
-    emit(phase="route_coverage", served_by=served_by)
+    emit(phase=f"{phase}_coverage", served_by=served_by)
+
+
+def timed_generate(torch, eng, toks, max_len):
+    """One warm-up, then prefill and the greedy decode loop of ``toks``
+    timed apart (host clock around synchronised calls), then the whole
+    ``generate`` call, its output checked for shape and token range.
+    Returns (cache after the decode loop, prefill ms, decode ms per
+    token, generate wall seconds)."""
+    cfg = eng.model.cfg
+    eng.warmup(*toks.shape)
+    with torch.inference_mode():
+        t_in = torch.tensor(toks, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = eng.model.prefill(eng.params, {"tokens": t_in},
+                                          max_len=max_len)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        check(bool(torch.isfinite(logits.float()).all()),
+              f"{cfg.name}: non-finite prefill logits")
+        cur = logits[:, -1:, :cfg.vocab_size].argmax(-1).int()
+        for _ in range(NEW_TOKENS):
+            logits, cache = eng.model.decode(eng.params, cache, cur)
+            cur = logits[:, -1:, :cfg.vocab_size].argmax(-1).int()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(bool(torch.isfinite(logits.float()).all()),
+              f"{cfg.name}: non-finite decode logits")
+    gen, wall = eng.generate(toks, NEW_TOKENS)
+    check(gen.shape == (toks.shape[0], NEW_TOKENS) and
+          int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size,
+          f"{cfg.name}: generated tokens out of range")
+    return cache, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / NEW_TOKENS, wall
 
 
 def serving(torch, engines):
     """Each variant's ``generate`` at batch 64, prompt bucket 256, 16 new
-    tokens, cache 512: prefill and decode timed apart, then the whole
-    call; the output checked for its shape and token range."""
+    tokens, cache 512."""
     import numpy as np
     rng = np.random.default_rng(0)
     out = {}
@@ -631,53 +777,32 @@ def serving(torch, engines):
         cfg = eng.model.cfg
         toks = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, PROMPT)) \
             .astype(np.int32)
-        eng.warmup(SERVE_BATCH, PROMPT)
-        with torch.inference_mode():
-            t_in = torch.tensor(toks, device="cuda")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, cache = eng.model.prefill(eng.params, {"tokens": t_in},
-                                              max_len=MAX_LEN)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            check(bool(torch.isfinite(logits.float()).all()),
-                  f"{vid}: non-finite prefill logits")
-            cur = logits[:, -1:, :cfg.vocab_size].argmax(-1).int()
-            for _ in range(NEW_TOKENS):
-                logits, cache = eng.model.decode(eng.params, cache, cur)
-                cur = logits[:, -1:, :cfg.vocab_size].argmax(-1).int()
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-        gen, wall = eng.generate(toks, NEW_TOKENS)
-        check(gen.shape == (SERVE_BATCH, NEW_TOKENS) and
-              int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size,
-              f"{vid}: generated tokens out of range")
-        out[vid] = cache
+        out[vid], prefill_ms, decode_ms, wall = timed_generate(
+            torch, eng, toks, MAX_LEN)
         emit(phase="serving", variant=vid, quant=cfg.quant,
              heads=[cfg.n_heads, cfg.n_kv_heads], d_ff=cfg.d_ff,
              batch=SERVE_BATCH, prompt=PROMPT, new_tokens=NEW_TOKENS,
-             max_len=MAX_LEN, prefill_ms=(t1 - t0) * 1e3,
-             decode_ms_per_token=(t2 - t1) * 1e3 / NEW_TOKENS,
-             generate_ms=wall * 1e3,
+             max_len=MAX_LEN, prefill_ms=prefill_ms,
+             decode_ms_per_token=decode_ms, generate_ms=wall * 1e3,
              tokens_per_s=SERVE_BATCH * NEW_TOKENS / wall)
     return out
 
 
-def decode_profile(torch, engines, caches, steps=5):
-    """Device busy share of ``steps`` decode steps of each variant (the
-    caches of ``serving`` continue)."""
-    for vid in ("d0", "d4", "d7"):
+def decode_profile(torch, engines, caches, steps=5, path="serving",
+                   batch=SERVE_BATCH):
+    """Device busy share of ``steps`` decode steps of each variant in
+    ``caches`` (the caches of ``serving`` continue)."""
+    for vid, cache in caches.items():
         eng = engines["S"][vid]
-        cache = caches[vid]
-        cur = torch.zeros((SERVE_BATCH, 1), dtype=torch.int32, device="cuda")
+        cur = torch.zeros((batch, 1), dtype=torch.int32, device="cuda")
 
         def run():
             nonlocal cache
             with torch.inference_mode():
                 for _ in range(steps):
                     _, cache = eng.model.decode(eng.params, cache, cur)
-        step_profile(torch, run, steps, path="serving", variant=vid,
-                     what="decode step")
+        step_profile(torch, run, steps, path=path, variant=vid,
+                     arch=eng.model.cfg.name, what="decode step")
 
 
 def serving_cpu_agreement(torch, engines, build_model, ServingEngine):
@@ -725,6 +850,183 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
+# ------------------------------------------------- state-space path ----
+def build_family(torch, build_engines, cfg, variants, max_len):
+    """``build_engines`` over ``cfg`` at its full size, one call per
+    variant so that each variant's init is timed alone (a variant's
+    weights come from its own seed, so they are those of one call)."""
+    engines, init_s = {"S": {}, "E": {}, "C": {}}, {}
+    for vid in variants:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = build_engines(cfg, variants=(vid,), max_len=max_len,
+                            device="cuda")
+        torch.cuda.synchronize()
+        init_s[vid] = time.perf_counter() - t0
+        for tier, e in one.items():
+            engines[tier].update(e)
+    return engines, init_s
+
+
+def cut_layers(params, picks):
+    """``params`` cut to the layers ``picks`` (one list of (segment,
+    layer) pairs per segment of the cut model); the tensors are shared."""
+    out = {k: v for k, v in params.items() if k != "segments"}
+    out["segments"] = [[params["segments"][si][li] for si, li in seg]
+                       for seg in picks]
+    return out
+
+
+def model_cpu_agreement(torch, cfg, params, build_model, batch, prompt,
+                        variant, steps=3):
+    """The card's model and the CPU's plain path on the same weights (a
+    copy of the card's): prefill and ``steps`` decode steps fed the CPU's
+    greedy tokens, logits within the bf16 tolerance (atol 0.125 + rtol
+    1e-2), greedy tokens equal where the CPU's top-2 margin is > 0.25."""
+    import numpy as np
+    m = build_model(cfg)
+    p_cpu = _to_cpu(params)
+    vocab = cfg.vocab_size
+    toks = np.random.default_rng(2).integers(0, vocab, (batch, prompt)) \
+        .astype(np.int32)
+    max_len = prompt + steps + 1
+    errs, clear_rows, equal = [], 0, True
+    with torch.inference_mode():
+        lg, cg = m.prefill(params, {"tokens": torch.tensor(
+            toks, device="cuda")}, max_len=max_len)
+        lc, cc = m.prefill(p_cpu, {"tokens": torch.tensor(toks)},
+                           max_len=max_len)
+        for step in range(steps + 1):
+            a, b_ = lg[:, -1, :vocab].float().cpu(), lc[:, -1, :vocab].float()
+            errs.append(float((a - b_).abs().max()))
+            check(bool(torch.allclose(a, b_, atol=0.125, rtol=1e-2)),
+                  f"{cfg.name} {variant}: card vs CPU logits differ by "
+                  f"{errs[-1]} at step {step}")
+            top2 = torch.sort(b_, -1).values[:, -2:]
+            clear = (top2[:, 1] - top2[:, 0]) > 0.25
+            same = a.argmax(-1) == b_.argmax(-1)
+            clear_rows += int(clear.sum())
+            equal &= bool(same[clear].all())
+            if step == steps:
+                break
+            cur = b_.argmax(-1)[:, None].int()
+            lg, cg = m.decode(params, cg, cur.cuda())
+            lc, cc = m.decode(p_cpu, cc, cur)
+    check(equal, f"{cfg.name} {variant}: card and CPU pick different "
+          "greedy tokens where the margin is clear")
+    emit(phase="ssm_cpu_agreement", arch=cfg.name, variant=variant,
+         layers=cfg.n_layers, d_model=cfg.d_model, d_inner=cfg.d_inner,
+         batch=batch, prompt=prompt, decode_steps=steps,
+         logits_max_abs_err=max(errs), logits_tolerance=[0.125, 1e-2],
+         clear_margin_tokens=clear_rows, tokens_equal=equal)
+
+
+def _held(params):
+    """(tensors' elements, bytes) of a param tree."""
+    if isinstance(params, dict):
+        params = list(params.values())
+    if isinstance(params, list):
+        parts = [_held(p) for p in params]
+        return sum(p[0] for p in parts), sum(p[1] for p in parts)
+    return params.numel(), params.numel() * params.element_size()
+
+
+def family_line(cfg, params, init_s):
+    n, nbytes = _held(params)
+    return dict(arch=cfg.name, quant=cfg.quant, n_layers=cfg.n_layers,
+                d_model=cfg.d_model, d_inner=cfg.d_inner,
+                state=cfg.ssm.state_dim, vocab=cfg.vocab_size,
+                params_analytic=cfg.param_count(), params_held=n,
+                weight_gb=nbytes / 1e9, init_seconds=init_s)
+
+
+def ssm_serving(torch, engines, init_s):
+    """Falcon-Mamba-7B d0 and d4 at full size: ``generate`` at batch 64,
+    prompt 256, 16 new tokens; each layer's state checked in the cache."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    out = {}
+    for vid in SSM_VARIANTS:
+        eng = engines["S"][vid]
+        cfg = eng.model.cfg
+        toks = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, PROMPT)) \
+            .astype(np.int32)
+        out[vid], prefill_ms, decode_ms, wall = timed_generate(
+            torch, eng, toks, MAX_LEN)
+        (seg,) = out[vid]["segments"]
+        check(set(seg) == {"conv", "h"} and tuple(seg["h"].shape) ==
+              (cfg.n_layers, SERVE_BATCH, cfg.d_inner, cfg.ssm.state_dim),
+              f"{vid}: unexpected SSM cache")
+        emit(phase="ssm_serving", variant=vid,
+             **family_line(cfg, eng.params, init_s[vid]),
+             batch=SERVE_BATCH, prompt=PROMPT, new_tokens=NEW_TOKENS,
+             prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
+             generate_ms=wall * 1e3,
+             tokens_per_s=SERVE_BATCH * NEW_TOKENS / wall)
+    return out
+
+
+def ssm_serve_drain(engines, Request, RequestBatcher):
+    """One queue of requests of mixed prompt lengths drained through
+    ``ServingEngine.serve``: each served once, with its stamps."""
+    import numpy as np
+    eng = engines["S"]["d0"]
+    vocab = eng.model.cfg.vocab_size
+    rng = np.random.default_rng(3)
+    lens = (5, 17, 32, 60, 100, 250)
+    batcher = RequestBatcher(4)
+    for i, n in enumerate(lens):
+        batcher.submit(Request(i, rng.integers(0, vocab, n).astype(np.int32),
+                               max_new_tokens=4))
+    served, batches = [], 0
+    while True:
+        done = eng.serve(batcher)
+        if not done:
+            break
+        served += done
+        batches += 1
+    check(sorted(r.rid for r in served) == list(range(len(lens))),
+          "serve drain: requests not served exactly once")
+    for r in served:
+        check(r.output.shape == (4,) and 0 <= int(r.output.min())
+              and int(r.output.max()) < vocab and r.response_time > 0
+              and r.deadline_met is not None, f"serve drain: request "
+              f"{r.rid} came back without its output or stamps")
+    emit(phase="ssm_serve_drain", arch=eng.model.cfg.name, variant="d0",
+         requests=len(served), batches=batches,
+         serve_ms=[r.serve_time * 1e3 for r in served])
+
+
+def hybrid_serving(torch, engines, init_s):
+    """Hymba-1.5B d0 at full size: ``generate`` at batch 8 from a
+    2,048-token prompt, 16 new tokens, cache 2,064; the sliding layers'
+    1,024-slot rings have wrapped."""
+    import numpy as np
+    eng = engines["S"]["d0"]
+    cfg = eng.model.cfg
+    toks = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (HYBRID_BATCH, HYBRID_PROMPT)).astype(np.int32)
+    cache, prefill_ms, decode_ms, wall = timed_generate(
+        torch, eng, toks, HYBRID_MAX_LEN)
+    slots = [(seg.is_global, c["k"].shape[2])
+             for seg, c in zip(eng.model.segments, cache["segments"])]
+    check(all(n == (HYBRID_MAX_LEN if g else cfg.sliding_window)
+              for g, n in slots) and
+          cache["pos"] == HYBRID_MAX_LEN > cfg.sliding_window,
+          f"hymba: unexpected cache slots {slots} at {cache['pos']}")
+    emit(phase="hybrid_serving", variant="d0",
+         **family_line(cfg, eng.params, init_s["d0"]),
+         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+         d_ff=cfg.d_ff, window=cfg.sliding_window,
+         global_layers=list(cfg.global_layers),
+         segments=len(eng.model.segments), batch=HYBRID_BATCH,
+         prompt=HYBRID_PROMPT, new_tokens=NEW_TOKENS,
+         max_len=HYBRID_MAX_LEN, prefill_ms=prefill_ms,
+         decode_ms_per_token=decode_ms, generate_ms=wall * 1e3,
+         tokens_per_s=HYBRID_BATCH * NEW_TOKENS / wall)
+    return {"d0": cache}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -741,17 +1043,18 @@ def main():
                                    scenarios)
     from repro_torch.kernels import (_build, decode_attention, dqn_head,
                                      flash_attention, int8_matmul, ops, ref,
-                                     tabular_rl)
+                                     selective_scan, tabular_rl)
     from repro_torch.launch.serve import build_engines
     from repro_torch.models import build_model
     from repro_torch.rng import Draws
-    from repro_torch.serving import ServingEngine
+    from repro_torch.serving import Request, RequestBatcher, ServingEngine
     R = types.SimpleNamespace(api=api, policy=policy, population=population,
                               scenarios=scenarios, Draws=Draws)
     fleet_kernels = [tabular_rl.KERNEL, dqn_head.KERNEL]
     serving_kernels = [flash_attention.KERNEL, decode_attention.KERNEL,
                        int8_matmul.KERNEL]
-    kernels = fleet_kernels + serving_kernels
+    ssm_kernels = serving_kernels + [selective_scan.KERNEL]
+    kernels = fleet_kernels + ssm_kernels
 
     emit(phase="env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
@@ -764,7 +1067,8 @@ def main():
                head_phase(torch, dqn_head, ref, dynamics),
                flash_phase(torch, flash_attention),
                decode_phase(torch, ops, decode_attention),
-               int8_phase(torch, ref, int8_matmul)]
+               int8_phase(torch, ref, int8_matmul),
+               scan_phase(torch, selective_scan)]
     cpu_agreement(torch, R)
     engines = build_engines(get_config("edge-ladder"), max_len=MAX_LEN,
                             device="cuda")
@@ -780,12 +1084,50 @@ def main():
     route_dispatch(torch, R, engines)
     caches = serving(torch, engines)
     launches.update({k.name: k.launches for k in serving_kernels})
-    emit(phase="launches", fleet_loop={k.name: launches[k.name]
-                                       for k in fleet_kernels},
-         serving={k.name: launches[k.name] for k in serving_kernels})
     step_profile(torch, lambda: tab_agent.run(5), agent="tabular")
     step_profile(torch, lambda: dqn_agent.run(5), agent="dqn")
     decode_profile(torch, engines, caches)
+    del engines, caches
+
+    # the state-space path: Falcon-Mamba-7B (d0, d4) and Hymba-1.5B (d0)
+    # at full size
+    falcon = get_config(SSM_ARCH)
+    ssm_engines, ssm_init = build_family(torch, build_engines, falcon,
+                                         SSM_VARIANTS, MAX_LEN)
+    for vid in SSM_VARIANTS:          # 2 layers at full width
+        eng = ssm_engines["S"][vid]
+        model_cpu_agreement(
+            torch, dataclasses.replace(eng.model.cfg, n_layers=2),
+            cut_layers(eng.params, [[(0, 0), (0, 1)]]), build_model,
+            2, 32, vid)
+    hymba = get_config(HYBRID_ARCH)
+    hyb_engines, hyb_init = build_family(torch, build_engines, hymba,
+                                         ("d0",), HYBRID_MAX_LEN)
+    eng = hyb_engines["S"]["d0"]      # one global and one sliding layer
+    model_cpu_agreement(
+        torch, dataclasses.replace(eng.model.cfg, n_layers=2,
+                                   global_layers=(0,)),
+        cut_layers(eng.params, [[(0, 0)], [(1, 0)]]), build_model,
+        2, hymba.sliding_window + 32, "d0")
+    for k in ssm_kernels:             # the state-space path's launches only
+        k.launches = 0
+    ssm_caches = ssm_serving(torch, ssm_engines, ssm_init)
+    ssm_serve_drain(ssm_engines, Request, RequestBatcher)
+    route_dispatch(torch, R, ssm_engines, cells=SSM_ROUTE_CELLS,
+                   phase="route_dispatch_ssm", seed=13)
+    hyb_caches = hybrid_serving(torch, hyb_engines, hyb_init)
+    ssm_launches = {k.name: k.launches for k in ssm_kernels}
+    launches["selective_scan"] = ssm_launches["selective_scan"]
+    emit(phase="launches", fleet_loop={k.name: launches[k.name]
+                                       for k in fleet_kernels},
+         serving={k.name: launches[k.name] for k in serving_kernels},
+         ssm_path=ssm_launches)
+    for name, n in ssm_launches.items():
+        check(n > 0, f"{name} was never launched on the state-space path")
+    decode_profile(torch, ssm_engines, {"d0": ssm_caches["d0"]},
+                   path="ssm_serving")
+    decode_profile(torch, hyb_engines, hyb_caches, path="hybrid_serving",
+                   batch=HYBRID_BATCH)
     for e in entries:
         e["launches"] = launches[e["name"]]
         check(e["launches"] > 0,

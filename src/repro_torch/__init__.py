@@ -1,5 +1,7 @@
-"""repro_torch — the PyTorch/CUDA port of ``repro``'s fleet online-learning
-loop.
+"""repro_torch — the PyTorch/CUDA port of ``repro``: the fleet
+online-learning loop and the serving path of the served models (the
+edge ladder, Falcon-Mamba and Hymba), their engines and the routed
+dispatch.
 
 The package mirrors ``repro``'s layout (``fleet/dynamics.py`` here is the
 counterpart of ``repro/fleet/dynamics.py``, and so on) but imports
@@ -8,11 +10,12 @@ it needs. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; on a host without CUDA the default raises rather than
 moving to the CPU on its own (``resolve_device``).
 
-The two hot-path kernels of the loop (``kernels.tabular_rl`` and
-``kernels.dqn_head``) are hand-written CUDA C++ for Hopper
-(``csrc/*.cu``), built with ``nvcc`` at first use and bound with
-``ctypes``. Each has a plain PyTorch version beside it, which is what a
-CPU tensor takes.
+The six kernels of those paths — the fleet loop's ``kernels.tabular_rl``
+and ``kernels.dqn_head``, the served models' ``flash_attention``,
+``decode_attention``, ``int8_matmul`` and ``selective_scan`` — are
+hand-written CUDA C++ for Hopper (``csrc/*.cu``), built with ``nvcc`` at
+first use and bound with ``ctypes``. Each has a plain PyTorch version
+beside it, which is what a CPU tensor takes (``kernels.ops``).
 """
 from __future__ import annotations
 

@@ -2,9 +2,11 @@
 
 ``ModelConfig`` keeps every field and derived property of the reference
 (so analytic counts such as ``active_param_count`` agree), and
-``scale_width`` is the variant-ladder scaling. ``get_config`` knows the
-configurations the port can build; so far that is ``edge-ladder``, the
-paper's Table-4 ladder as a small decoder transformer.
+``scale_width`` is the variant-ladder scaling and ``reduced`` the
+smoke-test cut of a family. ``get_config`` knows the configurations the
+port can build: ``edge-ladder`` (the paper's Table-4 ladder as a small
+decoder transformer), ``falcon-mamba-7b`` (pure Mamba-1 SSM) and
+``hymba-1.5b`` (attention and Mamba heads in parallel).
 """
 from __future__ import annotations
 
@@ -162,7 +164,9 @@ class ModelConfig:
 
 
 #: arch id -> module of ``repro_torch.configs`` holding its ``CONFIG``
-_MODULE_FOR = {"edge-ladder": "edge_ladder"}
+_MODULE_FOR = {"edge-ladder": "edge_ladder",
+               "falcon-mamba-7b": "falcon_mamba_7b",
+               "hymba-1.5b": "hymba_1_5b"}
 
 
 def get_config(arch_id: str) -> ModelConfig:
@@ -171,6 +175,33 @@ def get_config(arch_id: str) -> ModelConfig:
                        f"knows {sorted(_MODULE_FOR)} (ROADMAP queue 1)")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[arch_id]}")
     return mod.CONFIG
+
+
+def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,
+            n_heads: int = 4, d_ff: int = 512, vocab: int = 512,
+            max_experts: int = 4) -> ModelConfig:
+    """Smoke-test variant of the same family: <=2 layers, d_model<=512,
+    <=4 experts, preserving arch_type/attention pattern/SSM-ness."""
+    kv = max(1, min(cfg.n_kv_heads, n_heads // 2))
+    moe = None
+    if cfg.moe:
+        ne = min(cfg.moe.n_experts, max_experts)
+        moe = replace(cfg.moe, n_experts=ne,
+                      top_k=min(cfg.moe.top_k, max(1, ne // 2)))
+    upd = dict(
+        n_layers=n_layers, d_model=d_model, n_heads=n_heads, n_kv_heads=kv,
+        head_dim=d_model // n_heads, d_ff=(d_ff if cfg.d_ff else 0),
+        vocab_size=vocab, moe=moe, ssm=cfg.ssm,
+        sliding_window=min(cfg.sliding_window, 64),
+        global_interval=(min(cfg.global_interval, n_layers)
+                         if cfg.global_interval else 0),
+        global_layers=(tuple(g for g in cfg.global_layers if g < n_layers)
+                       or ((n_layers - 1,) if cfg.global_layers else ())),
+        n_enc_layers=(n_layers if cfg.n_enc_layers else 0),
+        enc_seq=(32 if cfg.enc_seq else 0),
+        n_img_tokens=(8 if cfg.n_img_tokens else 0),
+    )
+    return replace(cfg, **upd)
 
 
 def scale_width(cfg: ModelConfig, width_mult: float,

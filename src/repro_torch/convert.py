@@ -61,12 +61,16 @@ def model_params(params_np, cfg, device=None) -> dict:
     list of per-layer dicts. A dense linear ``{"w"}`` and the embedding
     are cast back to ``cfg.dtype`` (exact again); an int8 linear
     ``{"w_q", "s"}`` keeps int8 weights and float32 scales; norm gains
-    stay float32. Weights stay ``(in, out)``."""
+    stay float32. A Mamba block keeps the reference's types: ``conv_w``
+    in ``cfg.dtype``, ``conv_b``, ``dt_w``, ``dt_b``, ``A_log`` and ``D``
+    float32. Weights stay ``(in, out)``."""
     from repro_torch.models.layers import dt
     dev = resolve_device(device)
     wdtype = dt(cfg.dtype)
-    types = {"w": wdtype, "w_q": torch.int8, "s": torch.float32,
-             "g": torch.float32}
+    f32 = torch.float32
+    types = {"w": wdtype, "w_q": torch.int8, "s": f32, "g": f32,
+             "conv_w": wdtype, "conv_b": f32, "dt_w": f32, "dt_b": f32,
+             "A_log": f32, "D": f32}
 
     def leaves(tree, name=None):
         if isinstance(tree, dict):

@@ -11,6 +11,7 @@ from repro_torch.kernels import decode_attention as _decode_attention
 from repro_torch.kernels import dqn_head as _dqn_head
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import int8_matmul as _int8_matmul
+from repro_torch.kernels import selective_scan as _selective_scan
 from repro_torch.kernels import tabular_rl as _tabular_rl
 from repro_torch.kernels.ref import NEG_INF
 
@@ -79,3 +80,15 @@ def int8_matmul(x_q, sx, w_q, sw):
     fn = _int8_matmul.plain if _route(x_q) == "cpu" else \
         _int8_matmul.int8_matmul_cuda
     return fn(x_q, sx, w_q, sw)
+
+
+def selective_scan(u, dt, A, B, C, D):
+    """Mamba-1 selective scan. u, dt: (Bt, S, di); A: (di, N); B, C: (Bt,
+    S, N) (slices of a projection are made contiguous here); D: (di,).
+    Returns ``(y (Bt, S, di) in u's dtype, h_last (Bt, di, N) f32)``; see
+    ``ref.selective_scan_ref``."""
+    if _route(u) == "cpu":
+        return _selective_scan.plain(u, dt, A, B, C, D)
+    return _selective_scan.selective_scan_cuda(
+        u.contiguous(), dt.contiguous(), A.contiguous(), B.contiguous(),
+        C.contiguous(), D.contiguous())

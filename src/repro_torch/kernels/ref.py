@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's kernels — the port of the oracles
 in ``repro/kernels/ref.py``: the fleet loop's (K1, K2) and the served
-model's (K3 attention, K4 decode attention, K5 int8 matmul). A CPU
+model's (K3 attention, K4 decode attention, K5 int8 matmul, K6 the
+Mamba-1 selective scan). A CPU
 tensor takes these; on the card they are what ``chip_smoke.py`` holds
 each CUDA kernel against.
 """
@@ -203,3 +204,26 @@ def dqn_head_ref(active, member, end_b, agg, w1, b1, w2, b2, w3, b3,
                    allowed)
     return greedy_head_ref(q, member, acc_table, threshold=threshold,
                            topk=topk), q
+
+
+def selective_scan_ref(u, dt, A, B, C, D):
+    """Sequential (loop over time) selective-SSM oracle:
+    ``h_t = exp(dt_t A) h_{t-1} + (dt_t u_t) B_t`` from ``h_0 = 0`` and
+    ``y_t = h_t . C_t + D u_t``.
+
+    u, dt: (Bt, S, di); A: (di, N); B, C: (Bt, S, N); D: (di,).
+    Returns (y: (Bt, S, di) in u's dtype, h_last: (Bt, di, N) float32);
+    all arithmetic in float32."""
+    uf, dtf = u.to(torch.float32), dt.to(torch.float32)
+    Bf, Cf = B.to(torch.float32), C.to(torch.float32)
+    Af = A.to(torch.float32)
+    h = torch.zeros((u.shape[0], u.shape[2], A.shape[1]),
+                    dtype=torch.float32, device=u.device)
+    ys = []
+    for t in range(u.shape[1]):
+        dA = torch.exp(dtf[:, t, :, None] * Af[None])
+        dBu = (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :]
+        h = h * dA + dBu
+        ys.append((h * Cf[:, t, None, :]).sum(-1))
+    y = torch.stack(ys, 1) + uf * D.to(torch.float32)[None, None]
+    return y.to(u.dtype), h

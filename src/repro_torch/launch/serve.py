@@ -6,6 +6,7 @@ requests into.
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import build_engines
     engines = build_engines(get_config("edge-ladder"))
+    mamba = build_engines(get_config("falcon-mamba-7b"), variants=("d0", "d4"))
 
 The reference's command-line loop comes with the single-cell layer
 (ROADMAP queue 1).
@@ -39,7 +40,9 @@ def build_engines(cfg, variants=("d0", "d4", "d7"), max_len: int = 64,
 
     ``hop_ms`` (e.g. ``{"E": 25.0, "C": 50.0}``) adds a real per-batch
     network-hop sleep per tier; default: no hops. Weights are random,
-    from ``variant_seed(seed, vid)``."""
+    from ``variant_seed(seed, vid)``, drawn on ``device`` (see
+    ``Model.init``): one seed serves the same models on every card, but
+    other models on the CPU than on a card."""
     dev = resolve_device(device)
     ladder = build_ladder(cfg)
     engines = {"S": {}, "E": {}, "C": {}}

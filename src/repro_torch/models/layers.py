@@ -1,14 +1,15 @@
 """Core building blocks of the served model — the port of
-``repro/models/layers.py``: linear (incl. int8), RMSNorm, RoPE, the two
-attention cores and the attention/MLP blocks.
+``repro/models/layers.py``: linear (incl. int8), RMSNorm, RoPE, the
+attention cores (full, sliding-window banded and decode) and the
+attention/MLP blocks.
 
 All functions are plain tensor functions over dict params, as in the
 reference; weights are ``(in, out)``. The attention cores and the int8
 projection go through ``kernels.ops``, so on the card they launch the
 hand-written kernels (K3 flash attention, K4 decode attention, K5 int8
 matmul) and on the CPU their plain versions. Initialisers draw from an
-explicit ``torch.Generator`` on the CPU, so a seed gives the same
-weights on every device.
+explicit ``torch.Generator`` and create their tensors on that
+generator's device.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int,
                 dtype=torch.bfloat16, quant: str = "none",
                 scale: Optional[float] = None):
     std = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=gen) * std
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device) * std
     if quant == "int8":
         s = w.abs().amax(0, keepdim=True) / 127.0 + 1e-8
         w_q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
@@ -62,8 +63,8 @@ def linear(params, x):
 # Norms
 
 
-def init_rmsnorm(d: int):
-    return {"g": torch.zeros(d)}      # gemma-style (1 + g)
+def init_rmsnorm(d: int, device=None):
+    return {"g": torch.zeros(d, device=device)}      # gemma-style (1 + g)
 
 
 def rmsnorm(params, x, eps: float = 1e-6):
@@ -112,6 +113,19 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
             "logit soft-capping needs a kernel variant the port does not "
             "have yet (ROADMAP queue 1, other architectures)")
     return ops.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def local_banded_attention(q, k, v, *, window: int, softcap: float = 0.0):
+    """Sliding-window causal attention over a prefill longer than the
+    window: kv_pos in (q_pos - window, q_pos]. The reference computes it
+    block-locally in jnp (each window-long block against itself and the
+    block before); here it is the same function of K3 with its window,
+    whose whole-tile skips give the banded cost."""
+    if softcap:
+        raise NotImplementedError(
+            "logit soft-capping needs a kernel variant the port does not "
+            "have yet (ROADMAP queue 1, other architectures)")
+    return ops.flash_attention(q, k, v, causal=True, window=window)
 
 
 def decode_attention(q, k_cache, v_cache, kv_pos, cur_pos, *,

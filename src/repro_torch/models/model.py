@@ -1,5 +1,5 @@
-"""Model facade — the port of ``repro/models/model.py`` for the dense
-decoder family:
+"""Model facade — the port of ``repro/models/model.py`` for the dense,
+state-space and hybrid decoder families:
 
     model = build_model(cfg)
     params = model.init(seed, device="cuda")
@@ -31,16 +31,23 @@ class Model:
 
     # ---------------- init ----------------
     def init(self, seed: int = 0, device=None):
-        """Random params from ``seed``: drawn on the CPU from one
-        ``torch.Generator`` (so every device gets the same weights), then
-        moved to ``device``."""
+        """Random params from ``seed``, drawn on ``device`` itself by one
+        ``torch.Generator`` there, so a served 7 B model is neither drawn
+        on the host nor held there (~15 GB per bf16 variant) before the
+        copy: drawing Falcon-Mamba-7B on the host takes over a minute per
+        variant (``tools/torch_init_time.py``), on the card a fraction of
+        a second. The weights of one seed depend on the device's kind:
+        every card gives the same ones, but the card's Philox draws
+        differ from the CPU's, so a comparison across the two copies the
+        params instead of reseeding."""
         cfg = self.cfg
-        gen = torch.Generator().manual_seed(int(seed))
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
         params = {
             "embed": {"w": (torch.randn((cfg.padded_vocab, cfg.d_model),
-                                        generator=gen)
+                                        generator=gen, device=dev)
                             * cfg.d_model ** -0.5).to(L.dt(cfg.dtype))},
-            "final_norm": L.init_rmsnorm(cfg.d_model),
+            "final_norm": L.init_rmsnorm(cfg.d_model, dev),
             "segments": [T.init_segment(gen, cfg, seg)
                          for seg in self.segments],
         }
@@ -48,8 +55,7 @@ class Model:
             params["lm_head"] = L.init_linear(gen, cfg.d_model,
                                               cfg.padded_vocab,
                                               L.dt(cfg.dtype))
-        dev = resolve_device(device)
-        return _tree_map(lambda t: t.to(dev), params)
+        return params
 
     # ---------------- shared pieces ----------------
     def _embed(self, params, tokens):
@@ -80,25 +86,31 @@ class Model:
 
     def _cache_from_prefill(self, seg_ys, s: int, max_len: int):
         """The last ``min(s, Sc)`` positions of each layer's K/V go to
-        ring slots ``arange(s - n_keep, s) % Sc``; the rest stays zero."""
+        ring slots ``arange(s - n_keep, s) % Sc``; the rest stays zero.
+        A Mamba layer's ``conv`` window and ``h`` state carry over as
+        they are; a pure-SSM segment has no K/V."""
         segs = []
         for seg, ys in zip(self.segments, seg_ys):
-            sc = self._seg_cache_len(seg, max_len)
-            n_keep = min(s, sc)
             c = {}
-            for name in ("k", "v"):
-                kv = ys[name]                           # (Lseg, B, S, KV, hd)
-                buf = kv.new_zeros(kv.shape[:2] + (sc,) + kv.shape[3:])
-                slots = torch.arange(s - n_keep, s, device=kv.device) % sc
-                buf[:, :, slots] = kv[:, :, s - n_keep:]
-                c[name] = buf
+            if "k" in ys:
+                sc = self._seg_cache_len(seg, max_len)
+                n_keep = min(s, sc)
+                for name in ("k", "v"):
+                    kv = ys[name]                       # (Lseg, B, S, KV, hd)
+                    buf = kv.new_zeros(kv.shape[:2] + (sc,) + kv.shape[3:])
+                    slots = torch.arange(s - n_keep, s,
+                                         device=kv.device) % sc
+                    buf[:, :, slots] = kv[:, :, s - n_keep:]
+                    c[name] = buf
+            if "conv" in ys:
+                c["conv"], c["h"] = ys["conv"], ys["h"]
             segs.append(c)
         return {"pos": s, "segments": segs}
 
     # ---------------- decode ----------------
     def decode(self, params, cache, tokens):
         """One decode step. tokens: (B, 1) int. Returns (logits (B, 1,
-        Vp), cache); the cache's K/V buffers are updated in place."""
+        Vp), cache); the cache's buffers are updated in place."""
         x = self._embed(params, tokens)
         x, new_cache = T.run_stack_decode(self.segments, params["segments"],
                                           x, cache, self.cfg, cache["pos"])
@@ -108,14 +120,6 @@ class Model:
         if seg.is_global or self.cfg.attn_pattern == "full":
             return ctx
         return min(self.cfg.sliding_window, ctx)
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
 
 
 def build_model(cfg) -> Model:

@@ -1,20 +1,26 @@
 """The decoder stack — the port of ``repro/models/transformer.py`` for the
-dense family (the served edge-ladder model).
+dense, state-space (``ssm``) and hybrid families (the served edge-ladder,
+Falcon-Mamba and Hymba models).
 
 Layers are grouped into homogeneous SEGMENTS (contiguous runs sharing
 one attention kind, global vs sliding) as in the reference; where the
 reference stacks a segment's params on a leading axis for ``lax.scan``,
 the port keeps a list of per-layer param dicts and runs a Python loop.
+A layer's mixer is attention (dense), the Mamba block (ssm), or both on
+the same normed input, each output normed and the two averaged (hybrid).
 
-Cache layout: ``{"pos": int, "segments": [{"k", "v": (Lseg, B, Sc, KV,
-hd)}, ...]}`` with Sc the full context for global segments (the
-reference's). ``layer_decode`` writes the new token's K/V row into the
-cache IN PLACE (slot ``pos % Sc``); the values equal the reference's
+Cache layout: ``{"pos": int, "segments": [seg_cache, ...]}`` where an
+attention segment holds ``{"k", "v": (Lseg, B, Sc, KV, hd)}`` with Sc
+the full context for global segments and ``min(window, ctx)`` ring
+slots for sliding ones, and an ssm or hybrid segment adds ``{"conv":
+(Lseg, B, K-1, di), "h": (Lseg, B, di, N) f32}``. ``layer_decode``
+updates its layer's slices IN PLACE (the K/V row at slot ``pos % Sc``,
+the conv window and the SSM state); the values equal the reference's
 functional update.
 
-The mixture-of-experts, state-space, hybrid, encoder-decoder and vision
-families raise ``NotImplementedError`` (ROADMAP queue 1, other
-architectures), as does the reference's int8 KV cache.
+The mixture-of-experts, encoder-decoder and vision families raise
+``NotImplementedError`` (ROADMAP queue 1, other architectures), as do
+the reference's int8 KV cache and logit soft-capping.
 """
 from __future__ import annotations
 
@@ -23,8 +29,11 @@ import dataclasses
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 
 _LATER = "(ROADMAP queue 1: other architectures of the served models)"
+#: the families the port serves
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,16 +56,18 @@ def segments_of(cfg) -> tuple:
 
 def seg_window(cfg, seg: Segment) -> int:
     """Effective attention window of a segment (0 = unlimited/global)."""
+    if not cfg.has_attention:
+        return 0
     return 0 if seg.is_global else cfg.sliding_window
 
 
 def check_supported(cfg) -> None:
-    """The port runs the dense decoder only (so far)."""
-    if cfg.arch_type != "dense" or cfg.moe is not None or \
-            cfg.ssm is not None or cfg.is_encdec:
+    """The port runs the dense, ssm and hybrid decoders (so far)."""
+    if cfg.arch_type not in FAMILIES or cfg.moe is not None or \
+            cfg.is_encdec:
         raise NotImplementedError(
-            f"repro_torch serves the dense decoder family only; "
-            f"{cfg.name!r} is {cfg.arch_type!r} {_LATER}")
+            f"repro_torch serves the {'/'.join(FAMILIES)} decoder families "
+            f"only; {cfg.name!r} is {cfg.arch_type!r} {_LATER}")
 
 
 # ---------------------------------------------------------------------------
@@ -64,10 +75,18 @@ def check_supported(cfg) -> None:
 
 
 def _init_layer(gen: torch.Generator, cfg):
-    p = {"ln1": L.init_rmsnorm(cfg.d_model),
-         "attn": L.init_attention(gen, cfg)}
+    dev = gen.device
+    p = {"ln1": L.init_rmsnorm(cfg.d_model, dev)}
+    if cfg.arch_type == "ssm":
+        p["ssm"] = M.init_mamba(gen, cfg)
+        return p
+    p["attn"] = L.init_attention(gen, cfg)
+    if cfg.arch_type == "hybrid":
+        p["ssm"] = M.init_mamba(gen, cfg)
+        p["ln_attn_out"] = L.init_rmsnorm(cfg.d_model, dev)
+        p["ln_ssm_out"] = L.init_rmsnorm(cfg.d_model, dev)
     if cfg.has_mlp:
-        p["ln2"] = L.init_rmsnorm(cfg.d_model)
+        p["ln2"] = L.init_rmsnorm(cfg.d_model, dev)
         p["mlp"] = L.init_mlp(gen, cfg)
     return p
 
@@ -87,47 +106,72 @@ def _ffn(p, x, cfg):
     return x
 
 
+def _mix(p, outs, cfg):
+    """The mixer's output: the one path's, or for a hybrid layer the mean
+    of the attention and SSM outputs, each through its own norm."""
+    if cfg.arch_type == "hybrid":
+        a = L.rmsnorm(p["ln_attn_out"], outs["attn"], cfg.rms_norm_eps)
+        s = L.rmsnorm(p["ln_ssm_out"], outs["ssm"], cfg.rms_norm_eps)
+        return 0.5 * (a + s)
+    return next(iter(outs.values()))
+
+
 def layer_full(p, x, cfg, window: int, positions):
-    """One decoder layer over a full sequence (causal). Returns (x, (k,
-    v)) with this layer's keys and values for the cache."""
-    if window and x.shape[1] > window:
-        raise NotImplementedError(
-            "sliding-window prefill longer than the window needs "
-            f"local_banded_attention {_LATER}")
+    """One decoder layer over a full sequence (causal). Returns (x, this
+    layer's cache entries: ``k``/``v`` of its attention, ``conv``/``h``
+    of its Mamba block)."""
     h = L.rmsnorm(p["ln1"], x, cfg.rms_norm_eps)
-    q, k, v = L.attention_qkv(p["attn"], h, cfg, positions,
-                              rope=(cfg.rope_theta > 0))
-    o = L.chunked_attention(q, k, v, causal=True, window=window,
-                            softcap=cfg.logit_softcap)
-    x = x + L.linear(p["attn"]["wo"], o.reshape(*x.shape[:2], -1))
-    return _ffn(p, x, cfg), (k, v)
+    outs, ys = {}, {}
+    if "attn" in p:
+        q, k, v = L.attention_qkv(p["attn"], h, cfg, positions,
+                                  rope=(cfg.rope_theta > 0))
+        if window and h.shape[1] > window:
+            o = L.local_banded_attention(q, k, v, window=window,
+                                         softcap=cfg.logit_softcap)
+        else:
+            o = L.chunked_attention(q, k, v, causal=True, window=window,
+                                    softcap=cfg.logit_softcap)
+        outs["attn"] = L.linear(p["attn"]["wo"], o.reshape(*x.shape[:2], -1))
+        ys["k"], ys["v"] = k, v
+    if "ssm" in p:
+        outs["ssm"], c = M.mamba_block(p["ssm"], h, cfg)
+        ys["conv"], ys["h"] = c["conv"], c["h"]
+    return _ffn(p, x + _mix(p, outs, cfg), cfg), ys
 
 
 # ---------------------------------------------------------------------------
 # Layer application — single-token decode
 
 
-def layer_decode(p, x, kc, vc, cfg, window: int, pos: int):
+def layer_decode(p, x, cache_l, cfg, window: int, pos: int):
     """One decoder layer for one token at absolute position ``pos``.
-    ``kc``/``vc``: this layer's (B, Sc, KV, hd) cache, into which slot
-    ``pos % Sc`` is written in place. Returns x."""
+    ``cache_l``: this layer's cache slices — ``k``/``v`` (B, Sc, KV, hd),
+    into which slot ``pos % Sc`` is written, and ``conv``/``h``, which
+    the Mamba step advances; all in place. Returns x."""
     b = x.shape[0]
     h = L.rmsnorm(p["ln1"], x, cfg.rms_norm_eps)
-    positions = torch.full((b, 1), pos, device=x.device)
-    q, k, v = L.attention_qkv(p["attn"], h, cfg, positions,
-                              rope=(cfg.rope_theta > 0))
-    sc = kc.shape[1]
-    slot = pos % sc
-    kc[:, slot] = k[:, 0]
-    vc[:, slot] = v[:, 0]
-    # absolute position held by each ring slot after the write
-    idx = torch.arange(sc, device=x.device)
-    kv_pos = pos - (pos - idx) % sc
-    o = L.decode_attention(q, kc, vc, kv_pos[None, :].expand(b, sc),
-                           torch.full((b,), pos, device=x.device),
-                           window=window, softcap=cfg.logit_softcap)
-    x = x + L.linear(p["attn"]["wo"], o.reshape(b, 1, -1))
-    return _ffn(p, x, cfg)
+    outs = {}
+    if "attn" in p:
+        kc, vc = cache_l["k"], cache_l["v"]
+        positions = torch.full((b, 1), pos, device=x.device)
+        q, k, v = L.attention_qkv(p["attn"], h, cfg, positions,
+                                  rope=(cfg.rope_theta > 0))
+        sc = kc.shape[1]
+        slot = pos % sc
+        kc[:, slot] = k[:, 0]
+        vc[:, slot] = v[:, 0]
+        # absolute position held by each ring slot after the write
+        idx = torch.arange(sc, device=x.device)
+        kv_pos = pos - (pos - idx) % sc
+        o = L.decode_attention(q, kc, vc, kv_pos[None, :].expand(b, sc),
+                               torch.full((b,), pos, device=x.device),
+                               window=window, softcap=cfg.logit_softcap)
+        outs["attn"] = L.linear(p["attn"]["wo"], o.reshape(b, 1, -1))
+    if "ssm" in p:
+        outs["ssm"], _ = M.mamba_block(
+            p["ssm"], h, cfg, cache={"conv": cache_l["conv"],
+                                     "h": cache_l["h"]})
+    return _ffn(p, x + _mix(p, outs, cfg), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -137,17 +181,19 @@ def layer_decode(p, x, kc, vc, cfg, window: int, pos: int):
 def run_stack_full(segments, seg_params_list, x, cfg, positions, *,
                    want_cache: bool = False):
     """Full-sequence pass over all segments. Returns (x, per-segment
-    ``{"k", "v": (Lseg, B, S, KV, hd)}`` or None)."""
+    cache entries stacked over its layers — ``{"k", "v": (Lseg, B, S,
+    KV, hd)}`` and/or ``{"conv": (Lseg, B, K-1, di), "h": (Lseg, B, di,
+    N)}`` — or None)."""
     seg_caches = []
     for seg, seg_params in zip(segments, seg_params_list):
         window = seg_window(cfg, seg)
-        ks, vs = [], []
+        ys = []
         for p in seg_params:
-            x, (k, v) = layer_full(p, x, cfg, window, positions)
-            ks.append(k)
-            vs.append(v)
-        seg_caches.append({"k": torch.stack(ks), "v": torch.stack(vs)}
-                          if want_cache else None)
+            x, y = layer_full(p, x, cfg, window, positions)
+            if want_cache:
+                ys.append(y)
+        seg_caches.append({name: torch.stack([y[name] for y in ys])
+                           for name in ys[0]} if want_cache else None)
     return x, seg_caches
 
 
@@ -160,6 +206,6 @@ def run_stack_decode(segments, seg_params_list, x, cache, cfg, pos: int):
             raise NotImplementedError("the int8 KV cache (ROADMAP queue 1)")
         window = seg_window(cfg, seg)
         for i, p in enumerate(seg_params):
-            x = layer_decode(p, x, seg_cache["k"][i], seg_cache["v"][i],
-                             cfg, window, pos)
+            x = layer_decode(p, x, {name: t[i] for name, t in
+                                    seg_cache.items()}, cfg, window, pos)
     return x, {"pos": pos + 1, "segments": cache["segments"]}

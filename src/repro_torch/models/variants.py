@@ -1,7 +1,10 @@
 """Model-variant ladder — the port of ``repro/models/variants.py``: any
 ``ModelConfig`` expands into the paper's 8-point Table-4 ladder, width in
 {1.0, 0.75, 0.5, 0.25} x quant in {none, int8}, each variant with its
-per-token MAC count and the Table-4 accuracy metadata."""
+per-token MAC count and the Table-4 accuracy metadata. The width scales
+heads and d_ff only (``scale_width``), so a pure SSM such as
+Falcon-Mamba has two distinct shapes: d0..d3 and d4..d7, as in the
+reference."""
 from __future__ import annotations
 
 import dataclasses

@@ -12,16 +12,20 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import resolve_device
+
 
 class Draws:
-    """``torch.Generator``-backed draws on ``device``.
+    """``torch.Generator``-backed draws on ``device`` (``cuda`` unless the
+    caller asks for another; without CUDA the default raises, as every
+    entry point of the port does).
 
     Every method takes the site name first, so a subclass can route
     each site to recorded values; this class ignores it.
     """
 
-    def __init__(self, seed: int = 0, device="cpu"):
-        self.device = torch.device(device)
+    def __init__(self, seed: int = 0, device=None):
+        self.device = resolve_device(device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(int(seed))
 
@@ -49,5 +53,4 @@ def as_draws(seed_or_draws, device=None) -> Draws:
     ``device`` (``cuda`` unless the caller asks for another)."""
     if isinstance(seed_or_draws, Draws):
         return seed_or_draws
-    from repro_torch import resolve_device
-    return Draws(int(seed_or_draws), resolve_device(device))
+    return Draws(int(seed_or_draws), device)

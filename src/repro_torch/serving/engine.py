@@ -5,7 +5,7 @@ This is the "Intelligent Service" of the paper (Fig. 4): each tier
 (device / edge / cloud) hosts one engine per model variant, and the
 orchestrator routes requests to (tier, variant). The engine runs where
 its params live; on the card its prefill and decode steps go through the
-hand-written attention and int8 kernels.
+hand-written attention, int8 and selective-scan kernels.
 """
 from __future__ import annotations
 

@@ -2,7 +2,10 @@
 card, at shapes ``chip_smoke.py`` does not reach: rows wider than the
 tabular kernel's register path, odd hidden widths, masked rows and the
 infeasible fallback of the head; attention with sequences that are no
-tile multiple, one kv head and a window; the int8 product at M = 17.
+tile multiple, one kv head and a window; the int8 product at M = 17;
+the selective scan at one step, 4,096 steps, state sizes 8 and 16 and
+channel counts that are no block multiple; the banded sliding-window
+attention against the CPU's plain path.
 Every test here needs a CUDA device
 and skips without one; run them on the GPU with
 
@@ -14,7 +17,8 @@ import torch
 
 from repro_torch.kernels import (decode_attention, dqn_head,
                                  flash_attention, int8_matmul, ops, ref,
-                                 tabular_rl)
+                                 selective_scan, tabular_rl)
+from repro_torch.models import layers
 
 
 @pytest.fixture
@@ -185,3 +189,69 @@ def test_serving_kernels_refuse_wrong_types_on_the_card(cuda):
     q = torch.zeros((1, 8, 2, 48), device=cuda)          # head_dim 48
     with pytest.raises(ValueError, match="head_dim"):
         ops.flash_attention(q, q, q)
+
+
+#: the scan: float32 within 1e-4 (tests/test_kernels.py); bf16 y within
+#: one bf16 step, absolute and relative
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bt,s,di,n", [
+    (4, 1, 48, 16),                        # one step (a one-token prompt)
+    (2, 37, 3200, 16),                     # Hymba's di, no block multiple
+    (3, 70, 48, 8),                        # N = 8 (states 8..15 zero),
+                                           # a partial time chunk
+    (1, 4096, 64, 16),                     # a long prompt at small di
+    (2, 5, 130, 5),                        # N = 5, zero-padded to 16
+])
+def test_selective_scan_kernel_matches_plain(cuda, dtype, bt, s, di, n):
+    g = torch.Generator(device=cuda).manual_seed(s + di)
+    u = (torch.randn((bt, s, di), generator=g, device=cuda) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((bt, s, di), generator=g, device=cuda)) * 0.1
+    A = -torch.exp(torch.randn((di, n), generator=g, device=cuda) * 0.3)
+    B, C = (torch.randn((bt, s, n), generator=g, device=cuda)
+            for _ in range(2))
+    D = torch.randn(di, generator=g, device=cuda)
+    before = selective_scan.KERNEL.launches
+    y, h = ops.selective_scan(u, dt, A, B, C, D)
+    y2, h2 = selective_scan.plain(u, dt, A, B, C, D)
+    torch.cuda.synchronize()
+    assert selective_scan.KERNEL.launches == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    tol = SCAN_TOL[dtype]
+    torch.testing.assert_close(y.float(), y2.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, h2, atol=1e-4, rtol=0)
+
+
+def test_selective_scan_refuses_what_the_kernel_does_not_take(cuda):
+    u = torch.zeros((1, 4, 8), device=cuda)
+    A = torch.zeros((8, 17), device=cuda)                # N = 17 > 16
+    bc = torch.zeros((1, 4, 17), device=cuda)
+    with pytest.raises(ValueError, match="state sizes"):
+        ops.selective_scan(u, u, A, bc, bc, torch.zeros(8, device=cuda))
+    with pytest.raises(TypeError):
+        ops.selective_scan(u.half(), u, A[:, :4], bc[..., :4], bc[..., :4],
+                           torch.zeros(8, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_local_banded_attention_on_the_card_matches_the_cpu(cuda, dtype):
+    """S = 3 windows + 5, Hymba's head layout (5 q heads per kv head, head
+    dim 64): the card's K3 with its window against the CPU's plain
+    version."""
+    window = 64
+    b, s, h, kv, hd = 2, 3 * window + 5, 10, 2, 64
+    g = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(shape, generator=g).to(dtype)
+               for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    before = flash_attention.KERNEL.launches
+    got = layers.local_banded_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                                        window=window)
+    want = layers.local_banded_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.KERNEL.launches == before + 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=tol,
+                               rtol=tol)

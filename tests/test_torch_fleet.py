@@ -450,6 +450,15 @@ def test_default_device_raises_without_cuda(build, monkeypatch):
         build(scen, scenarios.FleetConfig(cells=4, users=3))
 
 
+def test_draws_run_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Draws(0)
+    d = Draws(0, "cpu")
+    assert d.device.type == "cpu"
+    assert d.uniform("explore", (3,)).device.type == "cpu"
+
+
 def test_topology_fleets_raise_until_the_coupled_oracle_is_ported():
     scen = scenarios.with_topology(
         scenarios.table5_fleet("EXP-B", 6, 3, device="cpu"),
