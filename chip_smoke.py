@@ -28,7 +28,12 @@ paths through the entry points a user calls:
 
 Each path's kernel launch counts are set to 0 just before it and read
 just after. Every phase prints one JSON line; any failed check raises
-and the exit code is non-zero. The line before the card's name lists
+and the exit code is non-zero. The ``kernel_parity`` lines of K3 and K4
+also give each case's time with the L2 cache cold (``cold_ms``,
+``library_cold_ms``: a 256 MB read before each call) and ``bound_share``
+(bound over time); the build line gives each kernel function's
+registers and spills, and each decode ``step_profile`` the port's
+kernels' device ms per step. The line before the card's name lists
 every kernel with its launches on its path, its error against the
 plain version, its time beside the plain version's, its bound and, where
 one PyTorch call computes the same function, that call's time. The
@@ -71,6 +76,14 @@ SSM_ROUTE_CELLS = 256
 # the exponentials' own rate: 16 per clock on each SM's special function
 # units x 132 SMs x the 1.98 GHz boost clock (NVIDIA's Hopper white paper)
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
+# bytes read between two calls of a cold-L2 reading: five times the 50 MB
+# L2 cache
+FLUSH_BYTES = 256 << 20
+# the port's kernel functions, whose device time a step profile reports
+OUR_KERNELS = ("tabular_rl_kernel", "dqn_head_kernel",
+               "flash_attention_tc_kernel", "flash_attention_kernel",
+               "decode_partial_kernel", "decode_merge_kernel",
+               "int8_matmul_kernel", "selective_scan_kernel")
 
 
 def emit(**kw):
@@ -125,6 +138,53 @@ def device_events(prof):
             if e.device_type == DeviceType.CUDA]
 
 
+def cold_ms(fn, reps=20):
+    """Mean device time per call of the kernels ``fn`` launches with the
+    L2 cache cold: a sum over a ``FLUSH_BYTES`` buffer runs before each
+    call, and the flush's own kernels are left out of the
+    ``torch.profiler`` trace (as the model's call finds its inputs after
+    the layers between have streamed their weights through the L2)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    buf = torch.ones(FLUSH_BYTES // 4, device="cuda")
+
+    def names(f):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            f()
+            torch.cuda.synchronize()
+        return {n for n, _ in device_events(prof)}
+    fn()
+    skip = names(buf.sum) - names(fn)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            buf.sum()
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(us for n, us in device_events(prof) if n not in skip)
+    return total_us / reps / 1e3 if total_us > 0 else None
+
+
+def ptxas_summary(log):
+    """Registers and spill bytes of each function in ``nvcc -Xptxas -v``
+    output: {function: [registers, spill store bytes, spill load
+    bytes]}."""
+    import re
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, [None, 0, 0])
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and fn:
+            out[fn][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            out[fn][0] = int(m.group(1))
+    return out
+
+
 def step_profile(torch, run, steps=5, **label):
     """Device busy share of ``run()`` (``steps`` steps of a path) and the
     five kernels with the most device time, from one ``torch.profiler``
@@ -142,11 +202,18 @@ def step_profile(torch, run, steps=5, **label):
         by_name[n] = by_name.get(n, 0.0) + us
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    ours = {}
+    for n, us in by_name.items():
+        for k in OUR_KERNELS:
+            if k + "<" in n or n.endswith(k) or k + "(" in n:
+                ours[k] = ours.get(k, 0.0) + us / steps / 1e3
+                break
     emit(phase="step_profile", **label, steps=steps,
          wall_ms_per_step=wall_us / steps / 1e3,
          device_ms_per_step=busy / steps / 1e3,
          device_busy_share=busy / wall_us if wall_us else None,
-         top_kernels=[[n[:80], us / steps / 1e3] for n, us in top])
+         top_kernels=[[n[:80], us / steps / 1e3] for n, us in top],
+         our_kernels_ms_per_step=ours)
 
 
 def timed(fn, warmup=3, reps=20):
@@ -364,9 +431,11 @@ def flash_phase(torch, flash_attention):
             qp = torch.arange(s, device="cuda")[:, None]
             kp = torch.arange(s, device="cuda")[None, :]
             band = (kp <= qp) & ((kp > qp - window) if window else True)
-            lib_ms, _, _ = timed(lambda: sdpa(
-                torch, q, k, v, **({"attn_mask": band} if window
-                                   else {"is_causal": True})))
+
+            def lib():
+                return sdpa(torch, q, k, v, **(
+                    {"attn_mask": band} if window else {"is_causal": True}))
+            lib_ms, _, _ = timed(lib)
             # q, k, v read once, o written once (bf16); the products the
             # data needs: 2 * 2 * hd per (q, k) pair the mask keeps
             nbytes = 2 * b * s * hd * (2 * h + 2 * kv)
@@ -374,7 +443,12 @@ def flash_phase(torch, flash_attention):
             b_ms, b_by = bound(nbytes, 4 * hd * b * h * pairs,
                                BF16_TC_OPS_PER_S)
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=lib_ms)
+                       bound_by=b_by, library_ms=lib_ms,
+                       cold_ms=cold_ms(lambda: flash_attention
+                                       .flash_attention_cuda(
+                                           q, k, v, window=window)),
+                       library_cold_ms=cold_ms(lib),
+                       bound_share=b_ms / ms)
             emit(phase="kernel_parity", kernel="flash_attention",
                  layout=name, shape=[b, s, h, kv, hd], window=window,
                  dtype=dtype, max_abs_err=err, tolerance=tol, timing=src,
@@ -427,22 +501,34 @@ def decode_phase(torch, ops, decode_attention):
             plain_ms, _, _ = timed(
                 lambda: decode_attention.plain(q, kc, vc, bias))
             mask = bias.to(dt)[:, None, None, :]
-            lib_ms, _, _ = timed(lambda: sdpa(
-                torch, q[:, None], kc, vc, attn_mask=mask))
+
+            def lib():
+                return sdpa(torch, q[:, None], kc, vc, attn_mask=mask)
+            lib_ms, _, _ = timed(lib)
             # both caches read whole (bf16), q and o, the f32 bias row;
             # 2 * 2 * hd per (head, slot)
             nbytes = 2 * 2 * b * sc * kv * hd + 2 * 2 * b * h * hd \
                 + 4 * b * sc
             b_ms, b_by = bound(nbytes, 4 * hd * b * h * sc,
                                BF16_TC_OPS_PER_S)
+            splits, _ = decode_attention.split_plan(b, kv, sc, h // kv)
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=lib_ms)
+                       bound_by=b_by, library_ms=lib_ms,
+                       cold_ms=cold_ms(lambda: decode_attention
+                                       .decode_attention_cuda(
+                                           q, kc, vc, bias)),
+                       library_cold_ms=cold_ms(lib),
+                       bound_share=b_ms / ms, blocks=b * kv * splits)
             emit(phase="kernel_parity", kernel="decode_attention",
                  layout=name, shape=[b, sc, h, kv, hd], window=window,
                  dtype=dtype, max_abs_err=err, tolerance=tol, timing=src,
                  wall_ms=wall_ms, **row)
             if name == "d0/d4" and sc == MAX_LEN:
                 main = row
+            if name.startswith("hymba"):
+                check(row["blocks"] >= 2 * decode_attention.SMS,
+                      f"decode_attention {name}: {row['blocks']} blocks < "
+                      f"2 x {decode_attention.SMS} SMs")
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:72",
@@ -816,7 +902,7 @@ def serving_cpu_agreement(torch, engines, build_model, ServingEngine):
         eng = engines["S"][vid]
         p_cpu = _to_cpu(eng.params)
         m = build_model(eng.model.cfg)
-        errs = []
+        errs, shares = [], []
         with torch.inference_mode():
             lg, cg = eng.model.prefill(eng.params, {"tokens": torch.tensor(
                 toks, device="cuda")}, max_len=48)
@@ -825,6 +911,7 @@ def serving_cpu_agreement(torch, engines, build_model, ServingEngine):
             for _ in range(3):
                 a, b_ = lg.float().cpu(), lc.float()
                 errs.append(float((a - b_).abs().max()))
+                shares.append(limit_share(a, b_))
                 check(bool(torch.allclose(a, b_, atol=0.125, rtol=1e-2)),
                       f"{vid}: card vs CPU logits differ by {errs[-1]}")
                 cur = b_[:, -1:, :8192].argmax(-1).int()
@@ -838,8 +925,15 @@ def serving_cpu_agreement(torch, engines, build_model, ServingEngine):
         same = bool((g_card[clear] == g_cpu[clear]).all())
         check(same, f"{vid}: card and CPU generate different tokens")
         emit(phase="serving_cpu_agreement", variant=vid,
-             logits_max_abs_err=max(errs), rows_with_clear_margin=int(
-                 clear.sum()), tokens_equal=same)
+             logits_max_abs_err=max(errs), logits_limit_share=max(shares),
+             rows_with_clear_margin=int(clear.sum()), tokens_equal=same)
+
+
+def limit_share(a, b, atol=0.125, rtol=1e-2):
+    """max |a - b| / (atol + rtol |b|): the share of ``torch.allclose``'s
+    limit that the card's logits ``a`` use against the CPU's ``b`` (1.0
+    is at the limit)."""
+    return float(((a - b).abs() / (atol + rtol * b.abs())).max())
 
 
 def _to_cpu(tree):
@@ -882,7 +976,8 @@ def model_cpu_agreement(torch, cfg, params, build_model, batch, prompt,
     """The card's model and the CPU's plain path on the same weights (a
     copy of the card's): prefill and ``steps`` decode steps fed the CPU's
     greedy tokens, logits within the bf16 tolerance (atol 0.125 + rtol
-    1e-2), greedy tokens equal where the CPU's top-2 margin is > 0.25."""
+    1e-2), greedy tokens equal where the CPU's top-2 margin is > 0.25.
+    Returns the phase's line."""
     import numpy as np
     m = build_model(cfg)
     p_cpu = _to_cpu(params)
@@ -890,7 +985,7 @@ def model_cpu_agreement(torch, cfg, params, build_model, batch, prompt,
     toks = np.random.default_rng(2).integers(0, vocab, (batch, prompt)) \
         .astype(np.int32)
     max_len = prompt + steps + 1
-    errs, clear_rows, equal = [], 0, True
+    errs, shares, clear_rows, equal = [], [], 0, True
     with torch.inference_mode():
         lg, cg = m.prefill(params, {"tokens": torch.tensor(
             toks, device="cuda")}, max_len=max_len)
@@ -899,6 +994,7 @@ def model_cpu_agreement(torch, cfg, params, build_model, batch, prompt,
         for step in range(steps + 1):
             a, b_ = lg[:, -1, :vocab].float().cpu(), lc[:, -1, :vocab].float()
             errs.append(float((a - b_).abs().max()))
+            shares.append(limit_share(a, b_))
             check(bool(torch.allclose(a, b_, atol=0.125, rtol=1e-2)),
                   f"{cfg.name} {variant}: card vs CPU logits differ by "
                   f"{errs[-1]} at step {step}")
@@ -914,11 +1010,26 @@ def model_cpu_agreement(torch, cfg, params, build_model, batch, prompt,
             lc, cc = m.decode(p_cpu, cc, cur)
     check(equal, f"{cfg.name} {variant}: card and CPU pick different "
           "greedy tokens where the margin is clear")
-    emit(phase="ssm_cpu_agreement", arch=cfg.name, variant=variant,
-         layers=cfg.n_layers, d_model=cfg.d_model, d_inner=cfg.d_inner,
-         batch=batch, prompt=prompt, decode_steps=steps,
-         logits_max_abs_err=max(errs), logits_tolerance=[0.125, 1e-2],
-         clear_margin_tokens=clear_rows, tokens_equal=equal)
+    line = dict(phase="ssm_cpu_agreement", arch=cfg.name, variant=variant,
+                layers=cfg.n_layers, d_model=cfg.d_model,
+                d_inner=cfg.d_inner, batch=batch, prompt=prompt,
+                decode_steps=steps, logits_max_abs_err=max(errs),
+                logits_tolerance=[0.125, 1e-2],
+                logits_limit_share=max(shares),
+                clear_margin_tokens=clear_rows, tokens_equal=equal)
+    emit(**line)
+    return line
+
+
+def hybrid_cut_agreement(torch, eng, build_model):
+    """``model_cpu_agreement`` on Hymba engine ``eng``'s weights cut to
+    one global and one sliding layer at full width, the prompt 32 tokens
+    past the window."""
+    cfg = eng.model.cfg
+    return model_cpu_agreement(
+        torch, dataclasses.replace(cfg, n_layers=2, global_layers=(0,)),
+        cut_layers(eng.params, [[(0, 0)], [(1, 0)]]), build_model,
+        2, cfg.sliding_window + 32, "d0")
 
 
 def _held(params):
@@ -1059,9 +1170,10 @@ def main():
     emit(phase="env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
     secs = _build.build(kernels)
-    emit(phase="build", seconds=secs, ptxas={
-        k.name: [ln.strip() for ln in k.ptxas_log.splitlines()
-                 if "registers" in ln or "spill" in ln] for k in kernels})
+    ptxas = {k.name: ptxas_summary(k.ptxas_log) for k in kernels}
+    emit(phase="build", seconds=secs, ptxas=ptxas,
+         spills={k: [f for f, (_, st, ld) in fns.items() if st or ld]
+                 for k, fns in ptxas.items()})
 
     entries = [tabular_phase(torch, tabular_rl, ref),
                head_phase(torch, dqn_head, ref, dynamics),
@@ -1103,12 +1215,7 @@ def main():
     hymba = get_config(HYBRID_ARCH)
     hyb_engines, hyb_init = build_family(torch, build_engines, hymba,
                                          ("d0",), HYBRID_MAX_LEN)
-    eng = hyb_engines["S"]["d0"]      # one global and one sliding layer
-    model_cpu_agreement(
-        torch, dataclasses.replace(eng.model.cfg, n_layers=2,
-                                   global_layers=(0,)),
-        cut_layers(eng.params, [[(0, 0)], [(1, 0)]]), build_model,
-        2, hymba.sliding_window + 32, "d0")
+    hybrid_cut_agreement(torch, hyb_engines["S"]["d0"], build_model)
     for k in ssm_kernels:             # the state-space path's launches only
         k.launches = 0
     ssm_caches = ssm_serving(torch, ssm_engines, ssm_init)

@@ -13,32 +13,53 @@
 //
 // Bound: bytes. Every decode step reads the whole cache of the layer
 // (2 B S KV hd elements) for ~4 B H S hd FLOP: one or two operations per
-// byte, far under the card's ridge. Design: one 128-thread block per
-// (batch, kv head), so the G query heads that share a kv head read its
-// cache once. The block sweeps the cache in 64-slot tiles staged in
-// shared memory as float32: (1) each thread scores (slot, head) pairs
-// with the bias added before the max, (2) one warp per head takes the
-// tile max, rescales the running sum and turns the scores into
-// probabilities, (3) each thread owns (head, dim) pairs of the
-// accumulator in registers and adds the tile's probability-weighted V
-// rows. The Pallas kernel's online softmax, one tile at a time.
+// byte, far under the card's ridge. So the design is about keeping the
+// card's memory busy: enough blocks, and enough loads in flight in each.
+//
+// Design: the cache is split into ranges of whole 64-slot tiles (the
+// last may be partial), and a partial kernel runs one 128-thread block
+// per (split, kv head, batch), so the G query heads of a kv head read
+// each slot once; the wrapper's plan (kernels/decode_attention.py
+// split_plan) picks the span so the grid reaches two blocks per SM
+// where the cache allows. The lanes of a warp split a slot row into
+// 16-byte chunks (hd / 8 lanes per row in bf16, hd / 4 in f32), each
+// lane keeps its chunk of every head's q in registers, and K and V rows
+// come straight from the cache into registers by 16-byte loads, kept
+// bf16 until the lane's own FMAs, the next rows in flight while the
+// current ones are used. Pass 1 scores every (head, slot) of the range
+// into shared memory (dot products reduced by shuffles over the row's
+// lanes, bias added before the max); each warp then turns its heads'
+// scores into probabilities with the range's max and sum, while the
+// first V rows are in flight; pass 2 accumulates p v per (head, chunk)
+// in registers, reduced over the warp's rows by shuffles and over the
+// warps in shared memory. Four block barriers in all, none per tile.
+// Each split writes its f32 state (m, l, acc[hd]) per q head to a
+// workspace, and a merge kernel rescales the splits of each (batch, q
+// head) by exp(m - max m) and writes o; with one split the partial kernel
+// writes o itself. A split whose slots are all masked has m = -1e30 and
+// weighs exp(-1e30 - m) = 0 beside any unmasked one; a row with every
+// slot masked stays the uniform average over its S slots, as in the
+// reference. The G query heads of a kv head take a compiled group of 1,
+// 2, 8 or 16 heads (GB), the heads past G skipped: 1 serves d7, 2 the
+// edge ladder's d0/d4, 8 Hymba's 5, 16 the limit kMaxG.
+//
+// Binding: plain C entry point decode_attention_launch (ctypes), dtype 0
+// float32, 1 bfloat16; it launches both kernels and returns
+// cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kTS = 64;          // cache slots per tile (two per lane)
+constexpr int kTS = 64;          // cache slots per tile: spans are whole tiles
 constexpr int kThreads = 128;    // four warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 16;        // query heads per kv head
-constexpr int kMaxPairs = 8;     // (head, dim) pairs per thread: G*hd <= 1024
+constexpr int kMaxGroupDims = 1024;  // G * hd
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -50,136 +71,302 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                        const T* __restrict__ vc,
-                        const float* __restrict__ bias, T* __restrict__ o,
-                        int S, int H, int KV, float scale) {
-  __shared__ float Ks[kTS][HD + 1];
-  __shared__ float Vs[kTS][HD];
-  __shared__ float Ps[kMaxG][kTS];
-  __shared__ float Qs[kMaxG][HD];
-  __shared__ float Bs[kTS];
-  __shared__ float Ms[kMaxG], Ls[kMaxG], Cs[kMaxG];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int kvh = blockIdx.x, b = blockIdx.y;
-  const int G = H / KV;
-  const int h0 = kvh * G;  // first query head of this kv head
-
-  for (int e = tid; e < G * HD; e += kThreads)
-    Qs[e / HD][e % HD] = to_f(q[((long long)b * H + h0) * HD + e]);
-  if (tid < G) {
-    Ms[tid] = kNegInf;
-    Ls[tid] = 0.f;
+// a 16-byte chunk (8 bf16 or 4 f32) widened to float, without taking
+// addresses (bf16 is the top half of a float32)
+__device__ __forceinline__ void widen(const uint4& w, float (&x)[8]) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(u[i] << 16);
+    x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
   }
-  float acc[kMaxPairs];
-#pragma unroll
-  for (int i = 0; i < kMaxPairs; ++i) acc[i] = 0.f;
+}
+__device__ __forceinline__ void widen(const uint4& w, float (&x)[4]) {
+  x[0] = __uint_as_float(w.x);
+  x[1] = __uint_as_float(w.y);
+  x[2] = __uint_as_float(w.z);
+  x[3] = __uint_as_float(w.w);
+}
 
-  const long long slot_row = (long long)KV * HD;  // elements per cache slot
-  for (int s0 = 0; s0 < S; s0 += kTS) {
-    __syncthreads();  // the previous tile is consumed (and Qs is written)
-    for (int e = tid; e < kTS * HD; e += kThreads) {
-      const int r = e / HD, d = e % HD;
-      const int sj = s0 + r;
-      float kk = 0.f, vv = 0.f;
-      if (sj < S) {
-        const long long off =
-            ((long long)b * S + sj) * slot_row + (long long)kvh * HD + d;
-        kk = to_f(kc[off]);
-        vv = to_f(vc[off]);
+// shared memory of a block, in floats: the range's scores (G x span;
+// reused for the warps' partial accumulators), m and l (G)
+__host__ __device__ constexpr int smem_floats(int G, int span, int hd) {
+  return (G * span > kWarps * G * hd ? G * span : kWarps * G * hd) + 2 * G;
+}
+
+// this lane's chunk of rows r, r + RB, ..., r + (U - 1) RB of the range
+// (ld elements apart; a range's offsets fit 32 bits), rows past n zero
+template <typename T, int U, int RB>
+__device__ __forceinline__ void load_rows(uint4 (&x)[U], const T* base,
+                                          int ld, int r, int n) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    x[u] = r + u * RB < n
+               ? __ldg(reinterpret_cast<const uint4*>(base +
+                                                      (r + u * RB) * ld))
+               : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// (the minimum of one block per SM keeps ptxas from spilling a few
+// registers to reach a higher occupancy that these bytes-bound blocks do
+// not need)
+template <typename T, int HD, int GB>
+__global__ void __launch_bounds__(kThreads, 1)
+decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                      const T* __restrict__ vc,
+                      const float* __restrict__ bias, float* __restrict__ ws,
+                      T* __restrict__ o, int S, int H, int KV, int span,
+                      float scale) {
+  constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte chunk
+  constexpr int C = HD / VEC;           // lanes per slot row
+  constexpr int R = 32 / C;             // rows per warp step
+  constexpr int RB = kWarps * R;        // rows per block step
+  constexpr int U = GB * VEC >= 128 ? 2 : 4;   // rows per lane per step
+  constexpr int STEP = RB * U;
+  extern __shared__ float sm[];
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int splits = gridDim.x;
+  const int G = H / KV, h0 = kvh * G;
+  const int s_lo = split * span;
+  const int n = min(S, s_lo + span) - s_lo;
+  float* sc = sm;                       // [G][span], later [kWarps][G][HD]
+  float* ms = sm + smem_floats(G, span, HD) - 2 * G;   // [G]
+  float* ls = ms + G;                   // [G]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c = lane % C, rsub = lane / C;
+  const int r_first = warp * R + rsub;  // this lane's first row
+
+  const int ld = KV * HD;               // elements per cache slot
+  const long long row0 = ((long long)b * S + s_lo) * ld + kvh * HD + c * VEC;
+  const T* kbase = kc + row0;
+  const T* vbase = vc + row0;
+  const float* brow = bias + (long long)b * S + s_lo;
+
+  // the first K rows in flight while q comes in
+  uint4 kr[U];
+  load_rows<T, U, RB>(kr, kbase, ld, r_first, n);
+  // this lane's chunk of each head's q, pre-scaled, in registers
+  float qx[GB][VEC];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) qx[g][i] = 0.f;
+    if (g >= G) continue;
+    widen(__ldg(reinterpret_cast<const uint4*>(
+              q + ((long long)b * H + h0 + g) * HD + c * VEC)),
+          qx[g]);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) qx[g][i] *= scale;
+  }
+
+  // pass 1: scores of every (head, slot) of the range, the next rows
+  // in flight while these are scored
+  for (int rw = warp * R; rw < n; rw += STEP) {
+    uint4 kn[U];
+    load_rows<T, U, RB>(kn, kbase, ld, rw + STEP + rsub, n);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = rw + rsub + u * RB;
+      float kx[VEC];
+      widen(kr[u], kx);
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        if (g >= G) continue;
+        float dot = 0.f;
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) dot = fmaf(qx[g][i], kx[i], dot);
+#pragma unroll
+        for (int off = 1; off < C; off <<= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        if (c == 0 && r < n) sc[g * span + r] = dot + brow[r];
       }
-      Ks[r][d] = kk;
-      Vs[r][d] = vv;
     }
-    if (tid < kTS)
-      Bs[tid] = (s0 + tid < S) ? bias[(long long)b * S + s0 + tid] : kNegInf;
-    __syncthreads();
-
-    // (1) scores of every (slot, head) pair of the tile
-    for (int p = tid; p < kTS * G; p += kThreads) {
-      const int j = p % kTS, g = p / kTS;
-      float dot = 0.f;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) dot = fmaf(Qs[g][d], Ks[j][d], dot);
-      Ps[g][j] = dot * scale + Bs[j];
+    for (int u = 0; u < U; ++u) kr[u] = kn[u];
+  }
+  // the first V rows in flight through the softmax
+  uint4 vr[U];
+  load_rows<T, U, RB>(vr, vbase, ld, r_first, n);
+  __syncthreads();
+
+  // the range's softmax per head: one warp per head
+  for (int g = warp; g < G; g += kWarps) {
+    float* row = sc + g * span;
+    float mx = kNegInf;
+    for (int r = lane; r < n; r += 32) mx = fmaxf(mx, row[r]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float sum = 0.f;
+    for (int r = lane; r < n; r += 32) {
+      const float p = expf(row[r] - mx);
+      row[r] = p;
+      sum += p;
     }
-    __syncthreads();
-
-    // (2) one warp per head: tile max, probabilities, running sum
-    for (int g = warp; g < G; g += kWarps) {
-      const float v0 = Ps[g][lane], v1 = Ps[g][lane + 32];
-      float mt = fmaxf(v0, v1);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_old = Ms[g];
-      const float m_new = fmaxf(m_old, mt);
-      const float p0 = expf(v0 - m_new), p1 = expf(v1 - m_new);
-      Ps[g][lane] = p0;
-      Ps[g][lane + 32] = p1;
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float c = expf(m_old - m_new);
-        Ls[g] = Ls[g] * c + sum;
-        Ms[g] = m_new;
-        Cs[g] = c;
-      }
-    }
-    __syncthreads();
-
-    // (3) the accumulator: thread owns pairs tid, tid + 128, ...
-#pragma unroll
-    for (int i = 0; i < kMaxPairs; ++i) {
-      const int p = tid + i * kThreads;
-      if (p < G * HD) {
-        const int g = p / HD, d = p % HD;
-        float a = acc[i] * Cs[g];
-#pragma unroll 8
-        for (int j = 0; j < kTS; ++j) a = fmaf(Ps[g][j], Vs[j][d], a);
-        acc[i] = a;
-      }
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) {
+      ms[g] = mx;
+      ls[g] = sum;
     }
   }
   __syncthreads();
+
+  // pass 2: acc[g][chunk c] = sum over this lane's rows of p v
+  float acc[GB][VEC];
 #pragma unroll
-  for (int i = 0; i < kMaxPairs; ++i) {
-    const int p = tid + i * kThreads;
-    if (p < G * HD) {
-      const int g = p / HD, d = p % HD;
-      o[((long long)b * H + h0 + g) * HD + d] =
-          from_f<T>(acc[i] / fmaxf(Ls[g], 1e-30f));
+  for (int g = 0; g < GB; ++g)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[g][i] = 0.f;
+  for (int rw = warp * R; rw < n; rw += STEP) {
+    uint4 vn[U];
+    load_rows<T, U, RB>(vn, vbase, ld, rw + STEP + rsub, n);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = rw + rsub + u * RB;
+      if (r >= n) continue;
+      float vx[VEC];
+      widen(vr[u], vx);
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        if (g >= G) continue;
+        const float p = sc[g * span + r];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[g][i] = fmaf(p, vx[i], acc[g][i]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) vr[u] = vn[u];
+  }
+  // over the warp's rows (lanes of one chunk are C apart)
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    if (g >= G) continue;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+#pragma unroll
+      for (int off = C; off < 32; off <<= 1)
+        acc[g][i] += __shfl_xor_sync(0xffffffffu, acc[g][i], off);
+  }
+  __syncthreads();              // every warp is done reading the scores
+  float* red = sc;              // [kWarps][G][HD]
+  if (rsub == 0) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (g >= G) continue;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        red[(warp * G + g) * HD + c * VEC + i] = acc[g][i];
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < G * HD; e += kThreads) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a += red[w * G * HD + e];
+    const int g = e / HD, d = e % HD;
+    const long long bh = (long long)b * H + h0 + g;
+    if (splits == 1) {
+      o[bh * HD + d] = from_f<T>(a / fmaxf(ls[g], 1e-30f));
+    } else {
+      float* st = ws + (bh * splits + split) * (HD + 2);
+      st[d] = a;
+      if (d == 0) {
+        st[HD] = ms[g];
+        st[HD + 1] = ls[g];
+      }
     }
   }
 }
 
+// one warp per (batch, q head): rescale the splits to the largest max
 template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+decode_merge_kernel(const float* __restrict__ ws, T* __restrict__ o, int BH,
+                    int splits) {
+  const int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (w >= BH) return;
+  const float* st = ws + (long long)w * splits * (HD + 2);
+  float mx = kNegInf;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, st[s * (HD + 2) + HD]);
+  float l = 0.f;
+  float a[(HD + 31) / 32];
+#pragma unroll
+  for (int i = 0; i < (HD + 31) / 32; ++i) a[i] = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float* p = st + s * (HD + 2);
+    const float f = expf(p[HD] - mx);
+    l += p[HD + 1] * f;
+#pragma unroll
+    for (int i = 0; i < (HD + 31) / 32; ++i) {
+      const int d = lane + 32 * i;
+      if (d < HD) a[i] = fmaf(p[d], f, a[i]);
+    }
+  }
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < (HD + 31) / 32; ++i) {
+    const int d = lane + 32 * i;
+    if (d < HD) o[(long long)w * HD + d] = from_f<T>(a[i] * inv);
+  }
+}
+
+template <typename T, int HD, int GB>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const void* bias, void* o, int B, int S, int H, int KV,
-                   float scale, cudaStream_t stream) {
-  const dim3 grid(KV, B);
-  decode_attention_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
+                   const void* bias, void* ws, void* o, int B, int S, int H,
+                   int KV, int span, float scale, cudaStream_t stream) {
+  const int G = H / KV;
+  const int splits = (S + span - 1) / span;
+  const size_t smem = sizeof(float) * smem_floats(G, span, HD);
+  const dim3 grid(splits, KV, B);
+  decode_partial_kernel<T, HD, GB><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), static_cast<const float*>(bias),
-      static_cast<T*>(o), S, H, KV, scale);
+      static_cast<float*>(ws), static_cast<T*>(o), S, H, KV, span, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const int bh = B * H;
+  decode_merge_kernel<T, HD><<<(bh + kWarps - 1) / kWarps, kThreads, 0,
+                               stream>>>(static_cast<const float*>(ws),
+                                         static_cast<T*>(o), bh, splits);
   return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t launch_g(const void* q, const void* kc, const void* vc,
+                     const void* bias, void* ws, void* o, int B, int S, int H,
+                     int KV, int span, float scale, cudaStream_t stream) {
+  const int G = H / KV;
+  if (G <= 1)
+    return launch<T, HD, 1>(q, kc, vc, bias, ws, o, B, S, H, KV, span, scale,
+                            stream);
+  if (G <= 2)
+    return launch<T, HD, 2>(q, kc, vc, bias, ws, o, B, S, H, KV, span, scale,
+                            stream);
+  if (G <= 8)
+    return launch<T, HD, 8>(q, kc, vc, bias, ws, o, B, S, H, KV, span, scale,
+                            stream);
+  return launch<T, HD, 16>(q, kc, vc, bias, ws, o, B, S, H, KV, span, scale,
+                           stream);
 }
 
 template <typename T>
 cudaError_t launch_hd(int hd, const void* q, const void* kc, const void* vc,
-                      const void* bias, void* o, int B, int S, int H, int KV,
-                      float scale, cudaStream_t stream) {
+                      const void* bias, void* ws, void* o, int B, int S,
+                      int H, int KV, int span, float scale,
+                      cudaStream_t stream) {
   switch (hd) {
     case 16:
-      return launch<T, 16>(q, kc, vc, bias, o, B, S, H, KV, scale, stream);
+      return launch_g<T, 16>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
+                             scale, stream);
     case 32:
-      return launch<T, 32>(q, kc, vc, bias, o, B, S, H, KV, scale, stream);
+      return launch_g<T, 32>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
+                             scale, stream);
     case 64:
-      return launch<T, 64>(q, kc, vc, bias, o, B, S, H, KV, scale, stream);
+      return launch_g<T, 64>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
+                             scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -187,23 +374,27 @@ cudaError_t launch_hd(int hd, const void* q, const void* kc, const void* vc,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, caches and o share it; bias is float32)
+// dtype: 0 float32, 1 bfloat16 (q, caches and o share it; bias and the
+// workspace are float32). span: slots per split, a multiple of 64; ws:
+// (B, H, ceil(S / span), hd + 2) float32, unused with one split.
 extern "C" int decode_attention_launch(const void* q, const void* kc,
                                        const void* vc, const void* bias,
-                                       void* o, int B, int S, int H, int KV,
-                                       int hd, float scale, int dtype,
-                                       void* stream) {
+                                       void* ws, void* o, int B, int S, int H,
+                                       int KV, int hd, int span, float scale,
+                                       int dtype, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || S <= 0 || H / KV > kMaxG ||
-      (H / KV) * hd > kMaxPairs * kThreads)
+      (H / KV) * hd > kMaxGroupDims || span <= 0 || span % kTS != 0 ||
+      sizeof(float) * smem_floats(H / KV, span, hd) > 48 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_hd<float>(hd, q, kc, vc, bias, o, B, S, H, KV, scale, st);
+    err = launch_hd<float>(hd, q, kc, vc, bias, ws, o, B, S, H, KV, span,
+                           scale, st);
   else if (dtype == 1)
-    err = launch_hd<__nv_bfloat16>(hd, q, kc, vc, bias, o, B, S, H, KV, scale,
-                                   st);
+    err = launch_hd<__nv_bfloat16>(hd, q, kc, vc, bias, ws, o, B, S, H, KV,
+                                   span, scale, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -7,29 +7,43 @@
 // repeating K/V), q row i sits at position i + q_offset (right-aligned,
 // q_offset = Skv - Sq), and kv position j is kept where
 //   j < Skv,  (causal) j <= q_pos,  (window > 0) j > q_pos - window;
-// a masked score is -1e30, as in the Pallas kernel. Scores, softmax state
-// and the accumulator are float32; the output is written in q's type.
+// a masked score is -1e30, as in the Pallas kernel. Softmax state and the
+// accumulator are float32; the output is written in q's type. Tiles that
+// the causal mask or the window rule out for a whole q tile are skipped,
+// as the Pallas kernel's pl.when does.
 //
-// Bound: at the prefill shapes on the path (S = 32..256, head_dim 32) the
-// work is ~4 S^2 hd FLOP per (batch, head) (halved by the causal mask)
-// against ~6 S hd bytes per (batch, head) in and out, so by the card's
-// peaks the bound is operations for S >= ~128 and bytes below. This first
-// version computes on the CUDA cores in float32 (no tensor cores), so in
-// practice it is bound by FMA throughput; mma/wgmma tiles are later work.
+// Bound: ~4 hd FLOP per kept (q, k) pair against ~2 (2 H + 2 KV) hd bytes
+// per token in and out, so by the card's peaks operations bind from ~128
+// tokens up (Hymba's 2,048-token prefill) and bytes below.
 //
-// Design: one 256-thread block per (batch x head, 64-row q tile). Each q
-// row is owned by four neighbouring threads of one warp; each keeps the q
-// row in registers and takes every fourth kv column of a tile, with its
-// own running (max, sum, accumulator) -- the Pallas kernel's per-tile
-// online softmax, applied to a quarter of the columns. 64-row K and V
-// tiles are staged in shared memory as float32 (rows padded by one word
-// so the four column groups hit distinct banks). Tiles that the causal
-// mask or the window rules out for the whole q tile are skipped, as the
-// Pallas kernel's pl.when does. At the end the four partial states of a
-// row are merged with warp shuffles and the row is normalised by its sum.
+// bfloat16 (every served config): the tensor cores, one warpgroup (128
+// threads) per (batch x head, 64-row q tile), the tiles with the most
+// kv tiles launched first. The q tile and a 2-stage ring of 64-row K and
+// V tiles come into shared memory by 16-byte cp.async straight from the
+// model's layout (rows past Sq or Skv zero-filled), stored in the
+// 128/64/32-byte swizzle of the hd*2-byte rows. S = Q K^T is wgmma
+// m64n64k16 with both operands K-major in shared memory (hd/16 k-steps);
+// the online softmax runs on the f32 accumulator fragments in registers
+// (base-2 exponentials by ex2.approx on the special function unit, row
+// max and sum across the 4 lanes of a quad), and P, rounded to bf16
+// as the reference's model path rounds it, is the register A operand of
+// O += P V, a wgmma m64n{hd}k16 whose B operand is the V tile read
+// MN-major (the transpose bit), so V is never transposed. The per-element
+// mask runs only on tiles that cross a mask boundary.
+//
+// float32 (no served config; the tensor cores take no full-precision
+// float32 and TF32 stays off): the CUDA cores, one 256-thread block per
+// (batch x head, 64-row q tile); four neighbouring lanes own a q row, each
+// with its q row in registers and every fourth kv column of a 64-row K/V
+// tile staged in shared memory as float32, and their partial states are
+// merged by warp shuffles at the end.
+//
+// Binding: plain C entry point flash_attention_launch (ctypes), dtype 0
+// float32, 1 bfloat16; it returns cudaGetLastError() after the launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -41,20 +55,14 @@ constexpr int kCols = kBK / kSplit;      // kv columns per thread per tile
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
+// ------------------------------------------ float32: the CUDA cores ----
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -175,37 +183,379 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Skv, int H, int KV, int causal,
-                   int window, int q_offset, float scale,
-                   cudaStream_t stream) {
+
+// ------------------------------------------ bfloat16: the tensor cores ----
+constexpr int kTcThreads = 128;          // one warpgroup
+
+// A 64-row tile of hd bf16 per row in shared memory, in the swizzle whose
+// span is the row (128 B for hd 64, 64 B for 32, 32 B for 16): 16-byte
+// chunk c of row r sits at chunk c ^ (address bits 7..9), the layout the
+// wgmma descriptors below name. The ring is 1024-byte aligned, so the
+// swizzle of an offset is that of the address.
+template <int HD>
+struct TcTile {
+  static constexpr int kRowBytes = HD * 2;
+  static constexpr int kChunks = HD / 8;
+  static constexpr int kBytes = kBK * kRowBytes;
+  static constexpr uint64_t kLayout = HD == 64 ? 1 : (HD == 32 ? 2 : 3);
+  static __device__ __forceinline__ uint32_t offset(int r, int c) {
+    return r * kRowBytes +
+           ((c ^ ((r * kRowBytes >> 7) & (kChunks - 1))) << 4);
+  }
+  // wgmma shared-memory descriptor: start, leading and stride byte
+  // offsets (16-byte units), swizzle mode. The stride offset steps 8 rows.
+  static __device__ __forceinline__ uint64_t desc(uint32_t addr,
+                                                  uint32_t lbo) {
+    return (uint64_t)((addr & 0x3FFFF) >> 4) |
+           ((uint64_t)(lbo >> 4) << 16) |
+           ((uint64_t)((8 * kRowBytes) >> 4) << 32) | (kLayout << 62);
+  }
+  // K-major operand (Q, K): the k-step moves 32 bytes along the row
+  static __device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+    return desc(addr, 16);
+  }
+  // MN-major operand (V read as K x hd): 8-row groups along K
+  static __device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
+    return desc(addr, 8 * kRowBytes);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; zero-filled when !valid (src-size 0)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// the copies this thread saw land are made visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accesses of wgmma registers across the
+// asynchronous product
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// 2^x on the special function unit (denormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D (64 x N, f32) (+)= A (64 x 16, smem) B (16 x N, smem); scale_d 0
+// overwrites D
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+// D (64 x N, f32) += A (64 x 16, registers) B (16 x N, smem, MN-major)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// Load rows [row0, row0 + 64) of one head (row stride ld elements) into a
+// swizzled tile; rows at or past n_rows are zero-filled.
+template <int HD>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          long long ld, int row0, int n_rows,
+                                          int tid) {
+  using Tile = TcTile<HD>;
+#pragma unroll
+  for (int it = 0; it < kBK * Tile::kChunks / kTcThreads; ++it) {
+    const int i = tid + it * kTcThreads;
+    const int r = i / Tile::kChunks, c = i % Tile::kChunks;
+    const bool ok = row0 + r < n_rows;
+    cp_async16(dst + Tile::offset(r, c),
+               src + (long long)(ok ? row0 + r : 0) * ld + c * 8, ok);
+  }
+}
+
+// Accumulator fragments (m64nN f32): index i = 4 j + e of this thread
+// holds row 16 warp + lane / 4 + 8 (e >> 1), column 8 j + 2 (lane % 4) +
+// (e & 1). Columns 16 t .. 16 t + 15 of S, rounded to bf16 in that order,
+// are exactly the A fragment of the t-th k-step of P V.
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads)
+flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          __nv_bfloat16* __restrict__ o, int Sq, int Skv,
+                          int H, int KV, int causal, int window,
+                          int q_offset, float scale_log2) {
+  using Tile = TcTile<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sK = base + Tile::kBytes,
+                 sV = base + 3 * Tile::kBytes;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const long long q_ld = (long long)H * HD, kv_ld = (long long)KV * HD;
+  const __nv_bfloat16* qb = q + (long long)b * Sq * q_ld + (long long)h * HD;
+  const __nv_bfloat16* kb =
+      k + (long long)b * Skv * kv_ld + (long long)kvh * HD;
+  const __nv_bfloat16* vb =
+      v + (long long)b * Skv * kv_ld + (long long)kvh * HD;
+
+  // the kv range any row of this q tile can see (whole-tile skips)
+  const int last_q = min(q0 + kBQ, Sq) - 1;
+  int k_end = Skv;
+  if (causal) k_end = min(k_end, last_q + q_offset + 1);
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q0 + q_offset - window + 1);
+  k_begin = (k_begin / kBK) * kBK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK : 0;
+
+  load_tile<HD>(sQ, qb, q_ld, q0, Sq, tid);
+  if (n_tiles > 0) {
+    load_tile<HD>(sK, kb, kv_ld, k_begin, Skv, tid);
+    load_tile<HD>(sV, vb, kv_ld, k_begin, Skv, tid);
+  }
+  cp_async_commit();
+
+  const int r0 = warp * 16 + (lane >> 2);     // rows r0 and r0 + 8
+  const int c0 = 2 * (lane & 3);
+  const int q_pos[2] = {q0 + r0 + q_offset, q0 + r0 + 8 + q_offset};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_begin + t * kBK;
+    const uint32_t stage = (t & 1) * Tile::kBytes;
+    if (t + 1 < n_tiles) {    // the next tile into the other stage
+      const uint32_t next = ((t + 1) & 1) * Tile::kBytes;
+      load_tile<HD>(sK + next, kb, kv_ld, k0 + kBK, Skv, tid);
+      load_tile<HD>(sV + next, vb, kv_ld, k0 + kBK, Skv, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();          // this tile (and the q tile) have landed
+
+    // S = Q K^T on the tensor cores
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<64>(s, Tile::desc_k(sQ + kk * 32),
+                   Tile::desc_k(sK + stage + kk * 32), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // scale to base 2; the mask only where the tile crosses a boundary
+    const bool edge = k0 + kBK > Skv ||
+                      (causal && k0 + kBK - 1 > q0 + q_offset) ||
+                      (window > 0 && k0 <= q0 + kBQ - 1 + q_offset - window);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i] * scale_log2;
+      if (edge) {
+        const int kj = k0 + 8 * (i >> 2) + c0 + (i & 1);
+        const int qp = q_pos[(i >> 1) & 1];
+        bool ok = kj < Skv;
+        if (causal) ok = ok && kj <= qp;
+        if (window > 0) ok = ok && kj > qp - window;
+        x = ok ? x : kNegInf;
+      }
+      s[i] = x;
+    }
+    // online softmax: row max over the quad, rescale, probabilities
+    float mt[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      mt[(i >> 1) & 1] = fmaxf(mt[(i >> 1) & 1], s[i]);
+    float corr[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+      corr[r] = ex2(m[r] - mt[r]);
+      m[r] = mt[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = ex2(s[i] - m[(i >> 1) & 1]);
+      ps[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + ps[r];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+    // O += P V: P (bf16) from registers, V MN-major from shared memory
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt) {
+      pa[kt][0] = pack_bf16(s[8 * kt + 0], s[8 * kt + 1]);
+      pa[kt][1] = pack_bf16(s[8 * kt + 2], s[8 * kt + 3]);
+      pa[kt][2] = pack_bf16(s[8 * kt + 4], s[8 * kt + 5]);
+      pa[kt][3] = pack_bf16(s[8 * kt + 6], s[8 * kt + 7]);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt)
+      wgmma_rs<HD>(acc, pa[kt],
+                   Tile::desc_mn(sV + stage + kt * 16 * Tile::kRowBytes));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncthreads();          // the stage may be refilled
+  }
+
+  // the quad's partial sums, then normalise and store
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + r0 + 8 * r;
+    if (qi >= Sq) continue;
+    __nv_bfloat16* op = o + ((long long)b * Sq + qi) * q_ld + (long long)h * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const __nv_bfloat162 val = __floats2bfloat162_rn(
+          acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
+      *reinterpret_cast<__nv_bfloat162*>(op + 8 * j + c0) = val;
+    }
+  }
+}
+
+// ------------------------------------------------------------ launch ----
+template <int HD>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int B, int Sq, int Skv, int H, int KV, int causal,
+                       int window, int q_offset, float scale,
+                       cudaStream_t stream) {
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_attention_kernel<T, HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, KV, causal,
-      window, q_offset, scale);
+  flash_attention_kernel<float, HD><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KV,
+      causal, window, q_offset, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
-                      void* o, int B, int Sq, int Skv, int H, int KV,
-                      int causal, int window, int q_offset, float scale,
+template <int HD>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      int B, int Sq, int Skv, int H, int KV, int causal,
+                      int window, int q_offset, float scale,
                       cudaStream_t stream) {
-  switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                           q_offset, scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                           q_offset, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                           q_offset, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
+  // the q tile and two stages of K and V, plus the alignment slack
+  const size_t smem = 5 * TcTile<HD>::kBytes + 1024;
+  flash_attention_tc_kernel<HD><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      Sq, Skv, H, KV, causal, window, q_offset,
+      scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
+                   void* o, int B, int Sq, int Skv, int H, int KV, int causal,
+                   int window, int q_offset, float scale,
+                   cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_f32<HD>(q, k, v, o, B, Sq, Skv, H, KV, causal, window,
+                          q_offset, scale, stream);
+  if (dtype == 1)
+    return launch_tc<HD>(q, k, v, o, B, Sq, Skv, H, KV, causal, window,
+                         q_offset, scale, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -221,14 +571,22 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
-    err = launch_hd<float>(hd, q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                           q_offset, scale, st);
-  else if (dtype == 1)
-    err = launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Skv, H, KV, causal,
-                                   window, q_offset, scale, st);
-  else
-    err = cudaErrorInvalidValue;
+  switch (hd) {
+    case 16:
+      err = launch<16>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, window,
+                       q_offset, scale, st);
+      break;
+    case 32:
+      err = launch<32>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, window,
+                       q_offset, scale, st);
+      break;
+    case 64:
+      err = launch<64>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, window,
+                       q_offset, scale, st);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 

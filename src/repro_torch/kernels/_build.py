@@ -120,3 +120,12 @@ def check_cuda(name: str, t: torch.Tensor, dtype, shape=None) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_aligned(**tensors) -> None:
+    """The 16-byte alignment of tensors a kernel reads in 16-byte
+    chunks."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
+                             f"reads 16-byte chunks)")

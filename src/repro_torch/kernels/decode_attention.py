@@ -9,9 +9,15 @@ softmax state. The ring layout of the cache stays outside: the caller's
 slot positions decide validity through the bias (``ops.decode_attention``).
 
 Bound on the H100: bytes — each step reads the layer's whole cache for
-one or two operations per byte. One block per (batch, kv head) reads
-that head's cache once for its G query heads (see the source note in
-the ``.cu`` file).
+one or two operations per byte. The kernel splits the cache into ranges
+of whole 64-slot tiles (``split_plan``): a partial kernel runs one block
+per (split, kv head, batch), reads each slot of its range once for the
+G query heads with 16-byte loads into registers, the next rows in
+flight while these are used, and writes each split's float32 (m, l,
+acc) to a workspace this wrapper allocates; a merge kernel rescales the
+splits into o. One C entry point (``decode_attention_launch``, bound through
+``ctypes`` by ``kernels/_build.py``) launches both, so one call counts
+one launch. See the source note in the ``.cu`` file.
 """
 from __future__ import annotations
 
@@ -20,9 +26,10 @@ import math
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import F, I, P, CudaKernel, check_cuda
+from repro_torch.kernels._build import (F, I, P, CudaKernel, check_aligned,
+                                        check_cuda)
 
-KERNEL = CudaKernel("decode_attention", [P] * 5 + [I] * 5 + [F, I])
+KERNEL = CudaKernel("decode_attention", [P] * 6 + [I] * 6 + [F, I])
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64)
@@ -30,9 +37,31 @@ HEAD_DIMS = (16, 32, 64)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel's limits on query heads per kv head and on G * head_dim
 MAX_GROUP, MAX_GROUP_DIMS = 16, 1024
+#: cache slots per tile: a split spans a whole number of tiles
+TILE = 64
+#: streaming multiprocessors of the H100 SXM; the plan aims for two
+#: blocks on each
+SMS = 132
+#: shared memory one block may spend on its range's float32 scores (G x
+#: span), which bounds the span
+SCORE_BYTES = 32 * 1024
 
 #: the plain version (a CPU tensor takes it)
 plain = ref.decode_attention_ref
+
+
+def split_plan(b: int, n_kv: int, s: int, g: int) -> tuple[int, int]:
+    """``(splits, span)`` for a cache of ``s`` slots read by ``b * n_kv``
+    (batch, kv head) pairs of ``g`` query heads each: ``span`` is a
+    whole number of tiles, split ``i`` covers slots ``[i * span, min(s,
+    (i + 1) * span))``, so every slot is read once and only the last
+    split may be partial. The span is the largest that still gives
+    ``b * n_kv * splits >= 2 * SMS`` blocks where the cache has that
+    many tiles, and at most ``SCORE_BYTES / (4 g)`` slots."""
+    tiles = -(-s // TILE)
+    want = -(-2 * SMS // (b * n_kv))
+    span_tiles = max(1, min(tiles // want, SCORE_BYTES // (4 * g * TILE)))
+    return -(-tiles // span_tiles), span_tiles * TILE
 
 
 def decode_attention_cuda(q, k_cache, v_cache, bias):
@@ -58,8 +87,12 @@ def decode_attention_cuda(q, k_cache, v_cache, bias):
     check_cuda("k_cache", k_cache, q.dtype, (b, s, n_kv, hd))
     check_cuda("v_cache", v_cache, q.dtype, (b, s, n_kv, hd))
     check_cuda("bias", bias, torch.float32, (b, s))
+    check_aligned(q=q, k_cache=k_cache, v_cache=v_cache)
     o = torch.empty_like(q)
+    splits, span = split_plan(b, n_kv, s, g)
+    ws = (torch.empty((b, h, splits, hd + 2), dtype=torch.float32,
+                      device=q.device) if splits > 1 else o)
     KERNEL.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                  bias.data_ptr(), o.data_ptr(), b, s, h, n_kv, hd,
-                  1.0 / math.sqrt(hd), DTYPES[q.dtype])
+                  bias.data_ptr(), ws.data_ptr(), o.data_ptr(), b, s, h,
+                  n_kv, hd, span, 1.0 / math.sqrt(hd), DTYPES[q.dtype])
     return o

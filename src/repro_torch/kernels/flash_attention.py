@@ -7,11 +7,17 @@ masks with whole-tile skips, GQA by mapping q head ``h`` to kv head ``h
 // G`` (no K/V repeated in device memory), q right-aligned against the
 kv sequence, float32 softmax state and accumulator.
 
-Bound on the H100: at the path's prompt buckets (32..256 tokens, head
-dim 32) operations from S ~ 128 up and bytes below, by the card's peaks;
-the first kernel computes in float32 on the CUDA cores (see the source
-note in the ``.cu`` file). The wrapper takes the model's own ``(B, S, H,
-hd)`` layout, so nothing is transposed or padded around the launch.
+Bound on the H100: operations from ~128 tokens up, bytes below. The
+bfloat16 instance (every served config) runs both products on the
+tensor cores: one warpgroup per 64-row q tile, K/V tiles in a 2-stage
+``cp.async`` ring in swizzled shared memory, S = Q K^T and O += P V as
+``wgmma`` with P in registers and V read MN-major. The float32
+instance stays on the CUDA cores (no full-precision float32 on the
+tensor cores, and TF32 stays off); the launcher picks by dtype. See the
+source note in the ``.cu`` file. The wrapper takes the model's own
+``(B, S, H, hd)`` layout, so nothing is transposed or padded around the
+launch; it binds the plain C entry point ``flash_attention_launch``
+through ``ctypes`` (``kernels/_build.py``).
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ import math
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import F, I, P, CudaKernel, check_cuda
+from repro_torch.kernels._build import (F, I, P, CudaKernel, check_aligned,
+                                        check_cuda)
 
 KERNEL = CudaKernel("flash_attention", [P] * 4 + [I] * 9 + [F, I])
 
@@ -54,6 +61,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     check_cuda("q", q, q.dtype)
     check_cuda("k", k, q.dtype, (b, skv, n_kv, hd))
     check_cuda("v", v, q.dtype, (b, skv, n_kv, hd))
+    check_aligned(q=q, k=k, v=v)
     o = torch.empty_like(q)
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b,
                   sq, skv, h, n_kv, hd, int(bool(causal)), int(window),

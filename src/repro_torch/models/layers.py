@@ -106,8 +106,9 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     sequence. ``window > 0`` keeps kv_pos in (q_pos - window, q_pos].
 
     The reference's jnp mirror rounds the probabilities to the value
-    dtype before the PV product; the kernel, like the Pallas kernel it
-    replaces, keeps them in float32 (equal in float32 models)."""
+    dtype before the PV product, and so does the bf16 kernel (its PV
+    product runs on the tensor cores); the float32 kernel and the plain
+    version keep them in float32 (equal in float32 models)."""
     if softcap:
         raise NotImplementedError(
             "logit soft-capping needs a kernel variant the port does not "

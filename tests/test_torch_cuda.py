@@ -2,7 +2,10 @@
 card, at shapes ``chip_smoke.py`` does not reach: rows wider than the
 tabular kernel's register path, odd hidden widths, masked rows and the
 infeasible fallback of the head; attention with sequences that are no
-tile multiple, one kv head and a window; the int8 product at M = 17;
+tile multiple, one kv head and a window, the bf16 tensor-core instance of
+flash attention at the edges of its tiles and masks, and decode attention
+split over many slot ranges with wholly masked splits and rows; the int8
+product at M = 17;
 the selective scan at one step, 4,096 steps, state sizes 8 and 16 and
 channel counts that are no block multiple; the banded sliding-window
 attention against the CPU's plain path.
@@ -153,6 +156,71 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, b, h, kv, hd,
     assert decode_attention.KERNEL.launches == before + 1
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd,causal,window", [
+    (2, 128, 128, 25, 5, 64, True, 0),     # Hymba's heads, head dim 64
+    (2, 100, 100, 4, 2, 64, True, 0),      # Sq not a multiple of 64
+    (2, 70, 200, 4, 2, 32, False, 0),      # Sq < Skv, not causal
+    (2, 150, 150, 4, 2, 64, True, 40),     # window < one tile: diagonal
+                                           # tiles partly masked both ways
+    (1, 64, 64, 2, 1, 16, True, 0),        # head dim 16, one tile
+])
+def test_flash_attention_tensor_core_cases(cuda, dtype, b, sq, skv, h, kv,
+                                           hd, causal, window):
+    """The bf16 instance (wgmma) at the boundaries of its tiles and masks,
+    and the float32 instance (CUDA cores) at the same shapes, each at
+    its tolerance."""
+    g = torch.Generator(device=cuda).manual_seed(7 * sq + skv + hd)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, sq, h, hd), (b, skv, kv, hd),
+                             (b, skv, kv, hd)))
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                               window=window)
+    want = flash_attention.plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.KERNEL.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,kv,hd,s,masked", [
+    (2, 8, 2, 32, 1000, None),             # 16 splits, the last partial
+    (2, 4, 1, 64, 640, "split"),           # splits 2..7 wholly masked
+    (3, 4, 2, 32, 300, "row"),             # batch row 1 wholly masked
+    (1, 5, 1, 64, 2064, None),             # batch 1, KV 1: 33 splits
+    (72, 8, 4, 32, 100, None),             # one split (288 pairs)
+])
+def test_decode_attention_split_cases(cuda, dtype, b, h, kv, hd, s, masked):
+    """K4's split over slot ranges and its merge: several splits, S no
+    multiple of the span, a split with every slot masked, a row with
+    every slot masked (the uniform average), the most splits."""
+    splits, span = decode_attention.split_plan(b, kv, s, h // kv)
+    assert (splits > 1) == (b * kv < 2 * decode_attention.SMS)
+    g = torch.Generator(device=cuda).manual_seed(s + 3 * h)
+    q = torch.randn((b, h, hd), generator=g, device=cuda).to(dtype)
+    kc, vc = (torch.randn((b, s, kv, hd), generator=g, device=cuda)
+              .to(dtype) for _ in range(2))
+    bias = torch.where(torch.rand((b, s), generator=g, device=cuda) < 0.2,
+                       -1e30, 0.0)
+    if masked == "split":
+        bias[:, 128:512] = -1e30
+    elif masked == "row":
+        bias[1] = -1e30
+    before = decode_attention.KERNEL.launches
+    got = decode_attention.decode_attention_cuda(q, kc, vc, bias)
+    want = decode_attention.plain(q, kc, vc, bias)
+    torch.cuda.synchronize()
+    assert decode_attention.KERNEL.launches == before + 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if masked == "row":               # the uniform average over all slots
+        mean = vc[1].float().mean(0).repeat_interleave(h // kv, 0)
+        torch.testing.assert_close(got[1].float(), mean, atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("m,k,n", [(17, 333, 65), (1, 256, 64),

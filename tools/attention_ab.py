@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Time the port's attention kernels (K3 flash attention, K4 decode
+attention) of one or more source trees, in turns, on one card.
+
+    python3 tools/attention_ab.py SRC [SRC ...]
+
+Each ``SRC`` is a directory holding a ``repro_torch`` package (``src``
+of this checkout, or of another commit unpacked with ``git archive``).
+Each runs in its own process, in the order given, so a change and its
+parent compare within one call as parent, change, change, parent:
+
+    mkdir -p build/parent && git archive HEAD~1 | tar -x -C build/parent
+    python3 tools/attention_ab.py build/parent/src src src build/parent/src
+
+For every bf16 case of ``chip_smoke.py``'s ``FLASH_CASES`` (causal, with
+its window) and ``DECODE_CASES`` (a random 30% of slots masked by the
+bias), one JSON line per tree: ``{"src": ..., "<kernel> <layout> <S>":
+[warm ms, cold ms, max abs error against the plain version]}``; warm and
+cold as ``chip_smoke.timed`` and ``chip_smoke.cold_ms`` take them (the
+profiler's device time; cold with the L2 flushed before each call).
+End to end, the same line holds ``"serving <variant> decode ms/token"``
+and ``"serving <variant> prefill ms"`` for the edge ladder's d0 and d4,
+each a list of ``REPS`` readings of ``chip_smoke.timed_generate`` (host
+clock, batch 64, prompt 256, 16 new tokens, cache 512, as in the
+``serving`` phase). The card's name and power limit (``nvidia-smi``)
+come first. Needs a CUDA device; each tree's kernels are built into its
+own ``build`` directory.
+"""
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REPS = 5
+
+
+def run_tree(src):
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    sys.path.insert(0, os.path.abspath(src))
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int8_matmul as im
+    if not torch.cuda.is_available():
+        sys.exit("attention_ab: no CUDA device available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build([fa.KERNEL, da.KERNEL, im.KERNEL])
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def reading(f, want):
+        err = float((f().float() - want.float()).abs().max())
+        ms, _, _ = cs.timed(f)
+        return [ms, cs.cold_ms(f), err]
+    out = {"src": src}
+    for name, b, s, h, kv, hd, w in cs.FLASH_CASES:
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").bfloat16()
+                   for shape in ((b, s, h, hd), (b, s, kv, hd),
+                                 (b, s, kv, hd)))
+        out[f"flash_attention {name} {s}"] = reading(
+            lambda: fa.flash_attention_cuda(q, k, v, window=w),
+            fa.plain(q, k, v, window=w))
+    for name, b, sc, h, kv, hd, _ in cs.DECODE_CASES:
+        q = torch.randn((b, h, hd), generator=g, device="cuda").bfloat16()
+        kc, vc = (torch.randn((b, sc, kv, hd), generator=g, device="cuda")
+                  .bfloat16() for _ in range(2))
+        bias = torch.where(torch.rand((b, sc), generator=g, device="cuda")
+                           < 0.3, -1e30, 0.0)
+        out[f"decode_attention {name} {sc}"] = reading(
+            lambda: da.decode_attention_cuda(q, kc, vc, bias),
+            da.plain(q, kc, vc, bias))
+    serving(torch, cs, out)
+    print(json.dumps(out), flush=True)
+
+
+def serving(torch, cs, out):
+    """The edge ladder's d0 and d4 served end to end, ``REPS`` times."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import build_engines
+    engines = build_engines(get_config("edge-ladder"), variants=("d0", "d4"),
+                            max_len=cs.MAX_LEN, device="cuda")
+    rng = np.random.default_rng(0)
+    for vid in ("d0", "d4"):
+        eng = engines["S"][vid]
+        toks = rng.integers(0, eng.model.cfg.vocab_size,
+                            (cs.SERVE_BATCH, cs.PROMPT)).astype(np.int32)
+        runs = [cs.timed_generate(torch, eng, toks, cs.MAX_LEN)
+                for _ in range(REPS)]
+        out[f"serving {vid} prefill ms"] = [r[1] for r in runs]
+        out[f"serving {vid} decode ms/token"] = [r[2] for r in runs]
+
+
+def main():
+    if len(sys.argv) > 2 and sys.argv[1] == "--tree":
+        run_tree(sys.argv[2])
+        return
+    if len(sys.argv) < 2:
+        sys.exit(__doc__)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    print(smi.stdout.strip() or smi.stderr.strip(), flush=True)
+    for src in sys.argv[1:]:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--tree",
+                        src], check=True, timeout=900)
+
+
+if __name__ == "__main__":
+    main()
