@@ -28,8 +28,8 @@ paths through the entry points a user calls:
 
 Each path's kernel launch counts are set to 0 just before it and read
 just after. Every phase prints one JSON line; any failed check raises
-and the exit code is non-zero. The ``kernel_parity`` lines of K3 and K4
-also give each case's time with the L2 cache cold (``cold_ms``,
+and the exit code is non-zero. The ``kernel_parity`` lines of K3, K4
+and K5 also give each case's time with the L2 cache cold (``cold_ms``,
 ``library_cold_ms``: a 256 MB read before each call) and ``bound_share``
 (bound over time); the build line gives each kernel function's
 registers and spills, and each decode ``step_profile`` the port's
@@ -382,12 +382,14 @@ DECODE_CASES = tuple((name, SERVE_BATCH, sc, h, kv, 32, 0)
 #: (M, K, N) of K5: M = 64 x 256 tokens for every projection of the edge
 #: ladder's d4 (wq/wo, wk/wv, gate/up, down) and d7 (wq/wk/wv, wo,
 #: gate/up/down); Falcon-Mamba d4's in_proj and out_proj at its prefill
-#: (64 x 256 tokens) and at decode (64 tokens)
+#: (64 x 256 tokens) and at decode (64 tokens); the edge ladder d4's MLP
+#: at decode (gate/up, down)
 INT8_SHAPES = tuple((SERVE_BATCH * PROMPT, k, n) for k, n in (
     (256, 256), (256, 128), (256, 1024), (1024, 256), (256, 64),
     (64, 256))) + ((SERVE_BATCH * PROMPT, 4096, 16384),
                    (SERVE_BATCH * PROMPT, 8192, 4096),
-                   (SERVE_BATCH, 4096, 16384), (SERVE_BATCH, 8192, 4096))
+                   (SERVE_BATCH, 4096, 16384), (SERVE_BATCH, 8192, 4096),
+                   (SERVE_BATCH, 256, 1024), (SERVE_BATCH, 1024, 256))
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 
 
@@ -535,19 +537,12 @@ def decode_phase(torch, ops, decode_attention):
                 max_abs_err=max(errs), **main)
 
 
-def int8_library(torch, xq, wq):
-    """The library's int8 product for ``torch._int_mm``: the row-major
-    weight, or the column-major copy where the build wants one."""
-    try:
-        torch._int_mm(xq, wq)
-        return wq
-    except RuntimeError:
-        return wq.t().contiguous().t()
-
-
 def int8_phase(torch, ref, int8_matmul):
-    """K5 at every shape of ``INT8_SHAPES``: bit-exact against the plain
-    version."""
+    """K5 at every shape of ``INT8_SHAPES`` on a K-major weight (the
+    layout the model holds): bit-exact against the plain version in
+    float32 and in bfloat16; timed in bfloat16, the path's output type,
+    warm and with the L2 cold, beside ``torch._int_mm`` + dequant to the
+    same type."""
     g = torch.Generator(device="cuda").manual_seed(7)
     main = None
     for m, k, n in INT8_SHAPES:
@@ -555,23 +550,37 @@ def int8_phase(torch, ref, int8_matmul):
                                               device="cuda"))
         wq, sw = ref.quantize_ref(torch.randn((k, n), generator=g,
                                               device="cuda"), dim=0)
-        got = int8_matmul.int8_matmul_cuda(xq, sx, wq, sw)
-        want = int8_matmul.plain(xq, sx, wq, sw)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"int8_matmul {m}x{k}x{n}: not "
-              f"bit-exact (max err {float((got - want).abs().max())})")
-        ms, wall_ms, src = timed(
-            lambda: int8_matmul.int8_matmul_cuda(xq, sx, wq, sw))
-        plain_ms, _, _ = timed(lambda: int8_matmul.plain(xq, sx, wq, sw))
-        wl = int8_library(torch, xq, wq)
-        lib_ms, _, _ = timed(
-            lambda: torch._int_mm(xq, wl).to(torch.float32) * sx * sw)
-        nbytes = m * k + k * n + 4 * (m + n) + 4 * m * n
+        wq = int8_matmul.k_major(wq)
+        for dt in (torch.float32, torch.bfloat16):
+            got = int8_matmul.int8_matmul_cuda(xq, sx, wq, sw, dt)
+            want = int8_matmul.plain(xq, sx, wq, sw, dt)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"int8_matmul {m}x{k}x{n} {dt}: "
+                  f"not bit-exact (max err "
+                  f"{float((got.float() - want.float()).abs().max())})")
+        bf16 = torch.bfloat16
+
+        def kern():
+            return int8_matmul.int8_matmul_cuda(xq, sx, wq, sw, bf16)
+
+        def lib():
+            return (torch._int_mm(xq, wq).to(torch.float32) * sx * sw) \
+                .to(bf16)
+        ms, wall_ms, src = timed(kern)
+        plain_ms, _, _ = timed(lambda: int8_matmul.plain(xq, sx, wq, sw,
+                                                         bf16))
+        lib_ms, _, _ = timed(lib)
+        # x, w and both scales read once, the bf16 output written once
+        nbytes = m * k + k * n + 4 * (m + n) + 2 * m * n
         b_ms, b_by = bound(nbytes, 2 * m * k * n, INT8_TC_OPS_PER_S)
+        bm, bn = int8_matmul.plan(m, n, k)
         row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=lib_ms)
+                   library_ms=lib_ms, cold_ms=cold_ms(kern),
+                   library_cold_ms=cold_ms(lib), bound_share=b_ms / ms,
+                   blocks=-(-m // bm) * -(-n // bn))
         emit(phase="kernel_parity", kernel="int8_matmul", shape=[m, k, n],
-             bit_exact=True, max_abs_err=0.0, timing=src, wall_ms=wall_ms,
+             dtype="bfloat16", bit_exact=["float32", "bfloat16"],
+             max_abs_err=0.0, tile=[bm, bn], timing=src, wall_ms=wall_ms,
              **row)
         if (m, k, n) == (SERVE_BATCH * PROMPT, 256, 1024):
             main = row
@@ -1231,8 +1240,7 @@ def main():
          ssm_path=ssm_launches)
     for name, n in ssm_launches.items():
         check(n > 0, f"{name} was never launched on the state-space path")
-    decode_profile(torch, ssm_engines, {"d0": ssm_caches["d0"]},
-                   path="ssm_serving")
+    decode_profile(torch, ssm_engines, ssm_caches, path="ssm_serving")
     decode_profile(torch, hyb_engines, hyb_caches, path="hybrid_serving",
                    batch=HYBRID_BATCH)
     for e in entries:

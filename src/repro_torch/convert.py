@@ -13,6 +13,7 @@ from repro_torch import resolve_device
 from repro_torch.fleet.dynamics import Calibration
 from repro_torch.fleet.scenarios import FleetScenario
 from repro_torch.fleet.topology import Topology
+from repro_torch.kernels.int8_matmul import k_major
 
 
 def scenario(end_b, edge_b, member, active, t=0, topo=None, calib=None,
@@ -60,10 +61,11 @@ def model_params(params_np, cfg, device=None) -> dict:
     Each segment's stacked leaves (leading layer axis) become the port's
     list of per-layer dicts. A dense linear ``{"w"}`` and the embedding
     are cast back to ``cfg.dtype`` (exact again); an int8 linear
-    ``{"w_q", "s"}`` keeps int8 weights and float32 scales; norm gains
-    stay float32. A Mamba block keeps the reference's types: ``conv_w``
-    in ``cfg.dtype``, ``conv_b``, ``dt_w``, ``dt_b``, ``A_log`` and ``D``
-    float32. Weights stay ``(in, out)``."""
+    ``{"w_q", "s"}`` keeps int8 weights, held K-major as
+    ``layers.init_linear`` holds them (strides (1, in)), and float32
+    scales; norm gains stay float32. A Mamba block keeps the reference's
+    types: ``conv_w`` in ``cfg.dtype``, ``conv_b``, ``dt_w``, ``dt_b``,
+    ``A_log`` and ``D`` float32. Weights stay ``(in, out)``."""
     from repro_torch.models.layers import dt
     dev = resolve_device(device)
     wdtype = dt(cfg.dtype)
@@ -75,7 +77,8 @@ def model_params(params_np, cfg, device=None) -> dict:
     def leaves(tree, name=None):
         if isinstance(tree, dict):
             return {k: leaves(v, k) for k, v in tree.items()}
-        return torch.tensor(np.asarray(tree), dtype=types[name], device=dev)
+        t = torch.tensor(np.asarray(tree), dtype=types[name], device=dev)
+        return k_major(t) if name == "w_q" else t
 
     def layer(tree, i):
         if isinstance(tree, dict):

@@ -74,12 +74,14 @@ def decode_attention(q, k_cache, v_cache, kv_pos, cur_pos, *,
     return fn(q, k_cache, v_cache, bias)
 
 
-def int8_matmul(x_q, sx, w_q, sw):
-    """(M, K) int8 x (K, N) int8 -> (M, N) float32 ``(acc * sx) * sw``
-    with ``sx`` (M, 1) and ``sw`` (1, N); see ``ref.int8_matmul_ref``."""
+def int8_matmul(x_q, sx, w_q, sw, *, out_dtype=torch.float32):
+    """(M, K) int8 x (K, N) int8 -> (M, N) ``(acc * sx) * sw`` with ``sx``
+    (M, 1) and ``sw`` (1, N), rounded once to ``out_dtype``; see
+    ``ref.int8_matmul_ref``. On the card ``w_q`` must be K-major (strides
+    (1, K)); see ``kernels/int8_matmul.py``."""
     fn = _int8_matmul.plain if _route(x_q) == "cpu" else \
         _int8_matmul.int8_matmul_cuda
-    return fn(x_q, sx, w_q, sw)
+    return fn(x_q, sx, w_q, sw, out_dtype)
 
 
 def selective_scan(u, dt, A, B, C, D):

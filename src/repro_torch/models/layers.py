@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import int8_matmul, ops
 
 
 def dt(name: str) -> torch.dtype:
@@ -33,29 +33,38 @@ def dt(name: str) -> torch.dtype:
 def init_linear(gen: torch.Generator, d_in: int, d_out: int,
                 dtype=torch.bfloat16, quant: str = "none",
                 scale: Optional[float] = None):
+    """A linear's params, weights ``(in, out)``. With ``quant="int8"``,
+    ``{"w_q", "s"}``: ``w_q`` is held K-major, an (in, out) view of (out,
+    in) row-major storage (strides (1, in)), the layout K5 reads
+    (``int8_matmul.k_major``)."""
     std = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn((d_in, d_out), generator=gen, device=gen.device) * std
     if quant == "int8":
         s = w.abs().amax(0, keepdim=True) / 127.0 + 1e-8
         w_q = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
-        return {"w_q": w_q, "s": s}
+        return {"w_q": int8_matmul.k_major(w_q), "s": s}
     return {"w": w.to(dtype)}
 
 
 def linear(params, x):
     """y = x @ W. The int8 path quantizes each token's activations
-    (scale = (max |x| + 1e-8) / 127, round half to even, clip to +-127),
-    takes the int8 x int8 product through ``ops.int8_matmul`` (K5) with
-    the per-column weight scales, and casts back to ``x.dtype``."""
+    (scale = (max |x| + 1e-8) / 127, round half to even, clip to +-127)
+    and takes the int8 x int8 product through ``ops.int8_matmul`` (K5)
+    with the per-column weight scales, which rounds it once to
+    ``x.dtype``. Its ``w_q`` is held K-major (``init_linear``)."""
     if "w_q" in params:
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
-        sx = (x2.abs().amax(-1, keepdim=True).to(torch.float32)
-              + 1e-8) / 127.0
-        x_q = torch.clamp(torch.round(x2.to(torch.float32) / sx),
-                          -127, 127).to(torch.int8)
-        y = ops.int8_matmul(x_q, sx, params["w_q"], params["s"])
-        return y.reshape(*lead, -1).to(x.dtype)
+        # max |x| (exact in float32) and x / sx in float32 (x upcast
+        # exactly by type promotion), in as few eager ops as the
+        # reference's rounding allows
+        amax = torch.linalg.vector_norm(x2, math.inf, -1, keepdim=True,
+                                        dtype=torch.float32)
+        sx = amax.add_(1e-8).div_(127.0)
+        x_q = torch.div(x2, sx).round_().clamp_(-127, 127).to(torch.int8)
+        y = ops.int8_matmul(x_q, sx, params["w_q"], params["s"],
+                            out_dtype=x.dtype)
+        return y.reshape(*lead, -1)
     return x @ params["w"].to(x.dtype)
 
 

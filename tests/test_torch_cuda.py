@@ -5,8 +5,10 @@ infeasible fallback of the head; attention with sequences that are no
 tile multiple, one kv head and a window, the bf16 tensor-core instance of
 flash attention at the edges of its tiles and masks, and decode attention
 split over many slot ranges with wholly masked splits and rows; the int8
-product at M = 17;
-the selective scan at one step, 4,096 steps, state sizes 8 and 16 and
+product on the K-major weight at ragged M, N and K (K zero-padded to a
+multiple of 32), M = 1, in float32 and bfloat16, and a row-major weight
+refused; the
+selective scan at one step, 4,096 steps, state sizes 8 and 16 and
 channel counts that are no block multiple; the banded sliding-window
 attention against the CPU's plain path.
 Every test here needs a CUDA device
@@ -223,18 +225,44 @@ def test_decode_attention_split_cases(cuda, dtype, b, h, kv, hd, s, masked):
         torch.testing.assert_close(got[1].float(), mean, atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("m,k,n", [(17, 333, 65), (1, 256, 64),
-                                   (300, 64, 256), (4096, 1024, 256)])
-def test_int8_matmul_kernel_is_bit_exact(cuda, m, k, n):
+def _int8_args(cuda, m, k, n):
+    """Quantized operands, the weight K-major as the model holds it."""
     g = torch.Generator(device=cuda).manual_seed(m + k)
     xq, sx = ref.quantize_ref(torch.randn((m, k), generator=g, device=cuda))
     wq, sw = ref.quantize_ref(torch.randn((k, n), generator=g, device=cuda),
                               dim=0)
+    return xq, sx, int8_matmul.k_major(wq), sw
+
+
+@pytest.mark.parametrize("m,k,n", [(17, 333, 65), (1, 256, 64),
+                                   (300, 64, 256), (4096, 1024, 256)])
+def test_int8_matmul_kernel_is_bit_exact(cuda, m, k, n):
+    xq, sx, wq, sw = _int8_args(cuda, m, k, n)
     before = int8_matmul.KERNEL.launches
     got = int8_matmul.int8_matmul_cuda(xq, sx, wq, sw)
     want = int8_matmul.plain(xq, sx, wq, sw)
     torch.cuda.synchronize()
     assert int8_matmul.KERNEL.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 333, 65),                   # one row, K padded to 352
+    (64, 40, 300),                  # K no multiple of 16, N of 8
+    (65, 4096, 257),                # one row past the decode tile
+    (129, 1000, 513),               # ragged prefill tiles, odd N
+    (64, 16384, 256),               # 128 steps over 4 tiles
+    (3, 33408, 64),                 # 261 steps in one tile
+    (64, 4096, 16384),              # Falcon d4's decode in_proj
+    (64, 8192, 4096),               # and out_proj
+])
+def test_int8_matmul_kernel_ragged_and_bf16_out(cuda, m, k, n, dtype):
+    xq, sx, wq, sw = _int8_args(cuda, m, k, n)
+    got = int8_matmul.int8_matmul_cuda(xq, sx, wq, sw, dtype)
+    want = int8_matmul.plain(xq, sx, wq, sw, dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
     assert torch.equal(got, want)
 
 
@@ -254,6 +282,13 @@ def test_serving_kernels_refuse_wrong_types_on_the_card(cuda):
         ops.int8_matmul(x, torch.ones((4, 1), device=cuda),
                         torch.zeros((8, 2), dtype=torch.int8, device=cuda),
                         torch.ones((1, 2), device=cuda))
+    # a row-major (K, N) int8 weight: the kernel reads K-major storage
+    # only, and nothing copies it quietly
+    xq = torch.zeros((4, 32), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="K-major"):
+        ops.int8_matmul(xq, torch.ones((4, 1), device=cuda),
+                        torch.zeros((32, 16), dtype=torch.int8, device=cuda),
+                        torch.ones((1, 16), device=cuda))
     q = torch.zeros((1, 8, 2, 48), device=cuda)          # head_dim 48
     with pytest.raises(ValueError, match="head_dim"):
         ops.flash_attention(q, q, q)

@@ -35,7 +35,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPS = 5
 
 
-def run_tree(src):
+def load_tree(src):
+    """``chip_smoke`` and ``torch`` with the ``repro_torch`` package of
+    ``src`` importable, after building that tree's serving kernels (K3,
+    K4, K5) into its own ``build`` directory. Exits without a card."""
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
     sys.path.insert(0, os.path.abspath(src))
@@ -45,9 +48,17 @@ def run_tree(src):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as im
     if not torch.cuda.is_available():
-        sys.exit("attention_ab: no CUDA device available")
+        sys.exit(f"{os.path.basename(sys.argv[0])}: no CUDA device "
+                 "available")
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build([fa.KERNEL, da.KERNEL, im.KERNEL])
+    return torch, cs
+
+
+def run_tree(src):
+    torch, cs = load_tree(src)
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(0)
 
     def reading(f, want):
@@ -75,39 +86,44 @@ def run_tree(src):
     print(json.dumps(out), flush=True)
 
 
-def serving(torch, cs, out):
-    """The edge ladder's d0 and d4 served end to end, ``REPS`` times."""
+def serving(torch, cs, out, arch="edge-ladder", variants=("d0", "d4"),
+            label="serving"):
+    """Variants of ``arch`` at full size served end to end, ``REPS``
+    times each (batch 64, prompt 256, 16 new tokens, cache 512)."""
     import numpy as np
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import build_engines
-    engines = build_engines(get_config("edge-ladder"), variants=("d0", "d4"),
+    engines = build_engines(get_config(arch), variants=variants,
                             max_len=cs.MAX_LEN, device="cuda")
     rng = np.random.default_rng(0)
-    for vid in ("d0", "d4"):
+    for vid in variants:
         eng = engines["S"][vid]
         toks = rng.integers(0, eng.model.cfg.vocab_size,
                             (cs.SERVE_BATCH, cs.PROMPT)).astype(np.int32)
         runs = [cs.timed_generate(torch, eng, toks, cs.MAX_LEN)
                 for _ in range(REPS)]
-        out[f"serving {vid} prefill ms"] = [r[1] for r in runs]
-        out[f"serving {vid} decode ms/token"] = [r[2] for r in runs]
+        out[f"{label} {vid} prefill ms"] = [r[1] for r in runs]
+        out[f"{label} {vid} decode ms/token"] = [r[2] for r in runs]
 
 
-def main():
+def turns(script, run, timeout=900):
+    """The entry point of an A/B tool: ``script --tree SRC`` calls
+    ``run(SRC)``; ``script SRC [SRC ...]`` prints the card's name and
+    power limit, then runs each tree in its own process, in order."""
     if len(sys.argv) > 2 and sys.argv[1] == "--tree":
-        run_tree(sys.argv[2])
+        run(sys.argv[2])
         return
     if len(sys.argv) < 2:
-        sys.exit(__doc__)
+        sys.exit(sys.modules["__main__"].__doc__)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     print(smi.stdout.strip() or smi.stderr.strip(), flush=True)
     for src in sys.argv[1:]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--tree",
-                        src], check=True, timeout=900)
+        subprocess.run([sys.executable, os.path.abspath(script), "--tree",
+                        src], check=True, timeout=timeout)
 
 
 if __name__ == "__main__":
-    main()
+    turns(__file__, run_tree)
