@@ -31,15 +31,18 @@ just after. Every phase prints one JSON line; any failed check raises
 and the exit code is non-zero. The ``kernel_parity`` lines of K3, K4
 and K5 also give each case's time with the L2 cache cold (``cold_ms``,
 ``library_cold_ms``: a 256 MB read before each call) and ``bound_share``
-(bound over time); the build line gives each kernel function's
-registers and spills, and each decode ``step_profile`` the port's
-kernels' device ms per step. The line before the card's name lists
-every kernel with its launches on its path, its error against the
-plain version, its time beside the plain version's, its bound and, where
-one PyTorch call computes the same function, that call's time. The
-last line is ``{"ok": true, "device": {...}}``. It needs a CUDA device
-and the ``src/repro_torch`` package beside it, and imports nothing of
-JAX.
+(bound over time); K6's lines name the plan's split of a channel's
+states over lanes and the registers and spills of the instance that ran;
+the build line gives each kernel function's registers and spills, and
+each decode ``step_profile`` the port's kernels' device ms per step. A
+``step_profile`` of one prefill of Falcon-Mamba d0 and of Hymba d0
+attributes their device time to kernels (K6's share among them). The
+line before the card's name lists every kernel with its launches on its
+path, its error against the plain version, its time beside the plain
+version's, its bound and, where one PyTorch call computes the same
+function, that call's time. The last line is ``{"ok": true, "device":
+{...}}``. It needs a CUDA device and the ``src/repro_torch`` package
+beside it, and imports nothing of JAX.
 """
 import dataclasses
 import json
@@ -185,9 +188,9 @@ def ptxas_summary(log):
     return out
 
 
-def step_profile(torch, run, steps=5, **label):
+def step_profile(torch, run, steps=5, top=5, **label):
     """Device busy share of ``run()`` (``steps`` steps of a path) and the
-    five kernels with the most device time, from one ``torch.profiler``
+    ``top`` kernels with the most device time, from one ``torch.profiler``
     window."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -201,7 +204,7 @@ def step_profile(torch, run, steps=5, **label):
     for n, us in device_events(prof):
         by_name[n] = by_name.get(n, 0.0) + us
     busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     ours = {}
     for n, us in by_name.items():
         for k in OUR_KERNELS:
@@ -213,7 +216,10 @@ def step_profile(torch, run, steps=5, **label):
          device_ms_per_step=busy / steps / 1e3,
          device_busy_share=busy / wall_us if wall_us else None,
          top_kernels=[[n[:80], us / steps / 1e3] for n, us in top],
-         our_kernels_ms_per_step=ours)
+         our_kernels_ms_per_step=ours,
+         our_kernels_share_of_device={k: v * steps * 1e3 / busy
+                                      for k, v in ours.items()}
+         if busy else None)
 
 
 def timed(fn, warmup=3, reps=20):
@@ -601,11 +607,17 @@ SCAN_STATE = 16
 #: y: float32 within 1e-4 (tests/test_kernels.py); bf16 within one bf16
 #: step, absolute and relative. h_last (float32 on both) within 1e-4
 SCAN_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+#: u's type in the mangled names of K6's kernel instances
+#: (``selective_scan_kernel<T, lanes>``), by the case's type
+SCAN_TYPES = {"bfloat16": "13__nv_bfloat16", "float32": "f"}
 
 
-def scan_phase(torch, selective_scan):
+def scan_phase(torch, selective_scan, ptxas):
     """K6 at the state-space path's prefill shapes, inputs drawn as the
-    reference's scan tests draw them."""
+    reference's scan tests draw them; each line names the plan's split of
+    a channel's states over lanes and the registers and spill bytes ptxas
+    gave the kernel instance that ran (``ptxas``: ``ptxas_summary`` of
+    K6's build)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(8)
     n = SCAN_STATE
@@ -628,9 +640,15 @@ def scan_phase(torch, selective_scan):
               f"{err_y} (tolerance {tol} + {tol} relative), h_last error "
               f"{err_h} (tolerance 1e-4)")
         errs += [err_y, err_h]
+        lanes, per_lane = selective_scan.plan(bt, di, n)
+        inst = f"selective_scan_kernelI{SCAN_TYPES[dtype]}Li{lanes}EE"
+        regs = [v for f, v in ptxas.items() if inst in f]
         line = dict(kernel="selective_scan", layout=label,
                     shape=[bt, s, di, n], dtype=dtype, max_abs_err_y=err_y,
-                    max_abs_err_h=err_h, tolerance_y=tol, tolerance_h=1e-4)
+                    max_abs_err_h=err_h, tolerance_y=tol, tolerance_h=1e-4,
+                    lanes=lanes, states_per_lane=per_lane,
+                    blocks=bt * -(-di // (selective_scan.THREADS // lanes)),
+                    ptxas=regs[0] if regs else None)
         if dtype != "bfloat16":
             emit(phase="kernel_parity", **line)
             continue
@@ -898,6 +916,25 @@ def decode_profile(torch, engines, caches, steps=5, path="serving",
                     _, cache = eng.model.decode(eng.params, cache, cur)
         step_profile(torch, run, steps, path=path, variant=vid,
                      arch=eng.model.cfg.name, what="decode step")
+
+
+def prefill_profile(torch, engines, batch, prompt, max_len, path):
+    """The device time of one prefill of variant d0 at ``batch`` x
+    ``prompt`` tokens: its busy share, the port's kernels' ms and share
+    (K6's in every Mamba block) and the eight kernels with the most
+    device time."""
+    import numpy as np
+    eng = engines["S"]["d0"]
+    cfg = eng.model.cfg
+    toks = torch.tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (batch, prompt)).astype(np.int32), device="cuda")
+
+    def run():
+        with torch.inference_mode():
+            eng.model.prefill(eng.params, {"tokens": toks}, max_len=max_len)
+    run()
+    step_profile(torch, run, 1, top=8, path=path, variant="d0",
+                 arch=cfg.name, what="prefill", batch=batch, prompt=prompt)
 
 
 def serving_cpu_agreement(torch, engines, build_model, ServingEngine):
@@ -1189,7 +1226,8 @@ def main():
                flash_phase(torch, flash_attention),
                decode_phase(torch, ops, decode_attention),
                int8_phase(torch, ref, int8_matmul),
-               scan_phase(torch, selective_scan)]
+               scan_phase(torch, selective_scan,
+                          ptxas[selective_scan.KERNEL.name])]
     cpu_agreement(torch, R)
     engines = build_engines(get_config("edge-ladder"), max_len=MAX_LEN,
                             device="cuda")
@@ -1243,6 +1281,10 @@ def main():
     decode_profile(torch, ssm_engines, ssm_caches, path="ssm_serving")
     decode_profile(torch, hyb_engines, hyb_caches, path="hybrid_serving",
                    batch=HYBRID_BATCH)
+    prefill_profile(torch, ssm_engines, SERVE_BATCH, PROMPT, MAX_LEN,
+                    "ssm_serving")
+    prefill_profile(torch, hyb_engines, HYBRID_BATCH, HYBRID_PROMPT,
+                    HYBRID_MAX_LEN, "hybrid_serving")
     for e in entries:
         e["launches"] = launches[e["name"]]
         check(e["launches"] > 0,

@@ -40,17 +40,21 @@ def step_links(draws, b, p_r2w: float = 0.05, p_w2r: float = 0.15,
 
 
 def diurnal_rate(t, period: int = 1440, base: float = 1.0,
-                 amplitude: float = 0.4, phase: float = 0.0) -> float:
+                 amplitude: float = 0.4, phase: float = 0.0) -> torch.Tensor:
     """Request-rate multiplier following a day-night sinusoid (``t`` is
-    the step index), clamped at 0."""
-    m = base + amplitude * math.sin(2 * math.pi * (t / period + phase))
-    return max(m, 0.0)
+    the step index), clamped at 0: a float32 0-dim tensor, computed in
+    float32 as the reference computes it (its step index is an int32)."""
+    t = torch.tensor(t, dtype=torch.int32)
+    m = base + amplitude * torch.sin(2 * math.pi * (t / period + phase))
+    return torch.clamp(m, min=0.0)
 
 
 def poisson_active(draws, shape, rate):
     """Per-user request indicator for one step: True iff the user issued
-    >= 1 request, i.e. w.p. ``1 - exp(-rate)``."""
-    return draws.bernoulli("scenario.arrivals", 1.0 - math.exp(-rate),
+    >= 1 request, i.e. w.p. ``1 - exp(-rate)``, computed in float32 (a
+    float rate becomes a float32 tensor first, as in the reference)."""
+    rate = torch.as_tensor(rate, dtype=torch.float32, device=draws.device)
+    return draws.bernoulli("scenario.arrivals", 1.0 - torch.exp(-rate),
                            shape)
 
 

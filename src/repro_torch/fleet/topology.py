@@ -77,13 +77,15 @@ def skewed_topology(draws, cells: int, n_edges: int, skew: float = 1.5,
                     capacity_tiers=(1.0,),
                     cloud_servers: float = math.inf) -> Topology:
     """Zipf-weighted assignment: edge j attracts cells with probability
-    proportional to ``(j+1)^-skew`` (edge 0 is the hottest), drawn by
-    inverting the cumulative weights at uniform draws."""
-    w = (1.0 / np.arange(1, n_edges + 1, dtype=np.float64)) ** skew
-    cdf = torch.tensor(np.cumsum(w / w.sum()), dtype=torch.float32,
-                       device=draws.device)
+    proportional to ``(j+1)^-skew`` (edge 0 is the hottest). The float32
+    weights' cumulative sum is inverted at one uniform draw per cell (site
+    ``"scenario.topology"``) as ``jax.random.choice`` inverts it: the
+    first edge whose cumulative weight reaches ``cdf[-1] * (1 - u)``."""
+    w = (1.0 / torch.arange(1, n_edges + 1, dtype=torch.float32,
+                            device=draws.device)) ** skew
+    cdf = torch.cumsum(w / w.sum(), 0)
     u = draws.uniform("scenario.topology", (cells,))
-    ce = torch.clamp(torch.searchsorted(cdf, u, right=True), max=n_edges - 1)
+    ce = torch.searchsorted(cdf, cdf[-1] * (1 - u))
     return Topology(ce.to(torch.int32),
                     edge_capacities(n_edges, capacity_tiers, draws.device),
                     float(cloud_servers))

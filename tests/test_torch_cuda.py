@@ -8,8 +8,9 @@ split over many slot ranges with wholly masked splits and rows; the int8
 product on the K-major weight at ragged M, N and K (K zero-padded to a
 multiple of 32), M = 1, in float32 and bfloat16, and a row-major weight
 refused; the
-selective scan at one step, 4,096 steps, state sizes 8 and 16 and
-channel counts that are no block multiple; the banded sliding-window
+selective scan at one step, 4,096 steps, state sizes 5, 8 and 16,
+channel counts that are no block multiple and both splits of a channel's
+states, over 2 and over 4 lanes; the banded sliding-window
 attention against the CPU's plain path.
 Every test here needs a CUDA device
 and skips without one; run them on the GPU with
@@ -297,18 +298,36 @@ def test_serving_kernels_refuse_wrong_types_on_the_card(cuda):
 #: the scan: float32 within 1e-4 (tests/test_kernels.py); bf16 y within
 #: one bf16 step, absolute and relative
 SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bt,s,di,n", [
+#: (Bt, S, di, N) of the scan's card cases
+SCAN_SHAPES = (
     (4, 1, 48, 16),                        # one step (a one-token prompt)
     (2, 37, 3200, 16),                     # Hymba's di, no block multiple
     (3, 70, 48, 8),                        # N = 8 (states 8..15 zero),
                                            # a partial time chunk
     (1, 4096, 64, 16),                     # a long prompt at small di
     (2, 5, 130, 5),                        # N = 5, zero-padded to 16
-])
+)
+#: (Bt, S, di, N, lanes the plan splits a channel's states over): each N
+#: class on each lane count, every one with a partial last time chunk
+SCAN_SPLIT_SHAPES = (
+    (66, 45, 1024, 16, 2),                 # 1,056 blocks of 64 channels
+    (8, 50, 4200, 16, 2),                  # 528 blocks: the plan's least
+    (5, 33, 13600, 5, 2),                  # N = 5, di no block multiple
+    (33, 40, 1000, 8, 2),                  # N = 8
+    (8, 33, 4100, 16, 4),                  # 520 blocks at two lanes
+    (8, 70, 3200, 16, 4),                  # Hymba's di at a thin grid
+    (3, 36, 200, 5, 4),                    # N = 5
+    (2, 40, 640, 8, 4),                    # N = 8
+)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bt,s,di,n", SCAN_SHAPES)
 def test_selective_scan_kernel_matches_plain(cuda, dtype, bt, s, di, n):
+    _check_scan(cuda, dtype, bt, s, di, n)
+
+
+def _check_scan(cuda, dtype, bt, s, di, n):
     g = torch.Generator(device=cuda).manual_seed(s + di)
     u = (torch.randn((bt, s, di), generator=g, device=cuda) * 0.5).to(dtype)
     dt = torch.nn.functional.softplus(
@@ -326,6 +345,14 @@ def test_selective_scan_kernel_matches_plain(cuda, dtype, bt, s, di, n):
     tol = SCAN_TOL[dtype]
     torch.testing.assert_close(y.float(), y2.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(h, h2, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bt,s,di,n,lanes", SCAN_SPLIT_SHAPES)
+def test_selective_scan_each_lane_split_matches_plain(cuda, dtype, bt, s, di,
+                                                      n, lanes):
+    assert selective_scan.plan(bt, di, n)[0] == lanes
+    _check_scan(cuda, dtype, bt, s, di, n)
 
 
 def test_selective_scan_refuses_what_the_kernel_does_not_take(cuda):
