@@ -28,10 +28,12 @@ paths through the entry points a user calls:
 
 Each path's kernel launch counts are set to 0 just before it and read
 just after. Every phase prints one JSON line; any failed check raises
-and the exit code is non-zero. The ``kernel_parity`` lines of K3, K4
-and K5 also give each case's time with the L2 cache cold (``cold_ms``,
-``library_cold_ms``: a 256 MB read before each call) and ``bound_share``
-(bound over time); K6's lines name the plan's split of a channel's
+and the exit code is non-zero. The ``kernel_parity`` lines of K2, K3,
+K4 and K5 also give each case's time with the L2 cache cold
+(``cold_ms``, ``library_cold_ms``: a 256 MB read before each call) and
+``bound_share`` (bound over time); K2's lines cover every action allowed
+(goal 0 and 85%) and the fleet's own mask (85%), with the kernel's
+registers and spills; K6's lines name the plan's split of a channel's
 states over lanes and the registers and spills of the instance that ran;
 the build line gives each kernel function's registers and spills, and
 each decode ``step_profile`` the port's kernels' device ms per step. A
@@ -289,7 +291,9 @@ def head_margins(torch, ref, q, member, acc_table, threshold, topk):
     adjacent gaps among each member user's top-(k+1) values and, with a
     threshold, the gap between the two best distinct combo scores."""
     top = torch.sort(q, dim=-1, descending=True).values[..., :topk + 1]
-    gaps = (top[..., :-1] - top[..., 1:]).amin(-1)          # (cells, N)
+    # masked entries (all -1e30) tie among themselves and are never picked
+    gaps = torch.where(top[..., 1:] > -1e29, top[..., :-1] - top[..., 1:],
+                       torch.inf).amin(-1)                  # (cells, N)
     gaps = torch.where(member > 0.5, gaps, torch.inf).amin(-1)
     if not threshold:
         return gaps
@@ -305,8 +309,12 @@ def head_margins(torch, ref, q, member, acc_table, threshold, topk):
     return torch.minimum(gaps, torch.nan_to_num(s_gap, nan=torch.inf))
 
 
-def head_phase(torch, dqn_head, ref, dynamics):
-    cells, users, hidden, topk = CELLS, USERS, 128, 5
+def head_inputs(torch, dynamics, spaces, hidden=128):
+    """K2's inputs at the fleet's shape, drawn on the card from seed 2:
+    ``(active, member, end_b, agg, w1, b1, w2, b2, w3, b3, acc_table)``
+    and the allowed masks ``{"all": every action, "fleet": the
+    restricted offloading set's 3 of 10}``."""
+    cells, users = CELLS, USERS
     g = torch.Generator(device="cuda").manual_seed(2)
     member = (torch.rand((cells, users), generator=g, device="cuda") < 0.8)
     member[:, 0] = True
@@ -320,49 +328,81 @@ def head_phase(torch, dqn_head, ref, dynamics):
     ws = [torch.randn((a, b), generator=g, device="cuda") * (2.0 / a) ** 0.5
           for a, b in zip(dims[:-1], dims[1:])]
     bs = [torch.randn(b, generator=g, device="cuda") * 0.05 for b in dims[1:]]
-    allowed = torch.ones((users, 10), device="cuda")
+    spec = spaces.SpaceSpec(users)
+    masks = {"all": torch.ones((users, 10), device="cuda"),
+             "fleet": torch.tensor(spaces.allowed_per_user(
+                 spec, spaces.restricted_actions(spec)),
+                 device="cuda").float()}
     acc_table = dynamics.accuracies(torch.arange(10, device="cuda"))
-    args = (active, member, end_b, agg, ws[0], bs[0], ws[1], bs[1], ws[2],
-            bs[2], allowed, acc_table)
+    return (active, member, end_b, agg, ws[0], bs[0], ws[1], bs[1], ws[2],
+            bs[2], acc_table), masks
+
+
+def head_phase(torch, dqn_head, ref, dynamics, spaces, ptxas):
+    """K2 at the fleet's shape (32,768 cells x 5 users, hidden 128,
+    top-5): at goal 0 and at the 85% goal with every action allowed, and
+    at 85% under the fleet's own mask (the restricted offloading set: 3 of
+    10 actions a user). Each line gives the registers and spill bytes
+    ptxas gave the kernel (``ptxas``: ``ptxas_summary`` of K2's build)."""
+    cells, users, hidden, topk = CELLS, USERS, 128, 5
+    inputs, masks = head_inputs(torch, dynamics, spaces)
+    member, acc_table = inputs[1], inputs[-1]
+    ws, bs = inputs[4:10:2], inputs[5:10:2]         # (w1, w2, w3), biases
     rows = cells * users
     mlp_ops = rows * 2 * (11 * hidden + hidden * hidden + hidden * 10)
     io_bytes = (rows * 3 * 4 + cells * 8 * 4
                 + 4 * sum(w.numel() for w in ws + bs) + 4 * 10 * (users + 1)
                 + rows * 4 + rows * 10 * 4)
+    n_mem = member.sum(-1)
+    regs = [v for f, v in ptxas.items() if "dqn_head_kernel" in f]
     out = {}
-    for threshold in (0.0, 85.0):
+    for mask, threshold in (("all", 0.0), ("all", 85.0), ("fleet", 85.0)):
+        allowed = masks[mask]
+        args = inputs[:-1] + (allowed, acc_table)
         kw = dict(threshold=threshold, topk=topk)
         d_k, q_k = dqn_head.dqn_head_cuda(*args, **kw)
         d_p, q_p = ref.dqn_head_ref(*args, **kw)
         torch.cuda.synchronize()
         err = float((q_k - q_p).abs().max())
-        check(err <= 1e-5, f"dqn_head: q differs by {err} at {threshold}")
+        check(err <= 1e-5, f"dqn_head: q differs by {err} at {threshold}, "
+              f"{mask} allowed")
         margin = head_margins(torch, ref, q_p, member, acc_table, threshold,
                               topk)
         clear = margin > 1e-4
         differ = (d_k != d_p).any(-1)
         n_bad = int((differ & clear).sum())
         check(n_bad == 0, f"dqn_head: {n_bad} cells with clear margins "
-              f"decide differently at threshold {threshold}")
+              f"decide differently at threshold {threshold}, {mask} "
+              "allowed")
         # and bit-exact on EVERY cell against the plain decision logic
         # applied to the kernel's own q (no product rounding in the way)
         d_own = ref.greedy_head_ref(q_k, member, acc_table, **kw)
         check(torch.equal(d_k, d_own), "dqn_head: decisions differ from "
-              f"the plain logic on the kernel's q at {threshold}")
+              f"the plain logic on the kernel's q at {threshold}, {mask} "
+              "allowed")
         ms, wall_ms, src = timed(lambda: dqn_head.dqn_head_cuda(*args, **kw))
         plain_ms, plain_wall_ms, _ = timed(
             lambda: ref.dqn_head_ref(*args, **kw))
-        combo_ops = cells * topk ** users * users * 2 if threshold else 0
+        if not threshold:
+            combo_ops = 0
+        elif mask == "all":     # every cell's k^N combos, as first counted
+            combo_ops = cells * topk ** users * users * 2
+        else:                   # what the mask leaves: 3 digits a member
+            kv = int(allowed[0].sum())
+            combo_ops = int((n_mem * kv ** n_mem * 2).sum())
         b_ms, b_by = bound(io_bytes, mlp_ops + combo_ops)
-        out[threshold] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=b_ms, bound_by=b_by)
+        out[mask, threshold] = dict(max_abs_err=err, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by)
         emit(phase="kernel_parity", kernel="dqn_head", threshold=threshold,
-             shape=[cells, users, hidden], q_tolerance=1e-5, max_abs_err=err,
-             cells_under_margin=int((~clear).sum()),
+             allowed=mask, shape=[cells, users, hidden], q_tolerance=1e-5,
+             max_abs_err=err, cells_under_margin=int((~clear).sum()),
              cells_differing=int(differ.sum()), ms=ms, plain_ms=plain_ms,
-             bound_ms=b_ms, bound_by=b_by, timing=src, wall_ms=wall_ms,
-             plain_wall_ms=plain_wall_ms)
-    main = out[85.0]                  # the DQN phase's QoS operating point
+             bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+             cold_ms=cold_ms(lambda: dqn_head.dqn_head_cuda(*args, **kw)),
+             timing=src, wall_ms=wall_ms, plain_wall_ms=plain_wall_ms,
+             ptxas=regs[0] if regs else None)
+    main = out["all", 85.0]           # the DQN phase's QoS operating point
     return dict(name="dqn_head", route="cuda",
                 source="src/repro_torch/csrc/dqn_head.cu",
                 replaces="src/repro/kernels/dqn_head.py:116",
@@ -711,19 +751,25 @@ def tabular_training(torch, R):
     return agent
 
 
-def dqn_training(torch, R):
+def dqn_agent(R):
+    """The DQN phase's agent: ``FleetDQN`` (hidden 128, top-5 head at the
+    85% goal) on a dynamic 32,768-cell synthetic fleet of 5 users."""
     cfg = R.scenarios.FleetConfig(cells=CELLS, users=USERS, arrival_rate=1.2,
                                   p_r2w=0.05, p_w2r=0.15, min_users=2,
                                   max_users=5)
     # the policy spans the oracle's candidate set (the restricted 3^5
     # offloading actions), so the holdout ratio is bounded by 1: over the
     # full 10^5 space the greedy can beat that oracle
-    agent = R.policy.FleetDQN(
+    return R.policy.FleetDQN(
         R.api.SyntheticSource(cfg), actions=R.population.default_actions(
             R.population.SpaceSpec(USERS)),
         cfg=R.policy.FleetDQNConfig(hidden=128, topk=5,
                                     accuracy_threshold=85.0),
         seed=0, device="cuda")
+
+
+def dqn_training(torch, R):
+    agent = dqn_agent(R)
     agent.run(3)                                   # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1196,6 +1242,7 @@ def main():
 
     import types
     from repro_torch.configs.base import get_config
+    from repro_torch.core import spaces
     from repro_torch.fleet import (api, dynamics, policy, population,
                                    scenarios)
     from repro_torch.kernels import (_build, decode_attention, dqn_head,
@@ -1222,7 +1269,8 @@ def main():
                  for k, fns in ptxas.items()})
 
     entries = [tabular_phase(torch, tabular_rl, ref),
-               head_phase(torch, dqn_head, ref, dynamics),
+               head_phase(torch, dqn_head, ref, dynamics, spaces,
+                          ptxas[dqn_head.KERNEL.name]),
                flash_phase(torch, flash_attention),
                decode_phase(torch, ops, decode_attention),
                int8_phase(torch, ref, int8_matmul),

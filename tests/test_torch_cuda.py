@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at shapes ``chip_smoke.py`` does not reach: rows wider than the
 tabular kernel's register path, odd hidden widths, masked rows and the
-infeasible fallback of the head; attention with sequences that are no
+infeasible fallback of the head, and the head's combo search at the
+fleet's width under both masks, at a threshold met exactly, with cells
+of no member, a member with every top-k entry masked, every q tied, one
+user and the most users; attention with sequences that are no
 tile multiple, one kv head and a window, the bf16 tensor-core instance of
 flash attention at the edges of its tiles and masks, and decode attention
 split over many slot ranges with wholly masked splits and rows; the int8
@@ -24,6 +27,7 @@ import torch
 from repro_torch.kernels import (decode_attention, dqn_head,
                                  flash_attention, int8_matmul, ops, ref,
                                  selective_scan, tabular_rl)
+from repro_torch.core import spaces
 from repro_torch.models import layers
 
 
@@ -76,16 +80,20 @@ def _head_args(cuda, cells, users, hidden, seed, allowed):
             ws[2], bs[2], torch.tensor(allowed, device=cuda), acc)
 
 
-def _check_head(args, threshold):
+def _check_head(args, threshold, topk=3):
     """q within 1e-5 of the plain version (cuBLAS sums in another order);
     decisions bit-exact against the plain decision logic applied to the
     kernel's own q, so rounding of the products cannot flip a tie."""
-    d_k, q_k = dqn_head.dqn_head_cuda(*args, threshold=threshold, topk=3)
-    _, q_p = ref.dqn_head_ref(*args, threshold=threshold, topk=3)
+    before = dqn_head.KERNEL.launches
+    d_k, q_k = dqn_head.dqn_head_cuda(*args, threshold=threshold, topk=topk)
+    _, q_p = ref.dqn_head_ref(*args, threshold=threshold, topk=topk)
+    torch.cuda.synchronize()
+    assert dqn_head.KERNEL.launches == before + 1
     torch.testing.assert_close(q_k, q_p, rtol=1e-5, atol=1e-5)
     assert torch.equal(d_k, ref.greedy_head_ref(q_k, args[1], args[-1],
                                                 threshold=threshold,
-                                                topk=3))
+                                                topk=topk))
+    return d_k, q_k
 
 
 @pytest.mark.parametrize("cells,users,hidden,threshold", [
@@ -104,6 +112,81 @@ def test_head_kernel_masked_rows(cuda, threshold):
     allowed[1, :] = 0.0           # an all-masked user
     args = _head_args(cuda, 29, 3, 16, 7, allowed)
     _check_head(args, threshold)
+
+
+def _fleet_mask(users):
+    """The fleet's own mask: the restricted offloading set's per-user
+    actions, 3 of 10 allowed."""
+    spec = spaces.SpaceSpec(users)
+    return spaces.allowed_per_user(
+        spec, spaces.restricted_actions(spec)).astype(np.float32)
+
+
+def _exact_threshold(q, member, acc, topk):
+    """A threshold that a cell's best combo meets exactly: the float32 mean
+    accuracy of the member users' top-1 actions in the first cell with
+    two members or more, summed in user order as the reference sums it."""
+    _, idx = ref.stable_topk_ref(q, topk)
+    c = int(torch.nonzero((member > 0.5).sum(-1) >= 2)[0])
+    macc = torch.zeros((), dtype=torch.float32, device=q.device)
+    users = member[c] > 0.5
+    for u in range(q.shape[1]):
+        if users[u]:
+            macc = macc + acc[idx[c, u, 0]]
+    return float(macc / users.sum().float())
+
+
+#: (cells, users, hidden, topk, threshold, mask, change): K2's combo
+#: search at the fleet's width (top-5 of 5 users, hidden 128) with all
+#: actions allowed and with the fleet's mask, at a threshold the best
+#: combo of a cell meets exactly, with cells of no member, a member whose
+#: every top-k entry is masked, every q tied, cell counts that are no
+#: multiple of the 25-cell tile, one user and the most users
+HEAD_SEARCH_CASES = {
+    "85% all allowed": (1001, 5, 128, 5, 85.0, "all", None),
+    "85% fleet mask": (1001, 5, 128, 5, 85.0, "fleet", None),
+    "goal 0 fleet mask": (1001, 5, 128, 5, 0.0, "fleet", None),
+    "exact threshold": (1001, 5, 128, 5, "exact", "all", None),
+    "exact threshold fleet mask": (1001, 5, 128, 5, "exact", "fleet", None),
+    "zero members": (777, 5, 128, 5, 85.0, "all", "no members"),
+    "member with kv 0": (777, 5, 128, 5, 85.0, "user 1 masked", None),
+    "every q tied": (333, 5, 128, 5, 88.5, "all", "tied q"),
+    "one user": (301, 1, 128, 5, 85.0, "all", None),
+    "12 users top-2": (101, 12, 64, 2, 88.0, "all", None),
+    "most users top-1": (203, dqn_head.MAX_USERS, 128, 1, 85.0, "all",
+                         None),
+}
+
+
+@pytest.mark.parametrize("case", list(HEAD_SEARCH_CASES))
+def test_head_kernel_search_cases(cuda, case):
+    cells, users, hidden, topk, threshold, mask, change = \
+        HEAD_SEARCH_CASES[case]
+    allowed = (_fleet_mask(users) if mask == "fleet"
+               else np.ones((users, 10), np.float32))
+    if mask == "user 1 masked":
+        allowed[1] = 0.0
+    args = list(_head_args(cuda, cells, users, hidden, cells + users,
+                           allowed))
+    if change == "no members":
+        args[1][::3] = 0.0                 # every third cell: no member
+    elif change == "tied q":
+        args[8].zero_()                    # w3 = 0 and b3 constant: every
+        args[9].fill_(0.25)                # combo of a cell scores the same
+    if threshold == "exact":
+        _, q_p = ref.dqn_head_ref(*args, threshold=0.0, topk=topk)
+        threshold = _exact_threshold(q_p, args[1], args[-1], topk)
+        score, _, _ = ref.combo_scores_ref(q_p, args[1], args[-1],
+                                           threshold=threshold, topk=topk)
+        on_edge, _, _ = ref.combo_scores_ref(
+            q_p, args[1], args[-1], threshold=float(np.nextafter(
+                np.float32(threshold), np.float32(np.inf))), topk=topk)
+        # the threshold decides some combos exactly at their mean
+        assert bool((torch.isfinite(score) & ~torch.isfinite(on_edge))
+                    .any())
+    d_k, q_k = _check_head(tuple(args), threshold, topk)
+    if change == "no members":
+        assert torch.equal(d_k[::3], ref.first_argmax_ref(q_k)[::3])
 
 
 # ------------------------------------------- served model: K3, K4, K5 ----

@@ -38,9 +38,10 @@ import time
 from attention_ab import REPS, load_tree, turns
 
 
-def sass_loops(lib, cuobjdump):
-    """{function: {...}} for the innermost backward-branch loop of each
-    function in ``lib`` that holds a ``MUFU.EX2``."""
+def sass_bodies(lib, cuobjdump):
+    """{function: [(first address, branch address, opcodes), ...]}: every
+    backward-branch loop of each kernel function in ``lib`` (``cuobjdump
+    -sass``)."""
     text = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
     out, fn, ins = {}, None, []
@@ -51,20 +52,11 @@ def sass_loops(lib, cuobjdump):
             m = re.match(r"0x([0-9a-f]+)", args)
             if op.split(".")[0] == "BRA" and m and \
                     int(m.group(1), 16) <= addr:
-                body = [o for a, o, _ in ins
-                        if int(m.group(1), 16) <= a <= addr]
-                if "MUFU.EX2" in body:
-                    loops.append(body)
-        if fn and loops:
-            body = min(loops, key=len)
-            ops = {}
-            for o in body:
-                ops[o] = ops.get(o, 0) + 1
-            ex2 = ops["MUFU.EX2"]
-            out[fn] = {"loop_instructions": len(body), "loop_ex2": ex2,
-                       "per_exp": len(body) / ex2,
-                       "ops": dict(sorted(ops.items(),
-                                          key=lambda kv: -kv[1]))}
+                lo = int(m.group(1), 16)
+                loops.append((lo, addr, [o for a, o, _ in ins
+                                         if lo <= a <= addr]))
+        if fn:
+            out[fn] = loops
     for ln in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", ln)
         if m:
@@ -80,6 +72,28 @@ def sass_loops(lib, cuobjdump):
                 ins.append((int(m.group(1), 16), words[0],
                             " ".join(words[1:])))
     close()
+    return out
+
+
+def op_counts(body):
+    ops = {}
+    for o in body:
+        ops[o] = ops.get(o, 0) + 1
+    return dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+
+
+def sass_loops(lib, cuobjdump):
+    """{function: {...}} for the innermost backward-branch loop of each
+    function in ``lib`` that holds a ``MUFU.EX2``."""
+    out = {}
+    for fn, loops in sass_bodies(lib, cuobjdump).items():
+        loops = [b for _, _, b in loops if "MUFU.EX2" in b]
+        if loops:
+            body = min(loops, key=len)
+            ops = op_counts(body)
+            ex2 = ops["MUFU.EX2"]
+            out[fn] = {"loop_instructions": len(body), "loop_ex2": ex2,
+                       "per_exp": len(body) / ex2, "ops": ops}
     return out
 
 
