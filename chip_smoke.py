@@ -18,6 +18,16 @@ paths through the entry points a user calls:
   3-user fleet routed with ``FleetOrchestrator.route(dispatch=engines)``
   into batches of 64, and each variant's ``generate`` at batch 64,
   prompt bucket 256, 16 new tokens (kernels K3, K4, K5);
+* the sim-to-real loop (phases ``metrics_overhead``, ``bridge_dispatch``,
+  ``spans``, ``calibration``): both agents at 32,768 x 5 with their
+  telemetry on and off (trained state held bit-identical); the 1,024-cell
+  fleet spread over the S/E/C engines, routed synchronously and through
+  the async bridge (one CUDA stream per queue), with network hops
+  (E 25 ms, C 50 ms) and without, plus the oracle through the bridge and
+  one overloaded bridge; a route recorded as Chrome-trace spans; and
+  ``calibrate_serving`` on the hop engines, fitting the latency model to
+  the card's walls and retraining a ``FleetDQN`` on the calibrated
+  dynamics (kernels K1-K5);
 * the state-space path: ``build_engines`` over Falcon-Mamba-7B at its
   published size (64 Mamba blocks, d_model 4096, d_inner 8192, vocab
   65,024; d0 bf16 and d4 int8), each variant's ``generate`` at batch 64,
@@ -27,7 +37,10 @@ paths through the entry points a user calls:
   longer than its 1,024-token window (kernels K3, K4, K5, K6).
 
 Each path's kernel launch counts are set to 0 just before it and read
-just after. Every phase prints one JSON line; any failed check raises
+just after; every route checks its identities (each active user served
+once, or shed once where a bridge is overloaded; batching + compute +
+dispatch = wall; queue + measured = e2e; attained + violated =
+dispatched). Every phase prints one JSON line; any failed check raises
 and the exit code is non-zero. The ``kernel_parity`` lines of K2, K3,
 K4 and K5 also give each case's time with the L2 cache cold
 (``cold_ms``, ``library_cold_ms``: a 256 MB read before each call) and
@@ -190,10 +203,9 @@ def ptxas_summary(log):
     return out
 
 
-def step_profile(torch, run, steps=5, top=5, **label):
-    """Device busy share of ``run()`` (``steps`` steps of a path) and the
-    ``top`` kernels with the most device time, from one ``torch.profiler``
-    window."""
+def profile_window(torch, run):
+    """One ``torch.profiler`` window around ``run()``: (host wall us, to
+    the device's end; {kernel name: device us})."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -205,6 +217,14 @@ def step_profile(torch, run, steps=5, top=5, **label):
     by_name = {}
     for n, us in device_events(prof):
         by_name[n] = by_name.get(n, 0.0) + us
+    return wall_us, by_name
+
+
+def step_profile(torch, run, steps=5, top=5, **label):
+    """Device busy share of ``run()`` (``steps`` steps of a path) and the
+    ``top`` kernels with the most device time, from one ``torch.profiler``
+    window."""
+    wall_us, by_name = profile_window(torch, run)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     ours = {}
@@ -719,11 +739,19 @@ def scan_phase(torch, selective_scan, ptxas):
 
 
 # -------------------------------------------------------------- paths ----
-def tabular_training(torch, R):
+def tabular_agent(R, metrics):
+    """The tabular phase's agent: ``FleetQLearning`` on a 32,768-cell
+    mixed Table-5 fleet of 5 users."""
     scen = R.scenarios.mixed_table5_fleet(R.Draws(3, "cuda"), CELLS, USERS)
-    agent = R.population.FleetQLearning(
+    return R.population.FleetQLearning(
         scen, R.scenarios.FleetConfig(cells=CELLS, users=USERS), seed=0,
-        device="cuda")
+        device="cuda", metrics=metrics)
+
+
+def tabular_training(torch, R):
+    # metrics off: the loop as earlier runs timed it (phase
+    # metrics_overhead times the recording)
+    agent = tabular_agent(R, metrics=False)
     check(tuple(agent.q.shape) == (CELLS, 36, 243), "Q-table shape")
     agent.run(5)                                   # warm-up
     torch.cuda.synchronize()
@@ -751,21 +779,25 @@ def tabular_training(torch, R):
     return agent
 
 
-def dqn_agent(R):
+def dqn_agent(R, metrics=False, calib=None):
     """The DQN phase's agent: ``FleetDQN`` (hidden 128, top-5 head at the
-    85% goal) on a dynamic 32,768-cell synthetic fleet of 5 users."""
+    85% goal) on a dynamic 32,768-cell synthetic fleet of 5 users, the
+    fleet's latency model calibrated by ``calib`` when given."""
     cfg = R.scenarios.FleetConfig(cells=CELLS, users=USERS, arrival_rate=1.2,
                                   p_r2w=0.05, p_w2r=0.15, min_users=2,
                                   max_users=5)
+    src = R.api.SyntheticSource(cfg)
+    if calib is not None:
+        src = R.calibrate.CalibratedDynamics(src, calib)
     # the policy spans the oracle's candidate set (the restricted 3^5
     # offloading actions), so the holdout ratio is bounded by 1: over the
     # full 10^5 space the greedy can beat that oracle
     return R.policy.FleetDQN(
-        R.api.SyntheticSource(cfg), actions=R.population.default_actions(
+        src, actions=R.population.default_actions(
             R.population.SpaceSpec(USERS)),
         cfg=R.policy.FleetDQNConfig(hidden=128, topk=5,
                                     accuracy_threshold=85.0),
-        seed=0, device="cuda")
+        seed=0, device="cuda", metrics=metrics)
 
 
 def dqn_training(torch, R):
@@ -834,6 +866,65 @@ def cpu_agreement(torch, R):
          decisions_agree=same)
 
 
+def route_fleet(R, cells=ROUTE_CELLS, seed=11):
+    """The routed fleet: ``cells`` cells of 1-3 users over the Table-5
+    link mixes."""
+    return R.scenarios.mixed_table5_fleet(R.Draws(seed, "cuda"), cells,
+                                          ROUTE_USERS, min_users=1,
+                                          max_users=ROUTE_USERS)
+
+
+def active_users(scen):
+    """The set of (cell, user) that send a request in ``scen``."""
+    import numpy as np
+    return set(zip(*(a.tolist() for a in np.nonzero(
+        scen.active.cpu().numpy()))))
+
+
+def check_route(res, want, label, overloaded=False):
+    """The identities of a dispatched route: every active user of
+    ``want`` served exactly once (through the bridge: served or shed,
+    never both, and with no shed unless ``overloaded``), ``batching +
+    compute + dispatch == wall`` (``dispatch >= 0`` on the synchronous
+    path), ``queue + measured == e2e`` and ``attained + violated ==
+    dispatched``."""
+    keys = [(r.cell, r.user) for r in res.served]
+    check(len(keys) == len(set(keys)), f"{label}: a request served twice")
+    st = res.bridge
+    if st is None:
+        check(set(keys) == want,
+              f"{label}: the active users were not served exactly once")
+    else:
+        shed = st["shed"]
+        check(st["submitted"] == st["admitted"] + shed["overflow"]
+              + shed["deadline"] == len(want),
+              f"{label}: submitted != admitted + overflow + deadline")
+        check(st["served"] + shed["total"] == st["submitted"]
+              and st["served"] == len(keys),
+              f"{label}: served + shed != submitted")
+        lost = {(sr["cell"], sr["user"]) for sr in st["shed_requests"]}
+        check(len(lost) == shed["total"] and not lost & set(keys)
+              and lost | set(keys) == want,
+              f"{label}: an active user neither served nor shed once")
+        check(not st["engine_errors"],
+              f"{label}: an engine raised: {st['engine_errors']}")
+        if not overloaded:
+            check(st["timeouts"] == st["rerouted"] == shed["total"] == 0,
+                  f"{label}: timeouts {st['timeouts']}, rerouted "
+                  f"{st['rerouted']}, shed {shed}")
+    t = res.timings
+    check(abs(t["batching_ms"] + t["compute_ms"] + t["dispatch_ms"]
+              - t["wall_ms"]) <= 1e-6 * t["wall_ms"]
+          and (st is not None or t["dispatch_ms"] >= 0),
+          f"{label}: batching + compute + dispatch != wall")
+    check(all(abs(r.queue_ms + r.measured_ms - r.e2e_ms) <= 1e-9
+              for r in res.served), f"{label}: queue + measured != e2e")
+    slo = res.slo()
+    check(slo["measured"]["attained"] + slo["measured"]["violated"]
+          == slo["requests"] == len(keys),
+          f"{label}: attained + violated != dispatched")
+
+
 def route_dispatch(torch, R, engines, cells=ROUTE_CELLS,
                    phase="route_dispatch", seed=11):
     """A ``cells``-cell 3-user mixed Table-5 fleet (the full 10^3 joint
@@ -841,31 +932,15 @@ def route_dispatch(torch, R, engines, cells=ROUTE_CELLS,
     goals 0 and 85; then, for each engine the oracle left idle, the
     fixed strategy that targets it (local dk, edge or cloud), so that
     every engine of ``build_engines`` serves."""
-    import numpy as np
-    scen = R.scenarios.mixed_table5_fleet(R.Draws(seed, "cuda"), cells,
-                                          ROUTE_USERS, min_users=1,
-                                          max_users=ROUTE_USERS)
-    active = scen.active.cpu().numpy()
-    want = set(zip(*(a.tolist() for a in np.nonzero(active))))
+    scen = route_fleet(R, cells, seed)
+    want = active_users(scen)
     served_by = {}
 
     def route(label, policy):
         res = R.api.FleetOrchestrator(policy).route(
             scen=scen, dispatch=engines, batch_size=SERVE_BATCH)
-        keys = [(r.cell, r.user) for r in res.served]
-        check(len(keys) == len(set(keys)) and set(keys) == want,
-              f"{label}: the active users were not served exactly once")
-        t = res.timings
-        check(abs(t["batching_ms"] + t["compute_ms"] + t["dispatch_ms"]
-                  - t["wall_ms"]) <= 1e-6 * t["wall_ms"]
-              and t["dispatch_ms"] >= 0,
-              f"{label}: batching + compute + dispatch != wall")
-        check(all(abs(r.queue_ms + r.measured_ms - r.e2e_ms) <= 1e-9
-                  for r in res.served), f"{label}: queue + measured != e2e")
-        slo = res.slo()
-        check(slo["measured"]["attained"] + slo["measured"]["violated"]
-              == slo["requests"] == len(want),
-              f"{label}: attained + violated != dispatched")
+        check_route(res, want, label)
+        t, slo = res.timings, res.slo()
         per = res.timings["per_tier_variant"]
         for key, tv in per.items():
             served_by[key] = served_by.get(key, 0) + tv["requests"]
@@ -890,6 +965,393 @@ def route_dispatch(torch, R, engines, cells=ROUTE_CELLS,
             route(f"static {strategy}",
                   R.api.StaticPolicy(ROUTE_USERS, strategy))
     emit(phase=f"{phase}_coverage", served_by=served_by)
+
+
+# ------------------------------------------------- the sim-to-real loop ----
+#: per-batch network hop to the edge / cloud tiers (the reference's
+#: benchmarks/bench_bridge.py HOP_MS)
+HOP_MS = {"E": 25.0, "C": 50.0}
+METRICS_STEPS, CALIB_STEPS = 100, 300
+BRIDGE_TURNS = 3
+
+
+class SpreadPolicy:
+    """User slot u of every cell goes to (local d0, edge, cloud)[u % 3]:
+    the S/E/C engines loaded evenly, as the reference's
+    ``benchmarks/bench_bridge.py`` SpreadPolicy does."""
+
+    def __init__(self, torch, dynamics):
+        self.torch = torch
+        self.acts = (0, dynamics.A_EDGE, dynamics.A_CLOUD)
+
+    def decisions(self, counts, scen):
+        torch, dev = self.torch, scen.device
+        acts = torch.tensor(self.acts, dtype=torch.int32, device=dev)
+        slot = torch.arange(scen.users, device=dev) % 3
+        dec = acts[slot].expand(scen.cells, scen.users).contiguous()
+        return dec, torch.zeros((scen.cells,), dtype=torch.int32, device=dev)
+
+
+def spread_fleet(R):
+    """ROUTE_CELLS cells of ROUTE_USERS users, every user a member and
+    active (3,072 requests a route)."""
+    return R.scenarios.init_fleet(
+        R.Draws(17, "cuda"), R.scenarios.FleetConfig(cells=ROUTE_CELLS,
+                                                     users=ROUTE_USERS))
+
+
+def metrics_overhead(torch, R):
+    """Each agent at 32,768 x 5 for METRICS_STEPS steps with metrics on
+    and off, from the same seed and draws: wall ms per step (host clock
+    around synchronised runs) and device ms per step (a 5-step profiler
+    window) of each, the recorded counts, and the trained state held
+    bit-identical; the DQN's against its own run-to-run spread, read from
+    two runs with metrics off."""
+    steps = 3 + METRICS_STEPS + 5
+
+    def measure(agent):
+        agent.run(3)                               # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agent.run(METRICS_STEPS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / METRICS_STEPS
+        win_us, by_name = profile_window(torch, lambda: agent.run(5))
+        dev = sum(by_name.values()) / 5 / 1e3
+        return {"wall_ms_per_step": wall, "device_ms_per_step": dev,
+                "device_busy_share": dev * 5e3 / win_us}
+
+    tab = {on: tabular_agent(R, metrics=on) for on in (True, False)}
+    times = {on: measure(a) for on, a in tab.items()}
+    check(torch.equal(tab[True].q, tab[False].q),
+          "the tabular Q-table differs with metrics on and off")
+    summ = tab[True].metrics_summary()
+    check(tab[False].metrics_summary() is None
+          and all(summ[k]["count"] == steps * CELLS
+                  for k in ("reward", "mean_ms", "td_abs"))
+          and summ["epsilon"]["count"] == steps, "tabular metric counts")
+    emit(phase="metrics_overhead", agent="tabular", cells=CELLS,
+         users=USERS, steps=METRICS_STEPS, on=times[True], off=times[False],
+         wall_overhead_ms_per_step=times[True]["wall_ms_per_step"]
+         - times[False]["wall_ms_per_step"],
+         counts={k: v["count"] for k, v in summ.items()},
+         means={k: v["mean"] for k, v in summ.items()},
+         q_bit_identical=True)
+    del tab
+
+    dqn = {label: dqn_agent(R, metrics=label == "on")
+           for label in ("off", "off_again", "on")}
+    times = {label: measure(a) for label, a in dqn.items()}
+
+    def max_diff(a, b):
+        return max(float((p[k] - q[k]).detach().abs().max())
+                   for p, q in zip(a.params, b.params) for k in ("w", "b"))
+    run_to_run = max_diff(dqn["off"], dqn["off_again"])
+    on_off = max_diff(dqn["on"], dqn["off"])
+    check(on_off <= run_to_run,
+          f"DQN params with metrics on and off differ by {on_off}, "
+          f"beyond the run-to-run spread {run_to_run}")
+    summ = dqn["on"].metrics_summary()
+    check(all(summ[k]["count"] == steps * CELLS
+              for k in ("reward", "mean_ms"))
+          and all(summ[k]["count"] == steps
+                  for k in ("loss", "replay_fill", "epsilon")),
+          "DQN metric counts")
+    emit(phase="metrics_overhead", agent="dqn", cells=CELLS, users=USERS,
+         steps=METRICS_STEPS, on=times["on"], off=times["off"],
+         off_again=times["off_again"],
+         wall_overhead_ms_per_step=times["on"]["wall_ms_per_step"]
+         - times["off"]["wall_ms_per_step"],
+         counts={k: v["count"] for k, v in summ.items()},
+         means={k: v["mean"] for k, v in summ.items()},
+         params_max_abs_diff_run_to_run=run_to_run,
+         params_max_abs_diff_on_off=on_off)
+
+
+def bridge_dispatch(torch, R, engines, hop_engines, serving_kernels):
+    """The spread fleet routed synchronously and through the bridge,
+    interleaved, BRIDGE_TURNS turns each, on the engines with network
+    hops (HOP_MS) and without; the oracle at the 85% goal through the
+    bridge (the int8 variants, so K5 too); and one overloaded route
+    (queues of 16). Every identity of ``check_route`` on every route; on
+    the others no timeout, reroute or shed, and K3 and K4 (K5 on the
+    oracle's) launched during each bridge route."""
+    scen = spread_fleet(R)
+    want = active_users(scen)
+    orch = R.api.FleetOrchestrator(SpreadPolicy(torch, R.dynamics))
+    # queues that hold the whole burst: only the overloaded route sheds
+    cfg = R.serving.BridgeConfig(max_batch=SERVE_BATCH, max_queue=len(want))
+
+    def bridge_route(label, orch_, scen_, engs, want_, bcfg=cfg,
+                     overloaded=False):
+        before = {k.name: k.launches for k in serving_kernels}
+        res = orch_.route(scen=scen_, dispatch=engs, batch_size=SERVE_BATCH,
+                          bridge=bcfg)
+        grew = {k.name: k.launches - before[k.name] for k in serving_kernels}
+        check_route(res, want_, label, overloaded=overloaded)
+        return res, grew
+
+    def rps(res):
+        return len(res.served) / (res.timings["wall_ms"] / 1e3)
+
+    for label, engs in (("hops", hop_engines), ("no_hops", engines)):
+        kw = dict(scen=scen, dispatch=engs, batch_size=SERVE_BATCH)
+        orch.route(**kw)                           # warm both paths
+        orch.route(bridge=cfg, **kw)
+        syncs, bridges = [], []
+        for turn in range(BRIDGE_TURNS):
+            syncs.append(orch.route(**kw))
+            check_route(syncs[-1], want, f"{label} sync {turn}")
+            res, grew = bridge_route(f"{label} bridge {turn}", orch, scen,
+                                     engs, want)
+            check(grew["flash_attention"] > 0
+                  and grew["decode_attention"] > 0,
+                  f"{label} bridge {turn}: K3/K4 not launched: {grew}")
+            bridges.append(res)
+        sync_rps = max(rps(r) for r in syncs)
+        bridge_rps = max(rps(r) for r in bridges)
+        emit(phase="bridge_dispatch", engines=label,
+             hop_ms=HOP_MS if label == "hops" else None, cells=ROUTE_CELLS,
+             users=ROUTE_USERS, requests=len(want), turns=BRIDGE_TURNS,
+             sync_rps=sync_rps, bridge_rps=bridge_rps,
+             bridge_vs_sync_x=bridge_rps / sync_rps,
+             overlap_x=max(r.bridge["overlap_x"] for r in bridges),
+             sync_wall_ms=[r.timings["wall_ms"] for r in syncs],
+             bridge_wall_ms=[r.timings["wall_ms"] for r in bridges],
+             bridge_compute_ms=[r.timings["compute_ms"] for r in bridges],
+             bridge_dispatch_ms=[r.timings["dispatch_ms"] for r in bridges],
+             overlap_x_turns=[r.bridge["overlap_x"] for r in bridges],
+             batches=[r.batches for r in bridges],
+             gap_x=bridges[-1].gap_x)
+
+    bridge_contention(torch, engines)
+
+    mixed = route_fleet(R)
+    mwant = active_users(mixed)
+    oracle = R.api.FleetOrchestrator(
+        R.api.OraclePolicy(ROUTE_USERS, threshold=85.0))
+    sync = oracle.route(scen=mixed, dispatch=engines, batch_size=SERVE_BATCH)
+    res, grew = bridge_route(
+        "oracle@85 bridge", oracle, mixed, engines, mwant,
+        R.serving.BridgeConfig(max_batch=SERVE_BATCH, max_queue=len(mwant)))
+    check(all(n > 0 for n in grew.values()),
+          f"oracle@85 bridge: a serving kernel was not launched: {grew}")
+    check([(r.cell, r.user, r.tier, r.variant) for r in res.served]
+          == [(r.cell, r.user, r.tier, r.variant) for r in sync.served],
+          "oracle@85: the bridge served another request set than sync")
+    emit(phase="bridge_dispatch", engines="no_hops", policy="oracle@85",
+         requests=len(res.served), launches=grew,
+         per_tier_variant={k: v["requests"] for k, v in
+                           res.timings["per_tier_variant"].items()},
+         sync_wall_ms=sync.timings["wall_ms"],
+         bridge_wall_ms=res.timings["wall_ms"],
+         overlap_x=res.bridge["overlap_x"])
+
+    over = R.serving.BridgeConfig(max_batch=SERVE_BATCH, max_queue=16)
+    res, _ = bridge_route("overloaded", orch, scen, engines, want, over,
+                          overloaded=True)
+    st = res.bridge
+    check(st["shed"]["overflow"] > 0, "overloaded: no overflow shed")
+    check(all({"cell", "user", "action"} <= set(sr)
+              for sr in st["shed_requests"]),
+          "overloaded: a shed record without its cell")
+    emit(phase="bridge_dispatch", engines="no_hops", policy="overloaded",
+         max_queue=16, submitted=st["submitted"], admitted=st["admitted"],
+         served=st["served"], shed=st["shed"], timeouts=st["timeouts"],
+         rerouted=st["rerouted"])
+
+
+def bridge_contention(torch, engines, reps=5):
+    """Where the bridge's time goes without hops: one batch of 64 on each
+    of S/d0, E/d0 and C/d0 timed alone and then all three at once, each
+    from its own thread on its own stream as the bridge runs them."""
+    import threading
+    import numpy as np
+    engs = [engines[t]["d0"] for t in ("S", "E", "C")]
+    toks = np.random.default_rng(5).integers(
+        0, 8192, (SERVE_BATCH, 32)).astype(np.int32)
+    streams = [torch.cuda.Stream() for _ in engs]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+
+    def call(eng, st):
+        with torch.cuda.stream(st):
+            t0 = time.perf_counter()
+            eng.generate(toks, 4)
+            return (time.perf_counter() - t0) * 1e3
+
+    out = [[] for _ in engs]
+    start = threading.Barrier(len(engs))
+
+    def run(i):
+        start.wait()
+        out[i] = [call(engs[i], streams[i]) for _ in range(reps)]
+
+    alone = [float(np.median([call(e, st) for _ in range(reps)]))
+             for e, st in zip(engs, streams)]
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(engs))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    check(not any(th.is_alive() for th in threads), "contention hung")
+    emit(phase="bridge_dispatch", engines="no_hops", policy="contention",
+         batch=SERVE_BATCH, new_tokens=4, generate_ms_alone=alone,
+         generate_ms_three_threads=[float(np.median(o)) for o in out])
+
+
+def spans_phase(torch, R, engines):
+    """One synchronous route of the spread fleet with a ``SpanRecorder``:
+    the Chrome trace validates, the ``request.e2e`` durations reproduce
+    the served e2e, and the histogram quantiles lie within one bin of
+    the exact ones (unless flagged clipped); the same route without
+    spans beside it."""
+    scen = spread_fleet(R)
+    want = active_users(scen)
+    orch = R.api.FleetOrchestrator(SpreadPolicy(torch, R.dynamics))
+    plain = orch.route(scen=scen, dispatch=engines, batch_size=SERVE_BATCH)
+    rec = R.obs.SpanRecorder()
+    res = orch.route(scen=scen, dispatch=engines, batch_size=SERVE_BATCH,
+                     spans=rec)
+    for r, label in ((plain, "spans off"), (res, "spans on")):
+        check_route(r, want, label)
+    trace = R.obs.validate_chrome_trace(rec.chrome_trace())
+    got = sorted(rec.durations_ms("request.e2e"))
+    exp = sorted(r.e2e_ms for r in res.served)
+    check(len(got) == len(exp) and all(abs(a - b) <= 1e-9 * max(b, 1.0)
+                                       for a, b in zip(got, exp)),
+          "request.e2e spans do not reproduce the served e2e")
+    q = res.slo()["quantiles"]
+    hist, exact = q["hist_ms"], q["exact_ms"]
+    check(hist["n"] == len(exp) and (hist["clipped"] or all(
+        abs(hist[k] - exact[k]) <= hist["bin_width"] for k in exact)),
+        f"hist quantiles {hist} beyond one bin of {exact}")
+    by_name = {}
+    for e in trace["traceEvents"]:
+        key = e["name"].rsplit(".", 1)[0] if e["name"].startswith(
+            "dispatch.drain.") else e["name"]
+        by_name[key] = by_name.get(key, 0) + 1
+    emit(phase="spans", events=len(trace["traceEvents"]), by_name=by_name,
+         exact_ms=exact, hist_ms=hist,
+         wall_ms_spans_off=plain.timings["wall_ms"],
+         wall_ms_spans_on=res.timings["wall_ms"],
+         engine_generate_ms_mean=sum(rec.durations_ms("engine.generate"))
+         / max(len(rec.durations_ms("engine.generate")), 1))
+
+
+def calibration_phase(torch, R, engines, hop_engines, head_kernel):
+    """``calibrate_serving`` on the hop engines and the spread fleet: the
+    routes before and after the fit checked as above, and a ``FleetDQN``
+    retrained for CALIB_STEPS steps on ``CalibratedDynamics`` of the dqn
+    phase's fleet, scored on a held-out calibrated 32,768-cell fleet.
+    The spread fleet's model compute is constant within a tier, so it
+    fits offsets only; the oracle at 85% on the mixed fleet, over the
+    engines without hops, serves local d4 and d7, whose model compute
+    differs, so the S tier's scale is identified: its fitted
+    ``compute_scale`` must equal ``max(slope, 0)`` of a float64
+    least-squares line through that route's (model compute, measured
+    minus model communication) points, computed here."""
+    import math
+    import numpy as np
+    routes = []
+
+    def checked(policy, scen):
+        want = active_users(scen)
+
+        class Checked(R.api.FleetOrchestrator):
+            def route(self, **kw):
+                res = super().route(**kw)
+                check_route(res, want, f"calibration route {len(routes)}")
+                routes.append(res)
+                return res
+        return Checked(policy)
+
+    def checked_fit(report, label):
+        coeff = report["coefficients"]
+        check(all(math.isfinite(c["compute_scale"])
+                  and math.isfinite(c["hop_offset_ms"])
+                  and c["compute_scale"] >= 0 for c in coeff.values()),
+              f"{label}: calibration coefficients {coeff}")
+        gb, ga = report["before"]["gap_x"], report["after"]["gap_x"]
+        check(abs(math.log(ga)) < abs(math.log(gb)),
+              f"{label}: gap_x {gb} -> {ga}: the fit did not close the gap")
+        return dict(coefficients=coeff, gap_x_before=gb, gap_x_after=ga,
+                    attainment_before=report["before"][
+                        "attainment_measured"],
+                    attainment_after=report["after"]["attainment_measured"],
+                    predicted_mean_ms_before=report["before"][
+                        "predicted_mean_ms"],
+                    predicted_mean_ms_after=report["after"][
+                        "predicted_mean_ms"],
+                    measured_mean_ms_before=report["before"][
+                        "measured_mean_ms"],
+                    measured_mean_ms_after=report["after"][
+                        "measured_mean_ms"])
+
+    def retrain(calib):
+        before = head_kernel.launches
+        agent = dqn_agent(R, calib=calib)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agent.run(CALIB_STEPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        held = R.calibrate.apply_calibration(
+            R.scenarios.mixed_table5_fleet(R.Draws(7, "cuda"), CELLS, USERS,
+                                           min_users=1, max_users=5), calib)
+        ev = R.policy.holdout_reward_ratio(agent, held)
+        return {"holdout_reward_ratio": ev.ratio,
+                "holdout_feasible_frac": float(ev.feasible.mean()),
+                "steps": CALIB_STEPS, "seconds": secs,
+                "dqn_head_launches": head_kernel.launches - before}
+
+    scen = spread_fleet(R)
+    report, fit, after = R.calibrate.calibrate_serving(
+        checked(SpreadPolicy(torch, R.dynamics), scen), scen, hop_engines,
+        route_kw=dict(batch_size=SERVE_BATCH), retrain=retrain)
+    check(len(routes) == 2 and routes[1] is after, "two calibration routes")
+    line = checked_fit(report, "spread fleet")
+    rt = report["retrained"]
+    check(rt["dqn_head_launches"] > 0, "K2 was not launched in the retrain")
+    check(0.0 < rt["holdout_reward_ratio"] <= 1.05,
+          f"calibrated holdout ratio {rt['holdout_reward_ratio']}")
+    emit(phase="calibration", fleet="spread", hop_ms=HOP_MS,
+         requests=len(after.served), retrained=rt, **line)
+
+    mixed = route_fleet(R)
+    report, _, after = R.calibrate.calibrate_serving(
+        checked(R.api.OraclePolicy(ROUTE_USERS, threshold=85.0), mixed),
+        mixed, engines, route_kw=dict(batch_size=SERVE_BATCH))
+    check(len(routes) == 4 and routes[3] is after, "four calibration routes")
+    line = checked_fit(report, "mixed fleet")
+    before = routes[2]
+    comm, comp = R.calibrate._model_components(before.decisions, mixed)
+    pts = {}
+    for r in before.served:
+        pts.setdefault(r.tier, []).append(
+            (float(comp[r.cell, r.user]),
+             r.measured_ms - float(comm[r.cell, r.user])))
+    slopes = {}
+    for tier, xy in pts.items():
+        x, y = np.array(xy).T
+        if np.ptp(x) > 0:            # the model compute varies: identified
+            slopes[tier] = float(np.polyfit(x, y, 1)[0])
+    check("S" in slopes, f"mixed fleet: the S tier's scale is not "
+          f"identified (model compute constant): {sorted(pts)}")
+    for tier, slope in slopes.items():
+        got = line["coefficients"][tier]["compute_scale"]
+        check(abs(got - max(slope, 0.0)) <= 1e-5 * max(abs(slope), 1e-3),
+              f"mixed fleet: {tier} compute_scale {got} against the "
+              f"least-squares slope {slope}")
+    emit(phase="calibration", fleet="mixed", policy="oracle@85",
+         hop_ms=None, requests=len(after.served), slopes=slopes,
+         per_tier_variant_before={
+             k: v["requests"] for k, v in
+             routes[2].timings["per_tier_variant"].items()},
+         per_tier_variant_after={
+             k: v["requests"] for k, v in
+             after.timings["per_tier_variant"].items()}, **line)
 
 
 def timed_generate(torch, eng, toks, max_len):
@@ -1243,8 +1705,9 @@ def main():
     import types
     from repro_torch.configs.base import get_config
     from repro_torch.core import spaces
-    from repro_torch.fleet import (api, dynamics, policy, population,
-                                   scenarios)
+    from repro_torch import obs, serving as serving_pkg
+    from repro_torch.fleet import (api, calibrate, dynamics, policy,
+                                   population, scenarios)
     from repro_torch.kernels import (_build, decode_attention, dqn_head,
                                      flash_attention, int8_matmul, ops, ref,
                                      selective_scan, tabular_rl)
@@ -1253,7 +1716,9 @@ def main():
     from repro_torch.rng import Draws
     from repro_torch.serving import Request, RequestBatcher, ServingEngine
     R = types.SimpleNamespace(api=api, policy=policy, population=population,
-                              scenarios=scenarios, Draws=Draws)
+                              scenarios=scenarios, Draws=Draws,
+                              calibrate=calibrate, dynamics=dynamics,
+                              obs=obs, serving=serving_pkg)
     fleet_kernels = [tabular_rl.KERNEL, dqn_head.KERNEL]
     serving_kernels = [flash_attention.KERNEL, decode_attention.KERNEL,
                        int8_matmul.KERNEL]
@@ -1291,6 +1756,27 @@ def main():
     route_dispatch(torch, R, engines)
     caches = serving(torch, engines)
     launches.update({k.name: k.launches for k in serving_kernels})
+
+    # the sim-to-real loop: the agents' telemetry, the async bridge,
+    # spans and the calibration, its launches counted from here
+    loop_kernels = fleet_kernels + serving_kernels
+    hop_engines = build_engines(get_config("edge-ladder"), variants=("d0",),
+                                max_len=MAX_LEN, hop_ms=HOP_MS,
+                                device="cuda")
+    for tier in hop_engines.values():
+        for eng in tier.values():
+            eng.warmup(SERVE_BATCH, 32)
+    for k in loop_kernels:
+        k.launches = 0
+    metrics_overhead(torch, R)
+    bridge_dispatch(torch, R, engines, hop_engines, serving_kernels)
+    spans_phase(torch, R, engines)
+    calibration_phase(torch, R, engines, hop_engines, dqn_head.KERNEL)
+    loop_launches = {k.name: k.launches for k in loop_kernels}
+    emit(phase="launches", sim_to_real_loop=loop_launches)
+    for name, n in loop_launches.items():
+        check(n > 0, f"{name} was never launched on the sim-to-real loop")
+    del hop_engines
     step_profile(torch, lambda: tab_agent.run(5), agent="tabular")
     step_profile(torch, lambda: dqn_agent.run(5), agent="dqn")
     decode_profile(torch, engines, caches)

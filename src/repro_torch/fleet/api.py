@@ -14,11 +14,11 @@
   build_engines``) the routed requests of every active user are batched
   into real engines and the measured latencies come back next to the
   latency model's predictions (``RouteResult``, the paper's Table-8
-  predicted-vs-measured methodology at fleet scale).
-
-Not ported yet: the asynchronous serving bridge (``bridge=``), spans
-(``spans=``) and the device-side latency accumulator (``lat_acc``, so
-``RouteResult.slo()`` has no ``hist_ms``); see ROADMAP queue 1.
+  predicted-vs-measured methodology at fleet scale). ``bridge=`` drains
+  them through the asynchronous ``serving.bridge.ServingBridge`` instead,
+  the tiers' engines overlapped; ``spans=`` records the route as
+  Chrome-trace spans; ``RouteResult.lat_acc`` is the latency accumulator
+  behind ``slo()["quantiles"]["hist_ms"]``.
 """
 from __future__ import annotations
 
@@ -40,6 +40,8 @@ from repro_torch.fleet.scenarios import (FleetConfig, FleetScenario,
                                          arrivals_from_timestamps,
                                          init_fleet, step_fleet)
 from repro_torch.obs import timeline
+from repro_torch.obs.metrics import MetricDef, MetricsAccumulator
+from repro_torch.obs.spans import span as _span
 
 # ---------------------------------------------------------------------------
 # ScenarioSource — the scenario seam
@@ -472,9 +474,13 @@ class RouteResult:
     timings: Optional[dict] = None
     #: utilization fraction above which an edge counts as hot
     hot_edge_util: float = 1.0
-    #: the device-side latency accumulator (``obs.metrics`` is not
-    #: ported yet, so always None and ``slo()`` has no ``hist_ms``)
-    lat_acc: Optional[object] = None
+    #: latency accumulator fed the measured per-request e2e stream
+    #: during dispatch (histogram source of ``slo()``'s quantiles; None
+    #: when nothing was dispatched)
+    lat_acc: Optional[MetricsAccumulator] = None
+    #: async-bridge outcome (``ServingBridge.stats()`` + per-shed request
+    #: detail); None on the synchronous dispatch path
+    bridge: Optional[dict] = None
 
     @property
     def predicted_ms(self) -> np.ndarray:
@@ -544,9 +550,11 @@ class RouteResult:
         Measured vs predicted attainment, overall and per (tier,
         variant), each an exact complement split (``attained + violated
         == dispatched`` at every granularity); ``attainment_gap`` =
-        predicted - measured. Quantiles are the exact order statistics
-        of the measured e2e and of the predicted latencies (the
-        histogram source ``hist_ms`` waits for the accumulator)."""
+        predicted - measured. Quantiles from two sources that must
+        agree: ``exact_ms``, the exact order statistics of the measured
+        e2e (the values of the ``request.e2e`` spans), and ``hist_ms``,
+        from the ``lat_acc`` histogram, within one ``bin_width`` unless
+        ``clipped`` flags out-of-range tails."""
         if not self.served:
             return None
         deadline = float(max(r.deadline_ms for r in self.served))
@@ -571,6 +579,14 @@ class RouteResult:
                 tv["measured_attained"] / tv["dispatched"]
             tv["attainment_predicted"] = \
                 tv["predicted_attained"] / tv["dispatched"]
+        quantiles = {
+            "exact_ms": timeline.exact_quantiles(e2e),
+            "predicted_exact_ms": timeline.exact_quantiles(
+                self.predicted_ms),
+        }
+        if self.lat_acc is not None:
+            quantiles["hist_ms"] = self.lat_acc.quantiles("e2e_ms",
+                                                          warn=False)
         meas_frac = meas_att / n
         pred_frac = pred_att / n
         return {
@@ -582,10 +598,7 @@ class RouteResult:
                           "attainment": pred_frac},
             "attainment_gap": pred_frac - meas_frac,
             "per_tier_variant": per,
-            "quantiles": {
-                "exact_ms": timeline.exact_quantiles(e2e),
-                "predicted_exact_ms": timeline.exact_quantiles(
-                    self.predicted_ms)},
+            "quantiles": quantiles,
         }
 
     def summary(self) -> dict:
@@ -604,6 +617,8 @@ class RouteResult:
         slo = self.slo()
         if slo is not None:
             s["slo"] = slo
+        if self.bridge is not None:
+            s["bridge"] = self.bridge
         return s
 
 
@@ -642,19 +657,13 @@ class FleetOrchestrator:
                                                 scen.topo, active=scen.active,
                                                 calib=scen.calib)
 
-    def _dispatch(self, dec, scen: FleetScenario, engines,
-                  prompts: Optional[Callable], max_new_tokens: int,
-                  batch_size: int, prompt_len: int, seed: int,
-                  deadline_ms: float = float("inf")):
-        """Drain every active user's routed request through per-(tier,
-        variant) ``RequestBatcher``s into ``engines``, one engine at a
-        time. Returns (served sorted by (cell, user), batches,
-        timings)."""
-        from repro_torch.serving import Request, RequestBatcher
-        t0 = time.perf_counter()
-        dec_np = dec.cpu().numpy()
-        active = scen.active.cpu().numpy()
-        pred = self._predicted_per_user_ms(dec, scen).cpu().numpy()
+    @staticmethod
+    def _requests(dec, scen: FleetScenario, engines,
+                  prompts: Optional[Callable], prompt_len: int, seed: int):
+        """Every active user's routed request, in (cell, user) order:
+        ``(cell, user, action, tier, variant, prompt tokens)``. Prompts
+        are ``prompt_len`` random tokens from ``seed`` unless
+        ``prompts(cell, user)`` gives them."""
         local = sorted(int(v[1:]) for v in engines.get("S", {}))
         any_tier = next(iter(engines.values()), {})
         any_eng = next(iter(any_tier.values()), None)
@@ -664,8 +673,9 @@ class FleetOrchestrator:
                              "(see repro_torch.launch.serve.build_engines)")
         vocab = int(any_eng.model.cfg.vocab_size)
         rng = np.random.default_rng(seed)
-        batchers, meta = {}, {}
-        for rid, (c, u) in enumerate(zip(*np.nonzero(active))):
+        dec_np = dec.cpu().numpy()
+        out = []
+        for c, u in zip(*np.nonzero(scen.active.cpu().numpy())):
             a = int(dec_np[c, u])
             tier, variant = _tier_variant(a, local)
             if tier not in engines or variant not in engines[tier]:
@@ -675,63 +685,162 @@ class FleetOrchestrator:
             p = (np.asarray(prompts(int(c), int(u)), np.int32)
                  if prompts is not None
                  else rng.integers(0, vocab, prompt_len).astype(np.int32))
-            meta[rid] = (int(c), int(u), a, tier, variant)
-            batchers.setdefault((tier, variant),
-                                RequestBatcher(batch_size)).submit(
-                Request(rid, p, max_new_tokens=max_new_tokens,
-                        user=int(u), deadline_ms=deadline_ms))
+            out.append((int(c), int(u), a, tier, variant, p))
+        return out
+
+    def _dispatch(self, dec, scen: FleetScenario, engines,
+                  prompts: Optional[Callable], max_new_tokens: int,
+                  batch_size: int, prompt_len: int, seed: int, spans=None,
+                  deadline_ms: float = float("inf")):
+        """Drain every active user's routed request through per-(tier,
+        variant) ``RequestBatcher``s into ``engines``, one engine at a
+        time. Returns (served sorted by (cell, user), batches, timings,
+        latency accumulator)."""
+        from repro_torch.serving import Request, RequestBatcher
+        t0 = time.perf_counter()
+        pred = self._predicted_per_user_ms(dec, scen).cpu().numpy()
+        batchers, meta = {}, {}
+        with _span(spans, "dispatch.batch_build"):
+            reqs = self._requests(dec, scen, engines, prompts, prompt_len,
+                                  seed)
+            for rid, (c, u, a, tier, variant, p) in enumerate(reqs):
+                meta[rid] = (c, u, a, tier, variant)
+                batchers.setdefault((tier, variant),
+                                    RequestBatcher(batch_size)).submit(
+                    Request(rid, p, max_new_tokens=max_new_tokens,
+                            user=u, deadline_ms=deadline_ms))
         t_build = time.perf_counter()
         served, batches, compute_s = [], 0, 0.0
+        slo_attained = slo_violated = 0
         per_tv = {}
         for (tier, variant), batcher in batchers.items():
             eng = engines[tier][variant]
-            tv = per_tv.setdefault(f"{tier}/{variant}", {
-                "requests": 0, "batches": 0, "compute_ms": 0.0,
-                "emulated_ms": 0.0, "queue_ms": []})
-            while True:
-                done = eng.serve(batcher)
-                if not done:
-                    break
-                batches += 1
-                tv["batches"] += 1
-                # serve_time is per BATCH (every request in `done`
-                # carries the same stamp): count it once
-                compute_s += done[0].serve_time
-                tv["compute_ms"] += done[0].serve_time * 1e3
-                tv["emulated_ms"] += done[0].response_time * 1e3
-                for r in done:
-                    c, u, a, t_, v_ = meta[r.rid]
-                    q_ms = float(r.queue_time * 1e3)
-                    tv["requests"] += 1
-                    tv["queue_ms"].append(q_ms)
-                    served.append(ServedRequest(
-                        c, u, a, t_, v_, float(pred[c, u]),
-                        float(r.response_time * 1e3), queue_ms=q_ms,
-                        deadline_ms=r.deadline_ms,
-                        deadline_met=r.deadline_met))
+            key = f"{tier}/{variant}"
+            tv = _tier_entry(per_tv, key)
+            with _span(spans, f"dispatch.drain.{key}",
+                       queued=len(batcher.queue)):
+                while True:
+                    done = eng.serve(batcher, spans=spans)
+                    if not done:
+                        break
+                    batches += 1
+                    # serve_time is per BATCH (every request in `done`
+                    # carries the same stamp): count it once
+                    compute_s += done[0].serve_time
+                    _add_batch(tv, done[0].serve_time,
+                               done[0].response_time)
+                    for r in done:
+                        met = _collect(served, per_tv, r, tier, variant,
+                                       meta[r.rid][:3], pred, spans)
+                        slo_attained += met
+                        slo_violated += not met
+                    # running per-batch SLO attainment counter track
+                    _slo_counter(spans, slo_attained, slo_violated)
         wall_ms = (time.perf_counter() - t0) * 1e3
-        batching_ms = (t_build - t0) * 1e3
-        compute_ms = compute_s * 1e3
-        for tv in per_tv.values():
-            q = tv.pop("queue_ms")
-            tv["queue_ms_mean"] = float(np.mean(q)) if q else 0.0
         # batching and compute are disjoint sub-intervals of the dispatch
         # wall on one monotonic clock, so the residual is >= 0 and the
         # three components sum to wall_ms exactly
-        timings = {"wall_ms": wall_ms, "batching_ms": batching_ms,
-                   "compute_ms": compute_ms,
-                   "dispatch_ms": wall_ms - batching_ms - compute_ms,
-                   "per_tier_variant": per_tv}
+        timings = _timings(wall_ms, (t_build - t0) * 1e3, compute_s * 1e3,
+                           per_tv)
         served.sort(key=lambda s: (s.cell, s.user))
-        return served, batches, timings
+        return served, batches, timings, _latency_acc(served, deadline_ms,
+                                                      scen.device)
+
+    def _dispatch_bridge(self, dec, scen: FleetScenario, engines, bridge,
+                         prompts: Optional[Callable], max_new_tokens: int,
+                         batch_size: int, prompt_len: int, seed: int,
+                         spans=None, deadline_ms: float = float("inf")):
+        """Async twin of ``_dispatch``: submit every active request into
+        a ``ServingBridge`` (per-(tier, variant) worker queues, see
+        ``repro_torch.serving.bridge``) and drain the fleet with the
+        S/E/C engines overlapped.
+
+        Identities preserved: per request ``queueing + compute == e2e``
+        and the wall decomposition ``batching + compute + dispatch ==
+        total`` still hold exactly — but ``compute_ms`` sums engine
+        walls that ran CONCURRENTLY, so the residual ``dispatch_ms``
+        may be negative (overlap won back). Requests the bridge shed
+        are NOT in ``served``; they surface with reasons (and their
+        cell, user and action) in the returned bridge stats, and the
+        SLO identity attained + violated == dispatched holds over the
+        served set.
+        """
+        from repro_torch.serving import Request
+        from repro_torch.serving.bridge import BridgeConfig, ServingBridge
+        t0 = time.perf_counter()
+        pred = self._predicted_per_user_ms(dec, scen).cpu().numpy()
+        if isinstance(bridge, ServingBridge):
+            br, own = bridge, False
+        else:
+            cfg = bridge if isinstance(bridge, BridgeConfig) \
+                else BridgeConfig(max_batch=batch_size)
+            br, own = ServingBridge(engines, cfg, spans=spans), True
+        # reused bridges accumulate across calls: slice this call's
+        # results/batches off the tail for per-call accounting, and
+        # offset rids so the bridge's terminal-once set (keyed by rid)
+        # never mistakes this call's requests for a prior call's
+        n0, b0 = len(br.results), len(br.batch_log)
+        rid0 = br.submitted
+        meta = {}
+        try:
+            with _span(spans, "dispatch.batch_build"):
+                reqs = self._requests(dec, scen, engines, prompts,
+                                      prompt_len, seed)
+                for i, (c, u, a, tier, variant, p) in enumerate(reqs):
+                    rid = rid0 + i
+                    meta[rid] = (c, u, a, tier, variant)
+                    br.submit(Request(rid, p, max_new_tokens=max_new_tokens,
+                                      user=u, deadline_ms=deadline_ms),
+                              tier, variant)
+            t_build = time.perf_counter()
+            br.drain()
+        finally:
+            if own:
+                br.stop()
+        stats = br.stats()
+        served = []
+        slo_attained = slo_violated = 0
+        per_tv = {}
+        compute_s = 0.0
+        batch_log = br.batch_log[b0:]
+        for b in batch_log:
+            compute_s += b["serve_time"]
+            _add_batch(_tier_entry(per_tv, b["key"]), b["serve_time"],
+                       b["response_time"])
+        # a rerouted request is counted under the tier that served it
+        for r, tier, variant in br.results[n0:]:
+            met = _collect(served, per_tv, r, tier, variant,
+                           meta[r.rid][:3], pred, spans)
+            slo_attained += met
+            slo_violated += not met
+        if slo_attained or slo_violated:
+            _slo_counter(spans, slo_attained, slo_violated)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        batching_ms = (t_build - t0) * 1e3
+        compute_ms = compute_s * 1e3
+        # the three components still sum to wall_ms exactly, but
+        # compute_ms adds up engine walls that OVERLAPPED across the
+        # bridge's worker threads, so the residual can be negative
+        timings = _timings(wall_ms, batching_ms, compute_ms, per_tv)
+        served.sort(key=lambda s: (s.cell, s.user))
+        lat = _latency_acc(served, deadline_ms, scen.device)
+        # enrich shed reports with the routed (cell, user) so summary()
+        # accounts for every submitted request
+        for sr in stats["shed_requests"]:
+            if sr["rid"] in meta:
+                c, u, a, _t, _v = meta[sr["rid"]]
+                sr["cell"], sr["user"], sr["action"] = c, u, a
+        stats["overlap_x"] = compute_ms / max(wall_ms - batching_ms, 1e-9)
+        return served, len(batch_log), timings, lat, stats
 
     # ------------------------------------------------------------------
     def route(self, scen: Optional[FleetScenario] = None, counts=None,
               with_edge_util: bool = False, dispatch=None,
               prompts: Optional[Callable] = None, max_new_tokens: int = 4,
               batch_size: int = 8, prompt_len: int = 12, seed: int = 0,
-              hot_edge_util: float = 1.0, as_result: bool = False,
-              deadline_ms: Optional[float] = None):
+              spans=None, hot_edge_util: float = 1.0,
+              as_result: bool = False,
+              deadline_ms: Optional[float] = None, bridge=None):
         """Route the whole fleet in one greedy pass.
 
         Without ``dispatch``: ``(decisions, ids)``, plus ``(n_edges,)``
@@ -750,7 +859,22 @@ class FleetOrchestrator:
         ``deadline_ms`` is the SLO budget stamped on every request
         (default: the scenario QoS target ``dynamics.MAX_RESPONSE_MS``);
         ``hot_edge_util`` the utilization at or above which an edge
-        lands in ``RouteResult.hot_edges``."""
+        lands in ``RouteResult.hot_edges``.
+
+        ``spans`` (a ``repro_torch.obs.spans.SpanRecorder``) records
+        route.decide / route.edge_util / route.dispatch / dispatch.* /
+        engine.* spans — plus, when dispatching, per-request
+        ``request.e2e`` intervals and a running ``slo.attainment``
+        counter. With spans, route.decide waits for the decision on the
+        current stream so that its span covers the device work.
+
+        ``bridge`` switches the dispatch to the async serving bridge
+        (``repro_torch.serving.bridge``): ``True`` builds a per-call
+        ``ServingBridge`` with ``max_batch=batch_size``; a
+        ``BridgeConfig`` customizes admission/overflow/timeout
+        behaviour; an existing ``ServingBridge`` reuses its queues.
+        ``RouteResult.bridge`` then carries the shed/reroute accounting
+        and ``overlap_x`` (engine compute over the post-submit wall)."""
         policy = self.policy
         if scen is None:
             scen = getattr(policy, "scen", None)
@@ -764,25 +888,118 @@ class FleetOrchestrator:
             counts = torch.zeros((scen.cells, 2), dtype=torch.int32,
                                  device=scen.device)
         decide = getattr(policy, "decisions", None) or policy.policy_decisions
-        dec, ids = decide(counts, scen)
+        with _span(spans, "route.decide", cells=int(scen.cells)):
+            dec, ids = decide(counts, scen)
+            if spans is not None and dec.is_cuda:
+                torch.cuda.current_stream(dec.device).synchronize()
         util = None
         if with_edge_util:
-            topo = (scen.topo if scen.topo is not None
-                    else topology.identity_topology(scen.cells,
-                                                    device=scen.device))
-            util = topology.edge_utilization(dec, topo, active=scen.active)
+            with _span(spans, "route.edge_util"):
+                topo = (scen.topo if scen.topo is not None
+                        else topology.identity_topology(scen.cells,
+                                                        device=scen.device))
+                util = topology.edge_utilization(dec, topo,
+                                                 active=scen.active)
         if dispatch is not None:
             slo_ms = dynamics.MAX_RESPONSE_MS if deadline_ms is None \
                 else float(deadline_ms)
-            served, batches, timings = self._dispatch(
-                dec, scen, dispatch, prompts, max_new_tokens, batch_size,
-                prompt_len, seed, deadline_ms=slo_ms)
+            brinfo = None
+            with _span(spans, "route.dispatch"):
+                if bridge is not None and bridge is not False:
+                    served, batches, timings, lat, brinfo = \
+                        self._dispatch_bridge(
+                            dec, scen, dispatch, bridge, prompts,
+                            max_new_tokens, batch_size, prompt_len, seed,
+                            spans=spans, deadline_ms=slo_ms)
+                else:
+                    served, batches, timings, lat = self._dispatch(
+                        dec, scen, dispatch, prompts, max_new_tokens,
+                        batch_size, prompt_len, seed, spans=spans,
+                        deadline_ms=slo_ms)
             return RouteResult(decisions=dec, ids=ids, served=served,
                                batches=batches, edge_util=util,
-                               timings=timings, hot_edge_util=hot_edge_util)
+                               timings=timings, hot_edge_util=hot_edge_util,
+                               lat_acc=lat, bridge=brinfo)
         if as_result:
             return RouteResult(decisions=dec, ids=ids, edge_util=util,
                                hot_edge_util=hot_edge_util)
         if with_edge_util:
             return dec, ids, util
         return dec, ids
+
+
+def _tier_entry(per_tv: dict, key: str) -> dict:
+    """The running per-(tier, variant) dispatch accounting of ``key``."""
+    return per_tv.setdefault(key, {"requests": 0, "batches": 0,
+                                   "compute_ms": 0.0, "emulated_ms": 0.0,
+                                   "queue_ms": []})
+
+
+def _add_batch(tv: dict, serve_s: float, response_s: float) -> None:
+    """Count one served batch in its (tier, variant)'s accounting."""
+    tv["batches"] += 1
+    tv["compute_ms"] += serve_s * 1e3
+    tv["emulated_ms"] += response_s * 1e3
+
+
+def _collect(served: list, per_tv: dict, r, tier: str, variant: str,
+             cua, pred, spans) -> bool:
+    """Record one served request ``r`` of routed ``cua`` = (cell, user,
+    action), served by ``tier``/``variant``: its ``ServedRequest``, its
+    queueing in that queue's accounting and, with spans, its
+    retrospective ``request.e2e`` interval (submit -> drain + emulated
+    compute), whose duration reproduces ``ServedRequest.e2e_ms``.
+    Returns whether it met its deadline."""
+    c, u, a = cua
+    tv = _tier_entry(per_tv, f"{tier}/{variant}")
+    q_ms = float(r.queue_time * 1e3)
+    tv["requests"] += 1
+    tv["queue_ms"].append(q_ms)
+    served.append(ServedRequest(
+        c, u, a, tier, variant, float(pred[c, u]),
+        float(r.response_time * 1e3), queue_ms=q_ms,
+        deadline_ms=r.deadline_ms, deadline_met=r.deadline_met))
+    if spans is not None:
+        spans.complete("request.e2e", r.arrival_time,
+                       r.queue_time + r.response_time, rid=r.rid,
+                       tier=tier, variant=variant,
+                       deadline_met=bool(r.deadline_met))
+    return bool(r.deadline_met)
+
+
+def _slo_counter(spans, attained: int, violated: int) -> None:
+    """The running ``slo.attainment`` counter track (with spans only)."""
+    if spans is not None:
+        spans.counter("slo.attainment", attained=attained,
+                      violated=violated,
+                      attainment=attained / max(attained + violated, 1))
+
+
+def _timings(wall_ms: float, batching_ms: float, compute_ms: float,
+             per_tv: dict) -> dict:
+    """The dispatch wall decomposition ``batching + compute + dispatch
+    == wall`` (``dispatch`` the residual), with each (tier, variant)'s
+    mean queueing delay in place of its list."""
+    for tv in per_tv.values():
+        q = tv.pop("queue_ms")
+        tv["queue_ms_mean"] = float(np.mean(q)) if q else 0.0
+    return {"wall_ms": wall_ms, "batching_ms": batching_ms,
+            "compute_ms": compute_ms,
+            "dispatch_ms": wall_ms - batching_ms - compute_ms,
+            "per_tier_variant": per_tv}
+
+
+def _latency_acc(served, deadline_ms: float, device) -> MetricsAccumulator:
+    """The route's e2e latency accumulator: 64 bins over ``[0, max(4 x
+    deadline, 1)]`` ms, fed the served requests' measured e2e. Built
+    after the timed wall so that it cannot perturb the wall
+    decomposition."""
+    hi = 4.0 * deadline_ms if np.isfinite(deadline_ms) \
+        else 4.0 * dynamics.MAX_RESPONSE_MS
+    lat = MetricsAccumulator.create(
+        {"e2e_ms": MetricDef(lo=0.0, hi=max(hi, 1.0), bins=64)},
+        device=device)
+    if served:
+        lat.update({"e2e_ms": np.asarray([r.e2e_ms for r in served],
+                                         np.float32)})
+    return lat

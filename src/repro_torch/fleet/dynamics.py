@@ -83,6 +83,10 @@ def _tables(device: torch.device) -> dict:
     return {k: v.to(device) for k, v in tabs.items()}
 
 
+#: Tier order used by Calibration arrays: index 0=S (end device), 1=E, 2=C.
+CALIB_TIERS = ("S", "E", "C")
+
+
 class Calibration(NamedTuple):
     """Per-tier sim-to-real corrections to the latency model: ``(3,)``
     float32 compute multipliers and additive communication offsets

@@ -31,10 +31,12 @@ from repro_torch.fleet import dynamics
 from repro_torch.fleet.population import (FleetTrainResult, _host,
                                           check_device, check_pad_width,
                                           default_actions, fleet_bruteforce,
+                                          fleet_metrics,
                                           nominal_expected_response,
                                           resolve_source, simulate_responses,
                                           train_against_oracle)
-from repro_torch.fleet.replay import replay_init, replay_push, replay_sample
+from repro_torch.fleet.replay import (replay_init, replay_push, replay_sample,
+                                      replay_size)
 from repro_torch.fleet.scenarios import FleetConfig, FleetScenario
 from repro_torch.fleet.topology import _segment_totals
 from repro_torch.kernels import ops
@@ -187,11 +189,22 @@ class FleetDQN:
     def __init__(self, scen, fleet_cfg: Optional[FleetConfig] = None,
                  cfg: Optional[FleetDQNConfig] = None,
                  actions: Optional[np.ndarray] = None, seed: int = 0,
-                 device=None, draws: Optional[Draws] = None):
+                 device=None, draws: Optional[Draws] = None,
+                 metrics: bool = True, n_windows: int = 0,
+                 window_len: int = 1):
         """``scen`` is a ``ScenarioSource`` — or a ``FleetScenario`` plus
         its ``FleetConfig``. ``device`` defaults to ``cuda`` and raises
         without it; ``draws`` (default ``Draws(seed, device)``) is the
-        random-draw seam, and also draws the initial weights."""
+        random-draw seam, and also draws the initial weights.
+
+        ``metrics`` (default on) records per-step reward / response time
+        (lanes = cells) / loss / replay occupancy / epsilon into a
+        ``repro_torch.obs`` accumulator on the device, with no host
+        sync; read it via ``metrics_summary``. Recording consumes no
+        draws and never feeds back into training, so trajectories are
+        bit-identical with it on or off. ``n_windows > 0`` adds a
+        per-window ring (``window_len`` steps per slot) to every
+        stream."""
         self.cfg = cfg or FleetDQNConfig()
         if self.cfg.net != "shared":
             raise NotImplementedError(
@@ -228,6 +241,9 @@ class FleetDQN:
         self.scen = scen
         self.counts = torch.zeros((scen.cells, 2), dtype=torch.int32,
                                   device=dev)
+        self.metrics = fleet_metrics(
+            scen.cells, "dqn", n_windows=n_windows, window_len=window_len,
+            device=dev) if metrics else None
         self.eps = self.cfg.eps_start
         self.steps = 0
         self._acc_table = dynamics.accuracies(
@@ -313,6 +329,13 @@ class FleetDQN:
         loss = self.train_step(*replay_sample(self.draws, self.buffer,
                                               cfg.batch_size))
         r = dynamics.reward(mean_ms, acc, cfg.accuracy_threshold)
+        if self.metrics is not None:
+            # the reference's float32 division of the ring occupancy
+            fill = np.float32(replay_size(self.buffer)) \
+                / np.float32(self.buffer.capacity)
+            self.metrics.update({"reward": r, "mean_ms": mean_ms,
+                                 "loss": loss, "replay_fill": fill,
+                                 "epsilon": eps_t})
         self.counts, self.scen = counts2, scen2
         return {"mean_ms": mean_ms, "mean_acc": acc, "reward": r,
                 "loss": loss}
@@ -345,6 +368,11 @@ class FleetDQN:
         if not n:
             return np.zeros(0, np.float32), np.zeros(0, np.float32)
         return _host(torch.stack(ms)), _host(torch.stack(acc))
+
+    def metrics_summary(self):
+        """Host-side summary of the recorded telemetry (``None`` when
+        the agent was built with ``metrics=False``)."""
+        return None if self.metrics is None else self.metrics.summary()
 
     def policy_decisions(self, counts, scen):
         """(cells, N) per-user decisions + (cells,) joint action ids from

@@ -7,7 +7,8 @@ candidate set of joint actions shared by all cells, and one fused op per
 step (``kernels.ops.fused_tabular_update``): the TD update of every cell
 plus the next step's greedy action, which the loop carries instead of
 re-gathering the row. On the card that op is the CUDA kernel
-``csrc/tabular_rl.cu``.
+``csrc/tabular_rl.cu``. Both fleet agents record their per-step
+telemetry into a ``repro_torch.obs`` accumulator (``fleet_metrics``).
 
 ``fleet_bruteforce`` evaluates every candidate action for every cell in
 chunks, and ``train_against_oracle`` scores per-cell convergence
@@ -30,7 +31,41 @@ from repro_torch.fleet import dynamics, topology
 from repro_torch.fleet.scenarios import FleetConfig, FleetScenario
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import first_argmax_ref
+from repro_torch.obs.metrics import MetricDef, MetricsAccumulator
+from repro_torch.obs.report import run_manifest
 from repro_torch.rng import Draws
+
+
+def fleet_metrics(cells: int, kind: str = "tabular", n_windows: int = 0,
+                  window_len: int = 1, device=None) -> MetricsAccumulator:
+    """The standard telemetry pack of the fleet agents, on ``device``.
+
+    Per-cell signals use ``lanes=cells``. Histogram ranges come from
+    the dynamics invariants: rewards live in ``[-MAX_RESPONSE_MS/1000,
+    0]`` and response times in ``[0, MAX_RESPONSE_MS]``; out-of-range
+    values clip into edge bins without corrupting the exact moments
+    (and bump the explicit underflow/overflow counters).
+
+    ``n_windows > 0`` gives every stream a ``(n_windows, lanes)``
+    per-window ring (``window_len`` steps per slot), so ``summary()``
+    reports the learning curve.
+    """
+    r_floor = -dynamics.MAX_RESPONSE_MS / 1000.0
+    w = dict(n_windows=n_windows, window_len=window_len)
+    defs = {
+        "reward": MetricDef(lo=r_floor, hi=0.0, lanes=cells, **w),
+        "mean_ms": MetricDef(lo=0.0, hi=dynamics.MAX_RESPONSE_MS,
+                             lanes=cells, **w),
+        "epsilon": MetricDef(lo=0.0, hi=1.0, **w),
+    }
+    if kind == "tabular":
+        defs["td_abs"] = MetricDef(lo=0.0, hi=-r_floor, lanes=cells, **w)
+    elif kind == "dqn":
+        defs["loss"] = MetricDef(lo=0.0, hi=25.0, **w)
+        defs["replay_fill"] = MetricDef(lo=0.0, hi=1.0, **w)
+    else:
+        raise ValueError(f"unknown metrics kind {kind!r}")
+    return MetricsAccumulator.create(defs, device=device)
 
 
 def check_pad_width(n_users: int, scen: FleetScenario, who: str) -> None:
@@ -147,11 +182,21 @@ class FleetQLearning:
     def __init__(self, scen, fleet_cfg: Optional[FleetConfig] = None,
                  cfg: Optional[FleetQConfig] = None,
                  actions: Optional[np.ndarray] = None, seed: int = 0,
-                 device=None, draws: Optional[Draws] = None):
+                 device=None, draws: Optional[Draws] = None,
+                 metrics: bool = True, n_windows: int = 0,
+                 window_len: int = 1):
         """``scen`` is a ``ScenarioSource`` — or a ``FleetScenario`` plus
         its ``FleetConfig``. ``device`` defaults to ``cuda`` and raises
         without it; ``draws`` (default ``Draws(seed, device)``) is the
-        random-draw seam."""
+        random-draw seam.
+
+        ``metrics`` (default on) records per-step reward / response
+        time / |TD| (lanes = cells) / epsilon into a ``repro_torch.obs``
+        accumulator on the device, with no host sync; read it via
+        ``metrics_summary``. Recording consumes no draws and never feeds
+        back into training, so trajectories are bit-identical with it on
+        or off. ``n_windows > 0`` adds a per-window ring (``window_len``
+        steps per slot) to every stream."""
         self.cfg = cfg or FleetQConfig()
         self.device = resolve_device(device)
         self.draws = draws if draws is not None else Draws(seed, self.device)
@@ -174,6 +219,9 @@ class FleetQLearning:
         self.scen = scen
         self.counts = torch.zeros((scen.cells, 2), dtype=torch.int32,
                                   device=self.device)
+        self.metrics = fleet_metrics(
+            scen.cells, "tabular", n_windows=n_windows,
+            window_len=window_len, device=self.device) if metrics else None
         self.eps = self.cfg.eps_start
         self.steps = 0
 
@@ -216,6 +264,9 @@ class FleetQLearning:
         s2 = self._state_index(counts2, scen2)
         self.q, greedy2, td = ops.fused_tabular_update(
             self.q, s, a, r, s2, alpha=cfg.alpha, gamma=cfg.gamma)
+        if self.metrics is not None:
+            self.metrics.update({"reward": r, "mean_ms": mean_ms,
+                                 "td_abs": td.abs(), "epsilon": eps_t})
         self.counts, self.scen = counts2, scen2
         return greedy2, {"mean_ms": mean_ms, "mean_acc": acc, "reward": r,
                          "td": td}
@@ -253,6 +304,11 @@ class FleetQLearning:
         if not n:
             return np.zeros(0, np.float32), np.zeros(0, np.float32)
         return _host(torch.stack(ms)), _host(torch.stack(acc))
+
+    def metrics_summary(self):
+        """Host-side summary of the recorded telemetry (``None`` when
+        the agent was built with ``metrics=False``)."""
+        return None if self.metrics is None else self.metrics.summary()
 
     # ------------------------------------------------------------------
     def _greedy(self, counts, scen):
@@ -350,7 +406,9 @@ def train_against_oracle(agent, max_steps: int, check_every: int = 200,
         converged_at=converged_at, steps=agent.steps,
         frac_converged=float((converged_at >= 0).mean()),
         optimal_ms=np.asarray(opt_ms), greedy_ms=np.asarray(g_ms),
-        greedy_acc=np.asarray(g_acc), history=history, wall_seconds=wall)
+        greedy_acc=np.asarray(g_acc), history=history, wall_seconds=wall,
+        manifest=run_manifest(config=agent.cfg, wall_seconds=wall,
+                              steps=agent.steps))
 
 
 @dataclasses.dataclass
@@ -363,7 +421,7 @@ class FleetTrainResult:
     greedy_acc: np.ndarray           # (cells,)
     history: list
     wall_seconds: float
-    #: provenance stamp; None until the port has ``run_manifest``
+    #: provenance stamp (``repro_torch.obs.report.run_manifest``)
     manifest: Optional[dict] = None
 
     @property

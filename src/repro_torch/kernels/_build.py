@@ -10,12 +10,18 @@ returns ``cudaGetLastError()`` after its launch.
 
 Nothing here runs at import: the CPU tests import every module, and
 this host has no ``nvcc``.
+
+Kernels are launched from several threads at once (the serving bridge
+runs one engine per thread, each on its own CUDA stream), so the lazy
+build and load of a library and the launch count are each guarded by a
+lock.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -29,6 +35,10 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
 
+#: serializes ``build`` within the process: two threads reaching a stale
+#: library would otherwise both run ``nvcc`` into the same temporary file
+_BUILD_LOCK = threading.RLock()
+
 
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
@@ -41,7 +51,8 @@ def _nvcc() -> str:
 class CudaKernel:
     """One kernel's shared library, its C entry point and its launch
     count. ``launch`` raises on a non-zero ``cudaGetLastError()`` and
-    counts only launches that were accepted."""
+    counts only launches that were accepted; it may be called from any
+    thread."""
 
     def __init__(self, name: str, argtypes):
         self.name = name
@@ -51,6 +62,7 @@ class CudaKernel:
         self.launches = 0
         self.ptxas_log = ""
         self._lib = None
+        self._count_lock = threading.Lock()
 
     def stale(self) -> bool:
         return (not self.lib_path.exists()
@@ -58,16 +70,20 @@ class CudaKernel:
                 < self.source.stat().st_mtime)
 
     def _entry(self):
-        if self._lib is None:
-            if self.stale():
-                build([self])
-            lib = ctypes.CDLL(str(self.lib_path))
-            fn = getattr(lib, f"{self.name}_launch")
-            fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
-            err = getattr(lib, f"{self.name}_error_string")
-            err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-            self._lib = (lib, fn, err)
-        return self._lib
+        entry = self._lib
+        if entry is not None:
+            return entry
+        with _BUILD_LOCK:
+            if self._lib is None:
+                if self.stale():
+                    build([self])
+                lib = ctypes.CDLL(str(self.lib_path))
+                fn = getattr(lib, f"{self.name}_launch")
+                fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+                err = getattr(lib, f"{self.name}_error_string")
+                err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+                self._lib = (lib, fn, err)
+            return self._lib
 
     def launch(self, *args) -> None:
         _, fn, err = self._entry()
@@ -76,7 +92,8 @@ class CudaKernel:
         if code != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error "
                                f"{code} ({err(code).decode()})")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 def build(kernels) -> float:
@@ -84,28 +101,29 @@ def build(kernels) -> float:
     together. Returns the wall seconds the build took; raises with the
     compiler's output when a source does not build."""
     import time
-    t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for k in kernels:
-        if not k.stale():
-            continue
-        tmp = k.lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(k.source)]
-        procs.append((k, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    failed = []
-    for k, tmp, p in procs:
-        out, _ = p.communicate()
-        k.ptxas_log = out
-        if p.returncode != 0:
-            failed.append(f"{k.source.name}:\n{out}")
-        else:
-            os.replace(tmp, k.lib_path)
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return time.perf_counter() - t0
+    with _BUILD_LOCK:
+        t0 = time.perf_counter()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for k in kernels:
+            if not k.stale():
+                continue
+            tmp = k.lib_path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(k.source)]
+            procs.append((k, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for k, tmp, p in procs:
+            out, _ = p.communicate()
+            k.ptxas_log = out
+            if p.returncode != 0:
+                failed.append(f"{k.source.name}:\n{out}")
+            else:
+                os.replace(tmp, k.lib_path)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        return time.perf_counter() - t0
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype, shape=None) -> None:

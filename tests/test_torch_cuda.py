@@ -20,6 +20,8 @@ and skips without one; run them on the GPU with
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -468,3 +470,79 @@ def test_local_banded_attention_on_the_card_matches_the_cpu(cuda, dtype):
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float().cpu(), want.float(), atol=tol,
                                rtol=tol)
+
+
+# ------------------------------------------------ threads and streams ----
+def _in_threads(fns, timeout=300):
+    """Run each callable in its own thread, started together; return
+    their results in order (a thread's exception is raised here)."""
+    out, errs = [None] * len(fns), []
+    start = threading.Barrier(len(fns))
+
+    def run(i):
+        try:
+            start.wait()
+            out[i] = fns[i]()
+        except Exception as exc:          # reported in the caller
+            errs.append(exc)
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(fns))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=timeout)
+    assert not any(th.is_alive() for th in threads)
+    if errs:
+        raise errs[0]
+    return out
+
+
+def test_engines_on_two_streams_give_the_serial_tokens(cuda):
+    """d0 (bf16: K3, K4) and d4 (int8: K5 too) generating at once, each
+    from its own thread on its own stream, as the serving bridge runs the
+    tiers, give the tokens they give one after the other."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import build_engines
+    engines = build_engines(get_config("edge-ladder"), variants=("d0", "d4"),
+                            max_len=64, device=cuda)
+    pair = [engines["S"]["d0"], engines["S"]["d4"]]
+    rng = np.random.default_rng(0)
+    toks = [rng.integers(0, 8192, (16, 32)).astype(np.int32)
+            for _ in pair]
+    for eng, t in zip(pair, toks):
+        eng.warmup(*t.shape)
+    serial = [eng.generate(t, 8)[0] for eng, t in zip(pair, toks)]
+    streams = [torch.cuda.Stream(device=cuda) for _ in pair]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(cuda))
+
+    def on_stream(eng, t, st):
+        def fn():
+            with torch.cuda.stream(st):
+                return [eng.generate(t, 8)[0] for _ in range(3)]
+        return fn
+    outs = _in_threads([on_stream(e, t, st)
+                        for e, t, st in zip(pair, toks, streams)])
+    for want, got in zip(serial, outs):
+        for g in got:
+            np.testing.assert_array_equal(g, want)
+
+
+def test_int8_launches_from_four_threads_are_all_counted(cuda):
+    xq, sx, wq, sw = _int8_args(cuda, 64, 256, 128)
+    want = int8_matmul.plain(xq, sx, wq, sw)
+    n = 200
+    before = int8_matmul.KERNEL.launches
+
+    def work():
+        st = torch.cuda.Stream(device=cuda)
+        with torch.cuda.stream(st):
+            outs = [int8_matmul.int8_matmul_cuda(xq, sx, wq, sw)
+                    for _ in range(n)]
+            st.synchronize()
+        return outs
+    torch.cuda.synchronize()
+    results = _in_threads([work] * 4)
+    assert int8_matmul.KERNEL.launches == before + 4 * n
+    for outs in results:
+        assert all(torch.equal(o, want) for o in outs[:: n // 4])
