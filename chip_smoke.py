@@ -34,7 +34,18 @@ paths through the entry points a user calls:
   prompt 256, 16 new tokens, a ``serve`` drain and a 256-cell 3-user
   fleet routed into the engines; and Hymba-1.5B at full size (32 hybrid
   layers, d_model 1600) generating at batch 8 from a 2,048-token prompt,
-  longer than its 1,024-token window (kernels K3, K4, K5, K6).
+  longer than its 1,024-token window (kernels K3, K4, K5, K6);
+* the single-cell layer (phase ``single_cell``): ``bruteforce_optimal``
+  on the card against the CPU for every experiment x threshold, N =
+  1..5; tabular Q-learning (N = 3, goal 85) converging, its Q rows equal
+  to the CPU run's; both DQN forms (paper N = 3, factored N = 5 at goal
+  85) 2,000 steps, greedy equal to the CPU's on the same parameters
+  where the margin is clear; then ``python -m repro_torch.launch.serve``'s
+  ``main`` with its defaults (the full-width edge ladder, d0-d7 on the
+  device tier): 4 waves of the trained agent's decisions served through
+  the engines (kernels K3, K4, K5), and K3-K5 held against their plain
+  versions at its shapes (batch 1 x 16 tokens, 64 slots, d5's and d6's
+  projections at 16 rows and 1).
 
 Each path's kernel launch counts are set to 0 just before it and read
 just after; every route checks its identities (each active user served
@@ -159,9 +170,10 @@ def device_events(prof):
 def cold_ms(fn, reps=20):
     """Mean device time per call of the kernels ``fn`` launches with the
     L2 cache cold: a sum over a ``FLUSH_BYTES`` buffer runs before each
-    call, and the flush's own kernels are left out of the
-    ``torch.profiler`` trace (as the model's call finds its inputs after
-    the layers between have streamed their weights through the L2)."""
+    call (as the model's call finds its inputs after the layers between
+    have streamed their weights through the L2), and only the kernels
+    named in a trace of one call of ``fn`` are counted, never the
+    flush's. None when the traces hold no time of those kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     buf = torch.ones(FLUSH_BYTES // 4, device="cuda")
@@ -172,13 +184,13 @@ def cold_ms(fn, reps=20):
             torch.cuda.synchronize()
         return {n for n, _ in device_events(prof)}
     fn()
-    skip = names(buf.sum) - names(fn)
+    own = names(fn) - names(buf.sum)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             buf.sum()
             fn()
         torch.cuda.synchronize()
-    total_us = sum(us for n, us in device_events(prof) if n not in skip)
+    total_us = sum(us for n, us in device_events(prof) if n in own)
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
@@ -469,12 +481,13 @@ def sdpa(torch, q, k, v, **kw):
         enable_gqa=True, **kw)
 
 
-def flash_phase(torch, flash_attention):
-    """K3, causal, at every case of ``FLASH_CASES``; bf16 (the path's
-    type) and float32."""
+def flash_phase(torch, flash_attention, cases=FLASH_CASES, path="serving"):
+    """K3, causal, at every case of ``cases``; bf16 (the path's type) and
+    float32. Returns the kernels-line entry when ``cases`` hold the
+    serving path's main shape, else None."""
     g = torch.Generator(device="cuda").manual_seed(5)
     errs, main = [], None
-    for name, b, s, h, kv, hd, window in FLASH_CASES:
+    for name, b, s, h, kv, hd, window in cases:
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
             q, k, v = (torch.randn(shape, generator=g, device="cuda")
@@ -517,25 +530,30 @@ def flash_phase(torch, flash_attention):
                                            q, k, v, window=window)),
                        library_cold_ms=cold_ms(lib),
                        bound_share=b_ms / ms)
-            emit(phase="kernel_parity", kernel="flash_attention",
+            emit(phase="kernel_parity", kernel="flash_attention", path=path,
                  layout=name, shape=[b, s, h, kv, hd], window=window,
                  dtype=dtype, max_abs_err=err, tolerance=tol, timing=src,
                  wall_ms=wall_ms, **row)
             if name == "d0/d4" and s == PROMPT:
                 main = row
+    if main is None:
+        return None
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:84",
                 max_abs_err=max(errs), **main)
 
 
-def decode_phase(torch, ops, decode_attention):
-    """K4 at every case of ``DECODE_CASES``: the edge ladder's caches
-    written half way (the ring's unwritten slots masked by the bias),
-    Hymba's full at its last position, the sliding ring wrapped."""
+def decode_phase(torch, ops, decode_attention, cases=DECODE_CASES,
+                 path="serving"):
+    """K4 at every case of ``cases``: the edge ladder's caches written
+    half way (the ring's unwritten slots masked by the bias), Hymba's
+    full at its last position, the sliding ring wrapped. Returns the
+    kernels-line entry when ``cases`` hold the serving path's main shape,
+    else None."""
     g = torch.Generator(device="cuda").manual_seed(6)
     errs, main = [], None
-    for name, b, sc, h, kv, hd, window in DECODE_CASES:
+    for name, b, sc, h, kv, hd, window in cases:
         idx = torch.arange(sc, device="cuda")[None].repeat(b, 1)
         if window or sc == HYBRID_MAX_LEN:
             cur = torch.full((b,), HYBRID_MAX_LEN - 1, device="cuda")
@@ -588,8 +606,8 @@ def decode_phase(torch, ops, decode_attention):
                        library_cold_ms=cold_ms(lib),
                        bound_share=b_ms / ms, blocks=b * kv * splits)
             emit(phase="kernel_parity", kernel="decode_attention",
-                 layout=name, shape=[b, sc, h, kv, hd], window=window,
-                 dtype=dtype, max_abs_err=err, tolerance=tol, timing=src,
+                 path=path, layout=name, shape=[b, sc, h, kv, hd],
+                 window=window, dtype=dtype, max_abs_err=err, tolerance=tol, timing=src,
                  wall_ms=wall_ms, **row)
             if name == "d0/d4" and sc == MAX_LEN:
                 main = row
@@ -597,21 +615,26 @@ def decode_phase(torch, ops, decode_attention):
                 check(row["blocks"] >= 2 * decode_attention.SMS,
                       f"decode_attention {name}: {row['blocks']} blocks < "
                       f"2 x {decode_attention.SMS} SMs")
+    if main is None:
+        return None
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:72",
                 max_abs_err=max(errs), **main)
 
 
-def int8_phase(torch, ref, int8_matmul):
-    """K5 at every shape of ``INT8_SHAPES`` on a K-major weight (the
-    layout the model holds): bit-exact against the plain version in
-    float32 and in bfloat16; timed in bfloat16, the path's output type,
-    warm and with the L2 cold, beside ``torch._int_mm`` + dequant to the
-    same type."""
+def int8_phase(torch, ref, int8_matmul, shapes=INT8_SHAPES, path="serving"):
+    """K5 at every shape of ``shapes`` on a K-major weight (the layout the
+    model holds): bit-exact against the plain version in float32 and in
+    bfloat16; timed in bfloat16, the path's output type, warm and with
+    the L2 cold, beside ``torch._int_mm`` + dequant to the same type (a
+    library call that takes no fewer than 17 rows, so at fewer it is
+    timed on the rows padded to 17 with zeros). Returns the kernels-line
+    entry when ``shapes`` hold the serving path's main shape, else
+    None."""
     g = torch.Generator(device="cuda").manual_seed(7)
     main = None
-    for m, k, n in INT8_SHAPES:
+    for m, k, n in shapes:
         xq, sx = ref.quantize_ref(torch.randn((m, k), generator=g,
                                               device="cuda"))
         wq, sw = ref.quantize_ref(torch.randn((k, n), generator=g,
@@ -629,9 +652,14 @@ def int8_phase(torch, ref, int8_matmul):
         def kern():
             return int8_matmul.int8_matmul_cuda(xq, sx, wq, sw, bf16)
 
+        xl, sxl = xq, sx
+        if m <= 16:
+            xl = torch.cat([xq, xq.new_zeros((17 - m, k))])
+            sxl = torch.cat([sx, sx.new_zeros((17 - m, 1))])
+
         def lib():
-            return (torch._int_mm(xq, wq).to(torch.float32) * sx * sw) \
-                .to(bf16)
+            return (torch._int_mm(xl, wq).to(torch.float32) * sxl * sw)[
+                :m].to(bf16)
         ms, wall_ms, src = timed(kern)
         plain_ms, _, _ = timed(lambda: int8_matmul.plain(xq, sx, wq, sw,
                                                          bf16))
@@ -644,12 +672,15 @@ def int8_phase(torch, ref, int8_matmul):
                    library_ms=lib_ms, cold_ms=cold_ms(kern),
                    library_cold_ms=cold_ms(lib), bound_share=b_ms / ms,
                    blocks=-(-m // bm) * -(-n // bn))
-        emit(phase="kernel_parity", kernel="int8_matmul", shape=[m, k, n],
+        emit(phase="kernel_parity", kernel="int8_matmul", path=path,
+             shape=[m, k, n], library_rows=xl.shape[0],
              dtype="bfloat16", bit_exact=["float32", "bfloat16"],
              max_abs_err=0.0, tile=[bm, bn], timing=src, wall_ms=wall_ms,
              **row)
         if (m, k, n) == (SERVE_BATCH * PROMPT, 256, 1024):
             main = row
+    if main is None:
+        return None
     return dict(name="int8_matmul", route="cuda",
                 source="src/repro_torch/csrc/int8_matmul.cu",
                 replaces="src/repro/kernels/int8_matmul.py:40",
@@ -1692,6 +1723,227 @@ def hybrid_serving(torch, engines, init_s):
     return {"d0": cache}
 
 
+# ------------------------------------------------ the single-cell layer ----
+#: the serving launcher's shapes: one request a call, a 16-token prompt,
+#: a cache of 64 slots (``build_engines``' default ``max_len``)
+CLI_PROMPT, CLI_MAX_LEN = 16, 64
+SC_DQN_STEPS, SC_GREEDY_STATES, SC_MARGIN = 2000, 200, 1e-4
+
+
+def single_cell_bruteforce(torch, C):
+    """``bruteforce_optimal`` on the card against the port on the CPU
+    (float64 on both) for every experiment x threshold, N = 1..5, over
+    the full action set: the same action (or the same error where none
+    is feasible), ms and accuracy within 1e-12. Then one call at N = 5
+    (10^5 candidates) timed: its kernels' device ms, and the host ms to
+    its answer."""
+    cases = 0
+    for exp in sorted(C.EXPERIMENTS):
+        for n in range(1, 6):
+            envs = [C.EndEdgeCloudEnv(n, C.EXPERIMENTS[exp], noise=0,
+                                      device=d) for d in ("cuda", "cpu")]
+            for th in C.THRESHOLDS.values():
+                out = []
+                for env in envs:
+                    try:
+                        out.append(C.bruteforce_optimal(env, th))
+                    except ValueError:
+                        out.append(None)
+                card, cpu = out
+                check((card is None) == (cpu is None) and (
+                    card is None or (card[0] == cpu[0] and card[3] == cpu[3]
+                                     and all(abs(a - b) <= 1e-12 * abs(b)
+                                             for a, b in zip(card[1:3],
+                                                             cpu[1:3])))),
+                      f"bruteforce {exp} N={n} at {th}: card {card}, "
+                      f"CPU {cpu}")
+                cases += 1
+    env = C.EndEdgeCloudEnv(5, C.EXPERIMENTS["EXP-A"], noise=0,
+                            device="cuda")
+    ms, _, src = timed(lambda: C.bruteforce_optimal(env, 85.0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        best = C.bruteforce_optimal(env, 85.0)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 20
+    emit(phase="single_cell", part="bruteforce", cases=cases,
+         n5_candidates=best[3], n5_best=list(env.spec.decode_action(best[0])),
+         n5_best_ms=best[1], n5_device_ms=ms, n5_host_ms=host_ms,
+         timing=src)
+
+
+def single_cell_qlearning(torch, C):
+    """``train_agent`` of tabular Q-learning on the card's environment
+    (EXP-A, N = 3, goal 85, at most 6,000 steps): it converges with
+    prediction accuracy 1.0, and its history and every Q row equal those
+    of the same run on the CPU (float64 on both); host ms per step."""
+    import numpy as np
+    runs = []
+    for dev in ("cuda", "cpu"):
+        env = C.EndEdgeCloudEnv(3, C.EXPERIMENTS["EXP-A"],
+                                accuracy_threshold=85.0, seed=0, device=dev)
+        agent = C.QLearningAgent(env.spec, seed=0)
+        t0 = time.perf_counter()
+        res = C.train_agent(agent, env, 6000)
+        runs.append((res, agent, time.perf_counter() - t0))
+    (res, agent, secs), (res_c, agent_c, secs_c) = runs
+    check(res.converged_at is not None and res.prediction_accuracy == 1.0,
+          f"Q-learning on the card did not converge: {res.converged_at}, "
+          f"prediction accuracy {res.prediction_accuracy}")
+    check(res.history == res_c.history and list(agent.q) == list(agent_c.q)
+          and all(np.array_equal(row.view(np.uint32),
+                                 agent_c.q[st].view(np.uint32))
+                  for st, row in agent.q.items()),
+          "Q-learning: the card's run differs from the CPU's")
+    emit(phase="single_cell", part="qlearning", users=3, goal=85.0,
+         converged_at=res.converged_at, steps=res.steps,
+         greedy_ms=res.greedy_ms, optimal_ms=res.best_ms,
+         prediction_accuracy=res.prediction_accuracy,
+         states_visited=len(agent.q),
+         host_ms_per_step=secs * 1e3 / res.steps,
+         cpu_host_ms_per_step=secs_c * 1e3 / res_c.steps)
+
+
+def greedy_margin(agent, q, dynamics):
+    """The smallest change of the host q that could change
+    ``agent``'s greedy decision: the gap between each user's two best
+    values (the plain argmax), or with the factored form's accuracy goal,
+    the adjacent gaps among each user's five best values (the top-4's
+    order) and the gap between the two best feasible combo scores."""
+    import itertools
+    import numpy as np
+    if agent.cfg.form == "paper" or agent.accuracy_threshold is None:
+        top = np.sort(q.reshape(-1, q.shape[-1]), -1)[:, -2:]
+        return float((top[:, 1] - top[:, 0]).min())
+    n, k = q.shape[0], 4
+    srt = np.sort(q, -1)[:, ::-1][:, :k + 1]
+    gaps = float((srt[:, :-1] - srt[:, 1:]).min())
+    topk = np.argsort(q, axis=-1)[:, ::-1][:, :k]
+    combos = np.array(list(itertools.product(range(k), repeat=n)))
+    per = topk[np.arange(n)[None], combos]
+    acc = dynamics.TOP5[np.where(per < dynamics.A_EDGE, per, 0)].mean(-1)
+    score = np.where(dynamics.feasible(acc, agent.accuracy_threshold),
+                     q[np.arange(n)[None], per].sum(-1), -np.inf)
+    best2 = np.sort(score)[-2:]
+    return min(gaps, float(best2[1] - best2[0])
+               if np.isfinite(best2[0]) else np.inf)
+
+
+def single_cell_dqn(torch, C, dynamics):
+    """Both DQN forms for SC_DQN_STEPS act/update steps on the card's
+    environment: the paper form at N = 3 (goal 0) and the factored form
+    at N = 5 with the constraint-aware greedy at the 85% goal. Every loss
+    finite; ``greedy_action`` on the card equals that of a CPU agent on a
+    copy of the card's parameters on SC_GREEDY_STATES states wherever
+    ``greedy_margin`` exceeds SC_MARGIN; host ms per step, and the
+    device and host ms of one update on a fixed replay batch."""
+    import math
+    import numpy as np
+    for form, n, goal in (("paper", 3, None), ("factored", 5, 85.0)):
+        env = C.EndEdgeCloudEnv(n, C.EXPERIMENTS["EXP-A"],
+                                accuracy_threshold=goal or 0.0, seed=0,
+                                device="cuda")
+        agent = C.DQNAgent(C.SpaceSpec(n), C.DQNConfig(form=form), seed=0,
+                           accuracy_threshold=goal, device="cuda")
+        s, losses = env.reset(), []
+        t0 = time.perf_counter()
+        for _ in range(SC_DQN_STEPS):
+            a = agent.act(s)
+            s2, r, _ = env.step(a)
+            loss = agent.update(s, a, r, s2)
+            if loss is not None:
+                losses.append(loss)
+            s = s2
+        secs = time.perf_counter() - t0
+        check(len(losses) == SC_DQN_STEPS - agent.cfg.batch_size + 1
+              and all(math.isfinite(x) for x in losses),
+              f"DQN {form}: {len(losses)} losses, finite: "
+              f"{all(math.isfinite(x) for x in losses)}")
+        cpu = C.DQNAgent(C.SpaceSpec(n), C.DQNConfig(form=form), seed=0,
+                         accuracy_threshold=goal, device="cpu")
+        cpu.params = [{k: v.detach().cpu() for k, v in p.items()}
+                      for p in agent.params]
+        probe = C.EndEdgeCloudEnv(n, C.EXPERIMENTS["EXP-B"], seed=1,
+                                  exogenous=True, device="cpu")
+        rng = np.random.default_rng(1)
+        held = 0
+        for _ in range(SC_GREEDY_STATES):
+            st = probe.step(int(rng.integers(probe.spec.n_joint_actions)))[0]
+            if greedy_margin(cpu, cpu._host_q(st), dynamics) > SC_MARGIN:
+                got, want = agent.greedy_action(st), cpu.greedy_action(st)
+                check(got == want, f"DQN {form}: greedy on the card {got}, "
+                      f"on the CPU {want} at state {st}")
+                held += 1
+        check(held >= SC_GREEDY_STATES // 10,
+              f"DQN {form}: only {held} states with a clear margin")
+        batch = agent.buffer.sample(agent.cfg.batch_size)
+        upd_ms, upd_wall_ms, src = timed(lambda: agent._train(*batch))
+        emit(phase="single_cell", part="dqn", form=form, users=n, goal=goal,
+             hidden=agent.cfg.hidden, steps=SC_DQN_STEPS,
+             updates=len(losses), first_loss=losses[0], last_loss=losses[-1],
+             eps=agent.eps, host_ms_per_step=secs * 1e3 / SC_DQN_STEPS,
+             greedy_states=SC_GREEDY_STATES, greedy_held=held,
+             update_device_ms=upd_ms, update_wall_ms=upd_wall_ms,
+             timing=src)
+
+
+def single_cell_serve(torch, serve, kernels):
+    """``repro_torch.launch.serve.main`` with its defaults (the
+    full-width edge ladder, 3 users, EXP-A, goal 85, 6,000 training
+    steps, 4 waves; d0-d7 on S, d0 on E and C): per wave the decision and
+    each request's measured ms. Returns the launches of ``kernels``
+    (reset just before, read just after); each must have launched."""
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res, waves = serve.main([])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    check(len(waves) == 4, f"the launcher served {len(waves)} waves")
+    for i, w in enumerate(waves):
+        check(len(w["measured_ms"]) == 3 and all(m > 0 for m in
+                                                 w["measured_ms"]),
+              f"wave {i}: measured {w['measured_ms']}")
+        emit(phase="single_cell", part="serve", wave=i,
+             decision=list(w["decision"]), env_avg_ms=w["env_avg_ms"],
+             measured_ms=w["measured_ms"])
+    emit(phase="single_cell", part="serve_summary",
+         converged_at=res.converged_at, greedy_ms=res.greedy_ms,
+         optimal_ms=res.best_ms, seconds=secs, launches=launches)
+    for name, n in launches.items():
+        check(n > 0, f"{name} was never launched by the serving launcher")
+    return launches
+
+
+def cli_shapes(get_config, build_ladder):
+    """K3's and K4's cases at the launcher's shapes (batch 1, 16-token
+    prompt, 64 slots) for each head layout of the edge ladder, and K5's
+    (M, K, N) at d5's and d6's projections for M = 16 (prefill) and 1
+    (decode)."""
+    layouts = {}
+    for vid, v in build_ladder(get_config("edge-ladder")).items():
+        c = v.cfg
+        layouts.setdefault((c.n_heads, c.n_kv_heads, c.resolved_head_dim),
+                           []).append(vid)
+    flash, dec = [], []
+    for (h, kv, hd), vids in sorted(layouts.items(), reverse=True):
+        name = "/".join(vids)
+        flash.append((name, 1, CLI_PROMPT, h, kv, hd, 0))
+        dec.append((name, 1, CLI_MAX_LEN, h, kv, hd, 0))
+    ladder = build_ladder(get_config("edge-ladder"))
+    kn = []
+    for vid in ("d5", "d6"):
+        c = ladder[vid].cfg
+        d, hd = c.d_model, c.resolved_head_dim
+        q, kvd = c.n_heads * hd, c.n_kv_heads * hd
+        for pair in ((d, q), (d, kvd), (q, d), (d, c.d_ff), (c.d_ff, d)):
+            if pair not in kn:
+                kn.append(pair)
+    int8 = tuple((m, k, n) for m in (CLI_PROMPT, 1) for k, n in kn)
+    return tuple(flash), tuple(dec), int8
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1711,8 +1963,11 @@ def main():
     from repro_torch.kernels import (_build, decode_attention, dqn_head,
                                      flash_attention, int8_matmul, ops, ref,
                                      selective_scan, tabular_rl)
+    from repro_torch import core
+    from repro_torch.launch import serve as serve_cli
     from repro_torch.launch.serve import build_engines
     from repro_torch.models import build_model
+    from repro_torch.models.variants import build_ladder
     from repro_torch.rng import Draws
     from repro_torch.serving import Request, RequestBatcher, ServingEngine
     R = types.SimpleNamespace(api=api, policy=policy, population=population,
@@ -1781,6 +2036,20 @@ def main():
     step_profile(torch, lambda: dqn_agent.run(5), agent="dqn")
     decode_profile(torch, engines, caches)
     del engines, caches
+
+    # the single-cell layer: the brute force and both agents on the card,
+    # then the serving launcher's RL-orchestrated loop, its launches
+    # counted from here, and K3-K5 at its shapes
+    single_cell_bruteforce(torch, core)
+    single_cell_qlearning(torch, core)
+    single_cell_dqn(torch, core, dynamics)
+    cli_launches = single_cell_serve(torch, serve_cli, serving_kernels)
+    emit(phase="launches", single_cell=cli_launches)
+    cli_flash, cli_decode, cli_int8 = cli_shapes(get_config, build_ladder)
+    flash_phase(torch, flash_attention, cli_flash, path="single_cell")
+    decode_phase(torch, ops, decode_attention, cli_decode,
+                 path="single_cell")
+    int8_phase(torch, ref, int8_matmul, cli_int8, path="single_cell")
 
     # the state-space path: Falcon-Mamba-7B (d0, d4) and Hymba-1.5B (d0)
     # at full size

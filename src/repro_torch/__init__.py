@@ -1,7 +1,10 @@
 """repro_torch — the PyTorch/CUDA port of ``repro``: the fleet
-online-learning loop and the serving path of the served models (the
-edge ladder, Falcon-Mamba and Hymba), their engines and the routed
-dispatch.
+online-learning loop, the serving path of the served models (the edge
+ladder, Falcon-Mamba and Hymba), their engines and the routed dispatch,
+and the paper's single-cell layer (``core``: the environment, tabular
+Q-learning, the DQN, the brute force, the baselines, the transfer
+protocol and the orchestrator) with the serving launcher's
+RL-orchestrated loop (``launch.serve``).
 
 The package mirrors ``repro``'s layout (``fleet/dynamics.py`` here is the
 counterpart of ``repro/fleet/dynamics.py``, and so on) but imports

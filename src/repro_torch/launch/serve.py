@@ -1,21 +1,31 @@
-"""Serving launcher — the port of ``repro/launch/serve.py``'s
-``build_engines``: the three-tier engine set over one config's variant
-ladder, which ``FleetOrchestrator.route(dispatch=...)`` drains routed
-requests into.
+"""Serving launcher — the port of ``repro/launch/serve.py``: the
+three-tier engine set over one config's variant ladder
+(``build_engines``), which ``FleetOrchestrator.route(dispatch=...)``
+drains routed requests into, and the RL-orchestrated loop of the paper's
+Fig. 4 runtime (``main``): train the single-cell orchestration agent
+(``repro_torch.core``), then decide each wave of requests and serve every
+user's decided (tier, variant) on its engine.
+
+    python -m repro_torch.launch.serve --arch edge-ladder --requests 4
+    python -m repro_torch.launch.serve --device cpu --train-steps 2000
 
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import build_engines
     engines = build_engines(get_config("edge-ladder"))
     mamba = build_engines(get_config("falcon-mamba-7b"), variants=("d0", "d4"))
-
-The reference's command-line loop comes with the single-cell layer
-(ROADMAP queue 1).
 """
 from __future__ import annotations
+
+import argparse
 
 import numpy as np
 
 from repro_torch import resolve_device
+from repro_torch.configs.base import get_config, reduced
+from repro_torch.core import (EXPERIMENTS, EndEdgeCloudEnv,
+                              IntelligentOrchestrator, QLearningAgent,
+                              train_agent)
+from repro_torch.core.spaces import A_EDGE, allowed_per_user
 from repro_torch.models import build_model
 from repro_torch.models.variants import build_ladder
 from repro_torch.serving.engine import ServingEngine
@@ -57,3 +67,66 @@ def build_engines(cfg, variants=("d0", "d4", "d7"), max_len: int = 64,
                                                compute_scale=sc,
                                                hop_ms=hops.get(tier, 0.0))
     return engines
+
+
+def local_variants(agent) -> tuple:
+    """The device-tier variants ``d{a}`` that the agent's action set can
+    reach (edge and cloud always run d0)."""
+    allowed = allowed_per_user(agent.spec, agent.actions)
+    return tuple(f"d{a}" for a in range(A_EDGE) if allowed[:, a].any())
+
+
+def main(argv=None):
+    """Train the orchestration agent (tabular Q-learning on the EXP-A
+    scenario), then serve ``--requests`` waves: each wave's decision
+    comes from the agent, each user's 16-token prompt runs on its
+    decided engine (4 new tokens), and the environment steps on the
+    decision. Builds every device-tier variant the agent can decide
+    (d0-d7 for the full action set) and d0 on the edge and cloud tiers;
+    the reference builds only d0/d4/d7 and so cannot serve a d5 decision.
+    Prints one line per wave; returns the ``TrainResult`` and, per wave,
+    ``{"decision", "env_avg_ms", "measured_ms"}``."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="edge-ladder")
+    ap.add_argument("--users", type=int, default=3)
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--threshold", type=float, default=85.0)
+    ap.add_argument("--train-steps", type=int, default=6000)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = reduced(get_config(args.arch)) if args.arch != "edge-ladder" \
+        else get_config(args.arch)
+    env = EndEdgeCloudEnv(args.users, EXPERIMENTS["EXP-A"],
+                          accuracy_threshold=args.threshold, seed=0,
+                          device=dev)
+    agent = QLearningAgent(env.spec, seed=0)
+    print("training orchestration agent...")
+    res = train_agent(agent, env, args.train_steps)
+    print(f"  converged_at={res.converged_at} greedy={res.greedy_ms:.1f}ms "
+          f"(optimal {res.best_ms:.1f}ms)")
+
+    engines = build_engines(cfg, variants=local_variants(agent), device=dev)
+    orch = IntelligentOrchestrator(agent, env, engines)
+    state = env.reset()
+    rng = np.random.default_rng(0)
+    waves = []
+    for wave in range(args.requests):
+        per_user = orch.decide(state)
+        prompts = [rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
+                   for _ in range(args.users)]
+        results = orch.dispatch(per_user, prompts)
+        joint = env.spec.encode_action(per_user)
+        state, _, info = env.step(joint)
+        print(f"wave {wave}: decision={per_user} "
+              f"env_avg={info['avg_response_ms']:.1f}ms "
+              f"measured={[f'{r[2]:.0f}ms' for r in results]}")
+        waves.append({"decision": per_user,
+                      "env_avg_ms": info["avg_response_ms"],
+                      "measured_ms": [r[2] for r in results]})
+    return res, waves
+
+
+if __name__ == "__main__":
+    main()

@@ -546,3 +546,18 @@ def test_int8_launches_from_four_threads_are_all_counted(cuda):
     assert int8_matmul.KERNEL.launches == before + 4 * n
     for outs in results:
         assert all(torch.equal(o, want) for o in outs[:: n // 4])
+
+
+def test_single_cell_env_on_the_card_matches_the_cpu(cuda):
+    """The single-cell environment's float64 model on the card against
+    the CPU's, bit for bit: every joint action of N = 4 in every
+    experiment (the link capacities and the user mean divide as device
+    tensors, so the card's quotients are numpy's)."""
+    from repro_torch.core import EXPERIMENTS, EndEdgeCloudEnv
+    for name, scen in EXPERIMENTS.items():
+        card = EndEdgeCloudEnv(4, scen, noise=0, device=cuda)
+        cpu = EndEdgeCloudEnv(4, scen, noise=0, device="cpu")
+        acts = cpu.spec.all_actions()
+        for got, want in zip(card.expected_response_batch(acts),
+                             cpu.expected_response_batch(acts)):
+            assert torch.equal(got.cpu(), want), name
