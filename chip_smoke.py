@@ -35,6 +35,18 @@ paths through the entry points a user calls:
   fleet routed into the engines; and Hymba-1.5B at full size (32 hybrid
   layers, d_model 1600) generating at batch 8 from a 2,048-token prompt,
   longer than its 1,024-token window (kernels K3, K4, K5, K6);
+* the coupled fleet (phases ``coupled_oracle``, ``coupled_holdout``,
+  ``cell_dqn``, ``prof``): ``topology_bruteforce`` through the
+  best-response kernel on the reference benchmark's hot edge (64 cells of
+  2 users over 4 edges) and on 1,024 cells of 3 users over 16 skewed
+  edges, each held equal to the same loop with the kernel's plain round
+  on the card, with the aware-vs-blind reward on the hot edge; a
+  ``FleetDQN`` trained on 32,768 x 5 cells over 64 skewed edges and
+  scored against that oracle, one round of which is held equal to the
+  plain round at that shape; ``FleetDQN(net='cell')`` at the DQN
+  phase's shape; ``obs.prof`` stage costs of both agents and a scaling
+  sweep over 1,024 to 32,768 cells (kernels K1, K2 and the port-only
+  best-response kernel);
 * the single-cell layer (phase ``single_cell``): ``bruteforce_optimal``
   on the card against the CPU for every experiment x threshold, N =
   1..5; tabular Q-learning (N = 3, goal 85) converging, its Q rows equal
@@ -47,8 +59,10 @@ paths through the entry points a user calls:
   versions at its shapes (batch 1 x 16 tokens, 64 slots, d5's and d6's
   projections at 16 rows and 1).
 
-Each path's kernel launch counts are set to 0 just before it and read
-just after; every route checks its identities (each active user served
+The phase ``cpu_agreement`` also holds the float32 fleet env step on
+the card bit-equal to the CPU on an isolated and a coupled fleet. Each
+path's kernel launch counts are set to 0 just before it and read just
+after; every route checks its identities (each active user served
 once, or shed once where a bridge is overloaded; batching + compute +
 dispatch = wall; queue + measured = e2e; attained + violated =
 dispatched). Every phase prints one JSON line; any failed check raises
@@ -110,9 +124,10 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 FLUSH_BYTES = 256 << 20
 # the port's kernel functions, whose device time a step profile reports
 OUR_KERNELS = ("tabular_rl_kernel", "dqn_head_kernel",
-               "flash_attention_tc_kernel", "flash_attention_kernel",
-               "decode_partial_kernel", "decode_merge_kernel",
-               "int8_matmul_kernel", "selective_scan_kernel")
+               "best_response_kernel", "flash_attention_tc_kernel",
+               "flash_attention_kernel", "decode_partial_kernel",
+               "decode_merge_kernel", "int8_matmul_kernel",
+               "selective_scan_kernel")
 
 
 def emit(**kw):
@@ -141,6 +156,24 @@ def time_ms(fn, warmup=3, reps=20):
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def burst_ms(fn, n=10):
+    """Device time per call of ``n`` back-to-back calls of ``fn`` between
+    one CUDA event pair, after one warm-up call: the launches queue up
+    while the kernel runs, so the host's gaps between calls drop out for
+    a kernel longer than its launch."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def device_ms(fn, warmup=3, reps=20):
@@ -1944,6 +1977,367 @@ def cli_shapes(get_config, build_ladder):
     return tuple(flash), tuple(dec), int8
 
 
+# ------------------------------------------------- the coupled fleet ----
+#: the coupled fleets of the reference's benchmarks/bench_topology.py:
+#: its hot edge (64 cells of 2 users over 4 edges, 60% of them on edge 0,
+#: 8 cloud servers) and its env configuration (1,024 cells of 3 users
+#: over 16 skewed edges, 4 cloud servers a cell), both at its goal of 89
+COUPLED_GOAL = 89.0
+HOLDOUT_EDGES = 64
+COUPLED_STEPS = 300
+
+
+def step_agreement(torch, R):
+    """The float32 fleet env step on the card against the CPU from the
+    same inputs and injected noise, on an isolated and a coupled fleet:
+    mean ms, mean accuracy, reward, next counts and the DQN's features
+    (flat and fused) bit-equal. Also, on the card, the division the
+    parent took for the link capacity against the quotient and the
+    reference's reciprocal product at the smallest job count where they
+    differ (33 jobs over 1.3)."""
+    import numpy as np
+
+    def step(dev, coupled):
+        s = R.scenarios.mixed_table5_fleet(R.Draws(4, "cpu"), 512, 3,
+                                           min_users=1, max_users=3)
+        topo = None
+        if coupled:
+            t = R.topology.hot_edge_topology(
+                512, 8, hot_fraction=0.6, capacity_tiers=(1.0, 2.0, 0.5),
+                cloud_servers=37.0)
+            topo = R.topology.Topology(t.cell_edge.to(dev),
+                                       t.edge_capacity.to(dev),
+                                       t.cloud_servers)
+        s = R.scenarios.FleetScenario(*(getattr(s, f).to(dev) for f in (
+            "end_b", "edge_b", "member", "active")), 0, topo)
+        rng = np.random.default_rng(0)
+        a = torch.tensor(rng.integers(0, 10, (512, 3)), device=dev)
+        z = torch.tensor(rng.standard_normal(512, dtype=np.float32),
+                         device=dev)
+
+        class Noise(R.Draws):
+            def normal(self, site, shape):
+                return z
+        ms, acc, counts = R.population.simulate_responses(
+            Noise(0, dev), s, a, 0.02)
+        r = R.dynamics.reward(ms, acc, 85.0)
+        out = [ms, acc, r, counts, R.policy.encode_fleet_state(counts, s),
+               *R.policy.fused_head_features(counts, s)]
+        return [x.cpu() for x in out]
+
+    equal = {}
+    for coupled in (False, True):
+        pairs = zip(step("cuda", coupled), step("cpu", coupled))
+        names = ("mean_ms", "mean_acc", "reward", "counts2", "features",
+                 "act", "member", "end_b", "agg")
+        equal["coupled" if coupled else "isolated"] = {
+            n: bool(torch.equal(g, w)) for n, (g, w) in zip(names, pairs)}
+    n = torch.tensor([33.0], device="cuda")
+    div = {"python_divisor_on_card": float((n / 1.3).cpu()),
+           "true_quotient": float(torch.tensor([33.0]) / 1.3),
+           "reciprocal_product": float(R.dynamics.div_const(n, 1.3).cpu())}
+    emit(phase="cpu_agreement", case="env_step", bit_equal=equal,
+         n33_over_1p3=div)
+    for kind, eq in equal.items():
+        check(all(eq.values()), f"the float32 env step on the card differs "
+              f"from the CPU ({kind}): {eq}")
+
+
+def coupled_fleets(torch, R):
+    """(label, scenario, candidate table) of the two coupled fleets."""
+    hot = R.scenarios.with_topology(
+        R.scenarios.mixed_table5_fleet(R.Draws(0, "cuda"), 64, 2),
+        R.topology.hot_edge_topology(64, 4, hot_fraction=0.6,
+                                     cloud_servers=8.0, device="cuda"))
+    cfg = R.scenarios.FleetConfig(cells=1024, users=3, n_edges=16,
+                                  assignment="skewed", cloud_servers=4096.0)
+    skewed, _ = R.api.SyntheticSource(cfg).reset(R.Draws(0, "cuda"))
+    return [(label, scen, torch.tensor(
+        R.population.SpaceSpec(scen.users).decode_actions_batch(
+            R.population.SpaceSpec(scen.users).all_actions()),
+        device="cuda"))
+        for label, scen in (("hot_edge_64x4", hot), ("skewed_1024x16",
+                                                     skewed))]
+
+
+def coupled_oracle(torch, R, fleets):
+    """The main path of the coupled oracle: ``topology_bruteforce`` (the
+    kernel a round) on both fleets. Returns each run's result and host
+    wall."""
+    runs = []
+    for label, scen, pu in fleets:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = R.population.topology_bruteforce(scen, pu, COUPLED_GOAL)
+        torch.cuda.synchronize()
+        runs.append((res, time.perf_counter() - t0))
+    return runs
+
+
+def coupled_oracle_parity(torch, R, fleets, runs, best_response):
+    """The kernel's oracle against the same loop with the plain round on
+    the card: indices, ``converged``, ``rounds`` and ms equal. Then one
+    round from the isolated start timed: the kernel's device ms (and per
+    call of 10 back-to-back launches, ``burst_ms``), the plain version's
+    wall, the bound of the (cells, K) tables, and the sequential floor
+    (the kernel at K = 1, read both ways); on the hot edge, the expected
+    reward of aware (best-response) against blind (isolated-optimal)
+    decisions under the same shared contention. Returns the kernels-line
+    entry (the 1,024-cell fleet's round)."""
+    pop, bound_row = R.population, None
+    for (label, scen, pu), (got, k_wall) in zip(fleets, runs):
+        saved = pop._best_response_round
+        pop._best_response_round = (
+            lambda *a, calib=None, packed=None: best_response.plain(
+                *a, calib=calib))
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = pop.topology_bruteforce(scen, pu, COUPLED_GOAL)
+            torch.cuda.synchronize()
+            p_wall = time.perf_counter() - t0
+        finally:
+            pop._best_response_round = saved
+        check(torch.equal(got[1], want[1]) and got[2:] == want[2:],
+              f"coupled oracle {label}: the kernel's indices / converged "
+              f"/ rounds differ from the plain version's")
+        err = float((got[0] - want[0]).abs().max())
+        check(err == 0.0, f"coupled oracle {label}: ms differ by {err}")
+        feas, ce, cc = pop._candidate_tables(scen, pu, COUPLED_GOAL, 4096)
+        _, idx0 = pop._isolated_bruteforce(scen, pu, COUPLED_GOAL)
+        topo = scen.topo
+        args = (scen.end_b, scen.edge_b, scen.member)
+        tail = (topo.cell_edge, topo.edge_capacity, topo.cloud_servers)
+        packed = best_response.pack_actions(pu)
+        def kern():
+            return best_response.best_response_cuda(idx0, packed, *args,
+                                                    feas, ce, cc, *tail)
+        ms, wall_ms, src = timed(kern, warmup=1, reps=5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best_response.plain(idx0, pu, *args, feas, ce, cc, *tail)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        zeros = torch.zeros_like(idx0)
+        one = [x[:, :1].contiguous() for x in (feas, ce, cc)]
+
+        def floor():
+            return best_response.best_response_cuda(
+                zeros, packed[:1].contiguous(), *args, *one, *tail)
+        floor_ms, _, floor_src = timed(floor, warmup=1, reps=5)
+        burst, floor_burst = burst_ms(kern), burst_ms(floor)
+        cells, k, users = scen.cells, pu.shape[0], scen.users
+        ops, nbytes = best_response.cost(cells, k, users, topo.n_edges)
+        b_ms, b_by = bound(nbytes, ops)
+        line = dict(label=label, cells=cells, users=users, candidates=k,
+                    edges=topo.n_edges, rounds=got[3],
+                    converged=got[2], equal=True, ms_max_abs_err=err,
+                    kernel_oracle_wall_s=k_wall,
+                    plain_oracle_wall_s=p_wall, round_ms=ms,
+                    round_wall_ms=wall_ms, round_burst_ms=burst,
+                    plain_round_wall_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, sequential_floor_ms=floor_ms,
+                    sequential_floor_burst_ms=floor_burst,
+                    bound_share=b_ms / ms, floor_share=floor_burst / burst,
+                    timing=src, floor_timing=floor_src)
+        if label.startswith("hot_edge"):
+            iso = R.scenarios.with_topology(scen, None)
+            _, blind = pop.fleet_bruteforce(iso, pu, COUPLED_GOAL)
+            rewards = {}
+            for name, idx in (("blind", blind), ("aware", got[1])):
+                ms_, acc_ = R.topology.fleet_topology_expected_response(
+                    pu[idx.long()], scen.end_b, scen.edge_b, topo,
+                    scen.member)
+                rewards[name] = float(R.dynamics.reward(
+                    ms_, acc_, COUPLED_GOAL).mean())
+            line.update(blind_reward=rewards["blind"],
+                        aware_reward=rewards["aware"],
+                        uplift=rewards["aware"] - rewards["blind"])
+            check(rewards["aware"] > rewards["blind"],
+                  f"aware routing does not beat blind: {rewards}")
+        emit(phase="coupled_oracle", **line)
+        bound_row = dict(name="best_response", route="cuda",
+                         source="src/repro_torch/csrc/best_response.cu",
+                         replaces="none: port-only (the reference's "
+                         "jitted fori_loop, src/repro/fleet/population.py"
+                         ":717 _best_response_round)",
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return bound_row
+
+
+def coupled_holdout(torch, R, best_response, kernels):
+    """``FleetDQN`` (shared encoder, K2), 300 steps on a 32,768-cell x
+    5-user synthetic fleet over 64 skewed edges, scored on a held-out
+    coupled fleet of the same shape (1 to 5 members a cell) against
+    ``topology_bruteforce`` through the kernel: the ratio in (0, 1.05];
+    the oracle's wall and rounds. ``kernels`` (K2 and the best-response
+    kernel) count their launches on this path alone, each at least once.
+    Then, outside the count, one round from the isolated start through
+    the kernel and through its plain version on the card: indices and
+    changed flag equal. Returns the path's launch counts."""
+    for k in kernels:
+        k.launches = 0
+    cfg = R.scenarios.FleetConfig(
+        cells=CELLS, users=USERS, arrival_rate=1.2, p_r2w=0.05, p_w2r=0.15,
+        min_users=2, max_users=5, n_edges=HOLDOUT_EDGES,
+        assignment="skewed", cloud_servers=4.0 * CELLS)
+    agent = R.policy.FleetDQN(
+        R.api.SyntheticSource(cfg), actions=R.population.default_actions(
+            R.population.SpaceSpec(USERS)),
+        cfg=R.policy.FleetDQNConfig(hidden=128, topk=5,
+                                    accuracy_threshold=85.0),
+        seed=0, device="cuda", metrics=False)
+    agent.run(3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agent.run(COUPLED_STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    held, _ = R.api.SyntheticSource(dataclasses.replace(
+        cfg, min_users=1)).reset(R.Draws(7, "cuda"))
+    pu, goal = agent.pu_table, agent.accuracy_threshold
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, converged, rounds = R.population.topology_bruteforce(held, pu,
+                                                               goal)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    ev = R.policy.holdout_reward_ratio(agent, held)
+    launched = {k.name: k.launches for k in kernels}
+    check(0.0 < ev.ratio <= 1.05, f"coupled holdout ratio {ev.ratio}")
+    for name, n in launched.items():
+        check(n > 0, f"{name} was never launched on the coupled holdout")
+
+    pop, topo = R.population, held.topo
+    feas, ce, cc = pop._candidate_tables(held, pu, goal, 4096)
+    _, idx0 = pop._isolated_bruteforce(held, pu, goal)
+    args = (held.end_b, held.edge_b, held.member, feas, ce, cc,
+            topo.cell_edge, topo.edge_capacity, topo.cloud_servers)
+    got, got_changed = best_response.best_response_cuda(
+        idx0, best_response.pack_actions(pu), *args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want, want_changed = best_response.plain(idx0, pu, *args)
+    torch.cuda.synchronize()
+    plain_round_s = time.perf_counter() - t0
+    moved = int((got != idx0).sum())
+    check(torch.equal(got, want) and
+          bool(got_changed.item()) == bool(want_changed),
+          f"coupled holdout: the kernel's round differs from the plain "
+          f"version's ({int((got != want).sum())} of {held.cells} cells, "
+          f"changed {bool(got_changed.item())} / {bool(want_changed)})")
+    emit(phase="coupled_holdout", cells=CELLS, users=USERS,
+         edges=HOLDOUT_EDGES, steps=COUPLED_STEPS, seconds=secs,
+         cell_steps_per_s=CELLS * COUPLED_STEPS / secs,
+         holdout_reward_ratio=ev.ratio,
+         holdout_feasible_frac=float(ev.feasible.mean()),
+         oracle_wall_s=oracle_s, oracle_rounds=rounds,
+         oracle_converged=converged, launches=launched,
+         round_equal=True, round_cells_moved=moved,
+         member_counts={n: int((held.member.sum(-1) == n).sum())
+                        for n in range(1, USERS + 1)},
+         plain_round_wall_s=plain_round_s)
+    return launched
+
+
+def cell_dqn(torch, R, head_kernel):
+    """``FleetDQN(net='cell')`` at the DQN phase's shape, 300 steps: the
+    holdout ratio in (0, 1.05], wall and device ms per step, and K2 never
+    launched (the cell net's greedy is torch ops)."""
+    before = head_kernel.launches
+    cfg = R.scenarios.FleetConfig(cells=CELLS, users=USERS, arrival_rate=1.2,
+                                  p_r2w=0.05, p_w2r=0.15, min_users=2,
+                                  max_users=5)
+    agent = R.policy.FleetDQN(
+        R.api.SyntheticSource(cfg), actions=R.population.default_actions(
+            R.population.SpaceSpec(USERS)),
+        cfg=R.policy.FleetDQNConfig(hidden=128, topk=5,
+                                    accuracy_threshold=85.0, net="cell"),
+        seed=0, device="cuda", metrics=False)
+    agent.run(3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    agent.run(COUPLED_STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    win_us, by_name = profile_window(torch, lambda: agent.run(5))
+    dev_ms = sum(by_name.values()) / 5 / 1e3
+    held = R.scenarios.mixed_table5_fleet(R.Draws(7, "cuda"), CELLS, USERS,
+                                          min_users=1, max_users=5)
+    ev = R.policy.holdout_reward_ratio(agent, held)
+    check(0.0 < ev.ratio <= 1.05, f"cell DQN holdout ratio {ev.ratio}")
+    check(head_kernel.launches == before,
+          f"the cell DQN launched K2 {head_kernel.launches - before} times")
+    emit(phase="cell_dqn", cells=CELLS, users=USERS, steps=COUPLED_STEPS,
+         seconds=secs, wall_ms_per_step=secs * 1e3 / COUPLED_STEPS,
+         device_ms_per_step=dev_ms, device_busy_share=dev_ms * 5e3 / win_us,
+         holdout_reward_ratio=ev.ratio,
+         holdout_feasible_frac=float(ev.feasible.mean()),
+         k2_launches=head_kernel.launches - before)
+
+
+def agent_state(agent):
+    """Copies of every tensor of an agent's state and its host scalars."""
+    leaves = [agent.counts, agent.draws.gen.get_state(),
+              *(getattr(agent.scen, f) for f in ("end_b", "edge_b",
+                                                 "member", "active"))]
+    host = [agent.eps, agent.steps]
+    if hasattr(agent, "buffer"):
+        b = agent.buffer
+        leaves += [t for p in agent.params for t in p.values()]
+        leaves += [t for part in ("m", "v") for p in agent.opt[part]
+                   for t in p.values()]
+        leaves += [b.s, b.a, b.r, b.s2]
+        host += [agent.opt["step"], b.ptr, b.full]
+    else:
+        leaves.append(agent.q)
+    return [t.detach().clone() for t in leaves], host
+
+
+def prof_phase(torch, R, prof, agents, kernels):
+    """``stage_costs`` of the tabular and DQN agents at 32,768 x 5 and
+    ``scaling_sweep`` over 1,024 to 32,768 cells: fractions summing to 1,
+    each agent's state unchanged, and no kernel launched while
+    ``profile_fn`` counted each stage."""
+    before = {k.name: k.launches for k in kernels}
+    for agent in agents:
+        fns = (prof._dqn_stage_fns if hasattr(agent, "buffer")
+               else prof._tabular_stage_fns)(agent, R.Draws(0, "cuda"))
+        for name, (fn, make_args) in fns.items():
+            prof.profile_fn(fn, *make_args(), name=name)
+    launched = {k.name: k.launches - before[k.name] for k in kernels}
+    check(not any(launched.values()),
+          f"profile_fn launched kernels: {launched}")
+    for agent in agents:
+        snap = agent_state(agent)
+        rep = prof.stage_costs(agent, reps=5)
+        after = agent_state(agent)
+        check(after[1] == snap[1] and all(
+            torch.equal(a, b) for a, b in zip(after[0], snap[0])),
+            f"stage_costs changed the {rep['kind']} agent's state")
+        for fr in ("flop_fracs", "byte_fracs", "wall_fracs"):
+            check(abs(sum(rep[fr].values()) - 1.0) <= 1e-9,
+                  f"{rep['kind']} {fr} sum to {sum(rep[fr].values())}")
+        emit(phase="prof", kind=rep["kind"], cells=rep["cells"],
+             users=rep["users"], flop_fracs=rep["flop_fracs"],
+             byte_fracs=rep["byte_fracs"], wall_fracs=rep["wall_fracs"],
+             wall_ms={n: s["wall_ms"] for n, s in rep["stages"].items()},
+             flops={n: s["flops"] for n, s in rep["stages"].items()},
+             bytes={n: s["bytes_accessed"]
+                    for n, s in rep["stages"].items()},
+             dominant_stage_flops=rep["dominant_stage_flops"],
+             dominant_stage_wall=rep["dominant_stage_wall"],
+             profile_fn_launches=launched)
+    sweep = prof.scaling_sweep([1024, 4096, 16384, 32768], users=USERS,
+                               device="cuda")
+    emit(phase="prof", kind="scaling_sweep", **{
+        k: sweep[k] for k in ("grid", "flops_per_cell",
+                              "us_device_per_cell_step",
+                              "per_device_cell_steps_per_s", "flatness",
+                              "cliff_cells", "classification", "summary")})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1959,10 +2353,12 @@ def main():
     from repro_torch.core import spaces
     from repro_torch import obs, serving as serving_pkg
     from repro_torch.fleet import (api, calibrate, dynamics, policy,
-                                   population, scenarios)
-    from repro_torch.kernels import (_build, decode_attention, dqn_head,
+                                   population, scenarios, topology)
+    from repro_torch.kernels import (_build, best_response,
+                                     decode_attention, dqn_head,
                                      flash_attention, int8_matmul, ops, ref,
                                      selective_scan, tabular_rl)
+    from repro_torch.obs import prof
     from repro_torch import core
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch.serve import build_engines
@@ -1973,12 +2369,13 @@ def main():
     R = types.SimpleNamespace(api=api, policy=policy, population=population,
                               scenarios=scenarios, Draws=Draws,
                               calibrate=calibrate, dynamics=dynamics,
-                              obs=obs, serving=serving_pkg)
+                              obs=obs, serving=serving_pkg,
+                              topology=topology)
     fleet_kernels = [tabular_rl.KERNEL, dqn_head.KERNEL]
     serving_kernels = [flash_attention.KERNEL, decode_attention.KERNEL,
                        int8_matmul.KERNEL]
     ssm_kernels = serving_kernels + [selective_scan.KERNEL]
-    kernels = fleet_kernels + ssm_kernels
+    kernels = fleet_kernels + ssm_kernels + [best_response.KERNEL]
 
     emit(phase="env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
@@ -1997,6 +2394,7 @@ def main():
                scan_phase(torch, selective_scan,
                           ptxas[selective_scan.KERNEL.name])]
     cpu_agreement(torch, R)
+    step_agreement(torch, R)
     engines = build_engines(get_config("edge-ladder"), max_len=MAX_LEN,
                             device="cuda")
     serving_cpu_agreement(torch, engines, build_model, ServingEngine)
@@ -2034,6 +2432,25 @@ def main():
     del hop_engines
     step_profile(torch, lambda: tab_agent.run(5), agent="tabular")
     step_profile(torch, lambda: dqn_agent.run(5), agent="dqn")
+
+    # the coupled fleet: the oracle through the best-response kernel on
+    # both fleets and behind a coupled holdout, its launches counted from
+    # here; then the kernel held against its plain version, the cell-form
+    # DQN, and the cost profile of both agents
+    fleets = coupled_fleets(torch, R)
+    best_response.KERNEL.launches = 0
+    runs = coupled_oracle(torch, R, fleets)
+    launches["best_response"] = best_response.KERNEL.launches
+    holdout_launches = coupled_holdout(
+        torch, R, best_response, [dqn_head.KERNEL, best_response.KERNEL])
+    emit(phase="launches", coupled_oracle={
+        "best_response": launches["best_response"]},
+        coupled_holdout=holdout_launches)
+    entries.append(coupled_oracle_parity(torch, R, fleets, runs,
+                                         best_response))
+    cell_dqn(torch, R, dqn_head.KERNEL)
+    prof_phase(torch, R, prof, [tab_agent, dqn_agent], kernels)
+    del fleets, runs
     decode_profile(torch, engines, caches)
     del engines, caches
 

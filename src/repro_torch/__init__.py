@@ -15,9 +15,11 @@ moving to the CPU on its own (``resolve_device``).
 
 The six kernels of those paths — the fleet loop's ``kernels.tabular_rl``
 and ``kernels.dqn_head``, the served models' ``flash_attention``,
-``decode_attention``, ``int8_matmul`` and ``selective_scan`` — are
-hand-written CUDA C++ for Hopper (``csrc/*.cu``), built with ``nvcc`` at
-first use and bound with ``ctypes``. Each has a plain PyTorch version
+``decode_attention``, ``int8_matmul`` and ``selective_scan`` — and the
+coupled-fleet oracle's ``kernels.best_response`` (port-only: the
+reference runs that round as a jitted loop) are hand-written CUDA C++
+for Hopper (``csrc/*.cu``), built with ``nvcc`` at first use and bound
+with ``ctypes``. Each has a plain PyTorch version
 beside it, which is what a CPU tensor takes (``kernels.ops``).
 """
 from __future__ import annotations

@@ -42,6 +42,7 @@ from repro_torch.fleet.scenarios import (FleetConfig, FleetScenario,
 from repro_torch.obs import timeline
 from repro_torch.obs.metrics import MetricDef, MetricsAccumulator
 from repro_torch.obs.spans import span as _span
+from repro_torch.rng import as_draws
 
 # ---------------------------------------------------------------------------
 # ScenarioSource — the scenario seam
@@ -321,6 +322,46 @@ class TraceSource:
         return scen, scen
 
 
+def record_trace(source, draws, steps: int,
+                 step_duration: float = 1.0) -> FleetTrace:
+    """Run any `ScenarioSource` for ``steps`` steps and record the stream
+    as a `FleetTrace` (``draws``: a ``Draws``, or an int seed for one on
+    the default device), so ``TraceSource(record_trace(src, draws, n))``
+    replays the exact scenario frames. Arrivals are stamped mid-bin
+    (``(t + 0.5) * step_duration``) so the timestamp binning round-trips
+    exactly; the first frame's topology is recorded as the deployment map
+    (a mid-trace edge failure is not representable in the static map)."""
+    draws = as_draws(draws)
+    end_b, edge_b, member, active = [], [], [], []
+    scen, state = source.reset(draws)
+    topo = scen.topo
+    for _ in range(steps):
+        for frames, x in ((end_b, scen.end_b), (edge_b, scen.edge_b),
+                          (member, scen.member), (active, scen.active)):
+            frames.append(x.cpu().numpy())
+        scen, state = source.step(draws, state)
+    t_idx, c_idx, u_idx = np.nonzero(np.stack(active))
+    return FleetTrace(
+        end_b=np.stack(end_b).astype(np.int32),
+        edge_b=np.stack(edge_b).astype(np.int32),
+        arrival_time=(t_idx + 0.5) * step_duration,
+        arrival_cell=c_idx.astype(np.int32),
+        arrival_user=u_idx.astype(np.int32),
+        step_duration=step_duration,
+        member=np.stack(member),
+        **_deployment_fields(topo),
+    )
+
+
+def _deployment_fields(topo) -> dict:
+    if topo is None:
+        return {}
+    return dict(cell_edge=topo.cell_edge.cpu().numpy().astype(np.int32),
+                edge_capacity=topo.edge_capacity.cpu().numpy().astype(
+                    np.float32),
+                cloud_servers=float(topo.cloud_servers))
+
+
 def make_env_step(source, threshold: float = 0.0, noise: float = 0.02):
     """Per-step fleet environment transition over any `ScenarioSource`:
     ``env_step(draws, scen, per_user) -> (scen2, counts, mean_ms,
@@ -389,6 +430,10 @@ class StatelessPolicy:
     def decisions(self, counts, scen: FleetScenario):
         raise NotImplementedError
 
+    def policy_decisions(self, counts, scen: FleetScenario):
+        """FleetOrchestrator's legacy entry point, same contract."""
+        return self.decisions(counts, scen)
+
     def expected(self, scen: Optional[FleetScenario] = None, counts=None):
         if scen is None:
             raise ValueError(f"{type(self).__name__} has no attached "
@@ -399,11 +444,10 @@ class StatelessPolicy:
 
 
 class OraclePolicy(StatelessPolicy):
-    """The per-cell brute force behind the `FleetPolicy` protocol.
+    """The per-cell brute force — or, with an attached topology, the
+    coupled best-response oracle — behind the `FleetPolicy` protocol.
     Stateless w.r.t. job counts (it optimizes the nominal-load expected
-    response over the candidate set), so ``counts`` is ignored. A
-    scenario with a topology needs the coupled best-response oracle,
-    which ``fleet_bruteforce`` does not port yet (it raises)."""
+    response over the candidate set), so ``counts`` is ignored."""
 
     def decisions(self, counts, scen: FleetScenario):
         self._check(scen)
@@ -644,6 +688,11 @@ class FleetOrchestrator:
 
     def __init__(self, policy):
         self.policy = policy
+
+    @property
+    def agent(self):
+        """Pre-redesign attribute name for the routed policy."""
+        return self.policy
 
     # ------------------------------------------------------------------
     def _predicted_per_user_ms(self, dec, scen: FleetScenario):

@@ -85,22 +85,84 @@ def _tables(device: torch.device, dtype: torch.dtype = torch.float32) -> dict:
     """The constant tables in ``dtype`` on ``device``, built once per
     (device, dtype) (a host-to-device copy inside the loop would stall the
     stream)."""
+    with _real_tensors():
+        return _build_tables(device, dtype)
+
+
+def _build_tables(device, dtype) -> dict:
     typed = functools.partial(torch.tensor, dtype=dtype)
     macs = typed(MACS)
     t_comp = torch.where(torch.tensor(IS_INT8), A_INT8 + B_INT8 * macs,
                          A_FP32 + B_FP32 * macs)
     tabs = {"t_orch": typed(T_ORCH_MS), "t_up_edge": typed(T_UP_EDGE_MS),
             "t_hop_cloud": typed(T_HOP_CLOUD_MS), "top5": typed(TOP5),
+            # d0's time, the offloaded tiers' compute: a constant, which
+            # XLA folds with two roundings
+            "t_comp0": t_comp[0],
             "t_comp": t_comp, "mem_penalty": typed(MEM_BUSY_PENALTY)}
-    tabs = {k: v.to(device) for k, v in tabs.items()}
-    # The link capacities divide the job counts. PyTorch's CUDA division
-    # by a Python number multiplies by its reciprocal, which 1.3 and 2.4
-    # lack exactly; in float64 they divide as device tensors, so the card
-    # gives numpy's quotient. Float32 keeps the fleet path's division.
-    caps = {"edge_link_cap": EDGE_LINK_CAP, "cloud_link_cap": CLOUD_LINK_CAP}
-    if dtype == torch.float64:
-        caps = {k: typed(v).to(device) for k, v in caps.items()}
-    return {**tabs, **caps}
+    if dtype == torch.float32:
+        # the local models' times, gathered at run time under jit, where
+        # XLA contracts A + B * macs into one fused multiply-add
+        i8 = torch.tensor(IS_INT8)
+        tabs["t_comp"] = fma(torch.where(i8, typed(B_INT8), typed(B_FP32)),
+                             macs, torch.where(i8, typed(A_INT8),
+                                               typed(A_FP32)))
+    return {k: v.to(device) for k, v in tabs.items()}
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """``a * b + c`` as the path's reference rounds it. The float32 fleet
+    path's reference runs under ``jax.jit``, and XLA's CPU compiler (as
+    of JAX/jaxlib 0.9.0, the version the parity tests pin) contracts a
+    product that feeds a sum into one fused multiply-add:
+    one rounding, emulated here in float64 (the product of two float32
+    values is exact there, and so is its sum with ``c`` at this model's
+    magnitudes). The float64 path rounds twice, as numpy does.
+
+    Two launches, as many as the unfused ``a * b + c``: ``c`` in float64
+    makes ``addcmul`` compute in float64 (``a`` and ``b`` are widened as
+    they are read), and the float32 ``out`` takes the one rounding as
+    the result is stored (an empty ``out`` takes the broadcast shape)."""
+    if a.dtype != torch.float32:
+        return a * b + c
+    out = torch.empty(0, dtype=torch.float32, device=a.device)
+    return torch.addcmul(c.double(), a, b, out=out)
+
+
+def div_const(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` for a constant ``c``, rounded as the path's reference
+    rounds it, on every device. Float32 is the fleet path, whose
+    reference runs under ``jax.jit``: XLA folds a division by a constant
+    into a product with its float32 reciprocal. Float64 is the
+    single-cell environment, whose reference is numpy: the true
+    quotient. A bare Python divisor gives neither everywhere: PyTorch's
+    CUDA kernel multiplies by the reciprocal, its CPU kernel divides."""
+    if x.dtype == torch.float32:
+        return x * _reciprocal32(c)
+    return x / _divisor(x.device, x.dtype, float(c))
+
+
+@functools.lru_cache(maxsize=None)
+def _reciprocal32(c: float) -> float:
+    """``1 / c`` rounded to float32, as XLA folds it."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+@functools.lru_cache(maxsize=None)
+def _divisor(device: torch.device, dtype: torch.dtype, c: float):
+    """``c`` as a 0-d tensor on ``device``, built once (a tensor on the
+    card divides there; a CPU scalar would be multiplied by its
+    reciprocal)."""
+    with _real_tensors():
+        return torch.tensor(c, dtype=dtype).to(device)
+
+
+def _real_tensors():
+    """A context in which new tensors are real even while a
+    ``FakeTensorMode`` is active (``obs.prof`` traces the fleet steps
+    under one), so the cached constants never hold fake tensors."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    return unset_fake_temporarily()
 
 
 def t_comp_device(model_id, dtype=torch.float32) -> torch.Tensor:
@@ -151,10 +213,10 @@ def _counts(at_edge, at_cloud, counts):
             torch.as_tensor(counts[1], device=dev)[..., None])
 
 
-#: per tier: the table key of its link capacity, and the job count above
-#: which its memory is busy
-_TIER_LIMITS = {"E": ("edge_link_cap", EDGE_MEM_BUSY_AT),
-                "C": ("cloud_link_cap", CLOUD_MEM_BUSY_AT)}
+#: per tier: its link capacity, and the job count above which its memory
+#: is busy
+_TIER_LIMITS = {"E": (EDGE_LINK_CAP, EDGE_MEM_BUSY_AT),
+                "C": (CLOUD_LINK_CAP, CLOUD_MEM_BUSY_AT)}
 
 
 def _factors(n, tier, tab):
@@ -162,8 +224,8 @@ def _factors(n, tier, tab):
     ``tier`` ("E" or "C"), in the type of the tables ``tab``."""
     cap, busy_at = _TIER_LIMITS[tier]
     n = n.to(tab["t_comp"].dtype)
-    cpu = torch.clamp(n / TIER_CORES[tier], min=1.0)
-    link = torch.clamp(n / tab[cap], min=1.0)
+    cpu = torch.clamp(n / TIER_CORES[tier], min=1.0)   # 2, 4: exact
+    link = torch.clamp(div_const(n, cap), min=1.0)
     mem = torch.where(n > busy_at, tab["mem_penalty"], 1.0)
     return cpu, link, mem
 
@@ -201,19 +263,27 @@ def response_times(per_user, end_b, edge_b, *, counts=None, active=None,
     # edge: upload (shared link) + d0 at edge speed (processor sharing),
     # memory-busy penalty on the compute term
     up_e = tab["t_up_edge"][end_b]
-    comp_e = tab["t_comp"][0] / TIER_SPEED["E"]
+    comp_e = tab["t_comp0"] / TIER_SPEED["E"]
     cpu_e, link_e, mem_e = _factors(n_e, "E", tab)
-    t_e = up_e * link_e + comp_e * cpu_e * mem_e
+    t_e = fma(up_e, link_e, comp_e * cpu_e * mem_e)
     t = t + torch.where(at_edge, t_e, 0.0)
     # cloud: upload + edge->cloud hop (shared) + d0 at cloud speed
-    comp_c = tab["t_comp"][0] / TIER_SPEED["C"]
+    comp_c = tab["t_comp0"] / TIER_SPEED["C"]
     cpu_c, link_c, mem_c = _factors(n_c, "C", tab)
     hop_c = tab["t_hop_cloud"][edge_b][..., None] * link_c
-    comp_term = comp_c * cpu_c * mem_c
-    if cloud_mult is not None:
+    comp_term = comp_c * cpu_c
+    if cloud_mult is None:
+        a_c, b_c = comp_term, mem_c
+    else:
         hop_c = hop_c * cloud_mult
-        comp_term = comp_term * cloud_mult
-    t_c = up_e * link_c + hop_c + comp_term
+        a_c, b_c = comp_term * mem_c, cloud_mult
+    t_c = fma(up_e, link_c, hop_c)
+    # the compute term's last product joins the sum in one fused op only
+    # where no user axis separates them: XLA hoists a cell's terms out of
+    # its loop over more than one user, and no fused multiply-add spans
+    # that boundary
+    t_c = fma(a_c, b_c, t_c) if per_user.shape[-1] == 1 else \
+        t_c + a_c * b_c
     t = t + torch.where(at_cloud, t_c, 0.0)
     if active is not None:
         t = torch.where(active, t, 0.0)
@@ -241,18 +311,18 @@ def response_components(per_user, end_b, edge_b, *, counts=None,
     comp = torch.where(local, tab["t_comp"][
         torch.where(local, per_user, 0).long()], 0.0)
     up_e = tab["t_up_edge"][end_b]
-    comp_e = tab["t_comp"][0] / TIER_SPEED["E"]
+    comp_e = tab["t_comp0"] / TIER_SPEED["E"]
     cpu_e, link_e, mem_e = _factors(n_e, "E", tab)
     comm = comm + torch.where(at_edge, up_e * link_e, 0.0)
     comp = comp + torch.where(at_edge, comp_e * cpu_e * mem_e, 0.0)
-    comp_c = tab["t_comp"][0] / TIER_SPEED["C"]
+    comp_c = tab["t_comp0"] / TIER_SPEED["C"]
     cpu_c, link_c, mem_c = _factors(n_c, "C", tab)
     hop_c = tab["t_hop_cloud"][edge_b][..., None] * link_c
     comp_term = comp_c * cpu_c * mem_c
     if cloud_mult is not None:
         hop_c = hop_c * cloud_mult
         comp_term = comp_term * cloud_mult
-    comm = comm + torch.where(at_cloud, up_e * link_c + hop_c, 0.0)
+    comm = comm + torch.where(at_cloud, fma(up_e, link_c, hop_c), 0.0)
     comp = comp + torch.where(at_cloud, comp_term, 0.0)
     if active is not None:
         comm = torch.where(active, comm, 0.0)
@@ -271,10 +341,20 @@ def calibrated_response_times(per_user, end_b, edge_b, calib, *,
     tier = user_tier(per_user).long()
     scale = calib.compute_scale.to(comm.device)[tier]
     off = calib.hop_offset_ms.to(comm.device)[tier]
-    t = torch.clamp(comm + off + scale * comp, min=0.0)
+    t = torch.clamp(fma(scale, comp, comm + off), min=0.0)
     if active is not None:
         t = torch.where(active, t, 0.0)
     return t
+
+
+def sum_users(x) -> torch.Tensor:
+    """Sum over the last (user) axis, left to right: one order on every
+    device (PyTorch's CPU and CUDA reductions group a short row
+    differently), the order of XLA's and numpy's short-row sums."""
+    first, *rest = x.unbind(-1)
+    for part in rest:
+        first = first + part
+    return first
 
 
 def expected_response(per_user, end_b, edge_b, *, active=None, counts=None,
@@ -287,11 +367,12 @@ def expected_response(per_user, end_b, edge_b, *, active=None, counts=None,
                        cloud_mult=cloud_mult, calib=calib)
     acc = accuracies(per_user)
     if active is None:
-        return t.mean(-1), acc.mean(-1)
+        return (div_const(sum_users(t), t.shape[-1]),
+                div_const(sum_users(acc), t.shape[-1]))
     n = torch.clamp(active.sum(-1), min=1)
-    mean_acc = torch.where(active, acc, 0.0).sum(-1) / n
+    mean_acc = sum_users(torch.where(active, acc, 0.0)) / n
     mean_acc = torch.where(active.any(-1), mean_acc, 100.0)
-    return t.sum(-1) / n, mean_acc
+    return sum_users(t) / n, mean_acc
 
 
 def feasible(mean_acc, threshold):
@@ -307,10 +388,15 @@ def reward(mean_ms, mean_acc, threshold):
     else the -MAX_RESPONSE_MS floor; scaled to ~[-2.5, 0]. Takes tensors
     or, as the single-cell environment passes them, numpy values."""
     if isinstance(mean_ms, torch.Tensor):
-        return torch.where(feasible(mean_acc, threshold), -mean_ms,
-                           -MAX_RESPONSE_MS) / 1000.0
+        return ms_to_s(torch.where(feasible(mean_acc, threshold), -mean_ms,
+                                   -MAX_RESPONSE_MS))
     return np.where(feasible(mean_acc, threshold), -np.asarray(mean_ms),
                     -MAX_RESPONSE_MS) / 1000.0
+
+
+def ms_to_s(ms: torch.Tensor) -> torch.Tensor:
+    """``ms / 1000`` as the reference rounds it (``div_const``)."""
+    return div_const(ms, 1000.0)
 
 
 def cell_response_times(per_user, end_b, edge_b, dtype=torch.float32):

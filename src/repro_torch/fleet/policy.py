@@ -1,15 +1,18 @@
 """Fleet-scale shared-policy DQN: one network, pooled experience — the
-port of ``repro/fleet/policy.py`` with the weight-shared per-user
-encoder (``net='shared'``).
+port of ``repro/fleet/policy.py``, with the weight-shared per-user
+encoder (``net='shared'``, the default) and the reference's ablation
+form, one flat-state trunk through ``core.networks.make_factored_q``
+(``net='cell'``).
 
 One MLP maps each user's local view (own request bit, membership, link
 state, plus eight cell aggregates) to that user's ten action values; the
 fleet's pooled transitions feed one on-device replay ring and one AdamW
 step per fleet step, the loss under torch autograd. Acting, greedy
-routing and evaluation go through the fused head
+routing and evaluation of the shared encoder go through the fused head
 (``kernels.ops.dqn_head``): features, MLP, allowed mask and — with a QoS
 goal — the top-k combination filter against the Table-4 accuracy
-ladder, in one CUDA kernel on the card.
+ladder, in one CUDA kernel on the card. The ``'cell'`` net takes the
+unfused greedy, the same filter in torch ops, as the reference does.
 
 The regression target is the summed (not mean) response over active
 users, un-floored (see the reference's module docstring); the reported
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core.networks import mlp_apply, mlp_init
+from repro_torch.core.networks import make_factored_q, mlp_apply, mlp_init
 from repro_torch.core.spaces import (N_PER_USER_ACTIONS, SpaceSpec,
                                      allowed_per_user)
 from repro_torch.fleet import dynamics
@@ -39,7 +42,7 @@ from repro_torch.fleet.replay import (replay_init, replay_push, replay_sample,
                                       replay_size)
 from repro_torch.fleet.scenarios import FleetConfig, FleetScenario
 from repro_torch.fleet.topology import _segment_totals
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.rng import Draws
 from repro_torch.training.optimizer import (apply_updates, constant_lr_adamw,
                                             init_opt_state)
@@ -67,7 +70,8 @@ def _topo_features(counts, scen: FleetScenario):
         cap_cell = topo.edge_capacity[ce]
         edge_load = (tot[ce] / cap_cell)[:, None] * inv
         cap = cap_cell[:, None]
-        util = (counts_f[:, 1].sum() / topo.cloud_servers).expand(
+        used = counts_f[:, 1].sum()
+        util = (used / torch.full_like(used, topo.cloud_servers)).expand(
             scen.cells, 1)
     return edge_load.to(torch.float32), cap, util
 
@@ -108,8 +112,8 @@ def make_shared_per_user_q(users: int, allowed: torch.Tensor):
         n_act = act.sum(-1, keepdim=True)
         weak = (end * act).sum(-1, keepdim=True) / torch.clamp(n_act,
                                                                min=1.0)
-        agg = torch.cat([cell[:, :1], n_act / n, cell[:, 1:], weak,
-                         topo_f], -1)              # (B, 8)
+        agg = torch.cat([cell[:, :1], dynamics.div_const(n_act, n),
+                         cell[:, 1:], weak, topo_f], -1)    # (B, 8)
         f = torch.cat([act[..., None], mem[..., None], end[..., None],
                        agg[:, None, :].expand(s.shape[0], n, 8)], -1)
         q = mlp_apply(params, f.reshape(-1, N_USER_FEATURES))
@@ -131,7 +135,8 @@ def fused_head_features(counts, scen: FleetScenario):
     n_act = act.sum(-1, keepdim=True)
     weak = (end * act).sum(-1, keepdim=True) / torch.clamp(n_act, min=1.0)
     agg = torch.cat(
-        [scen.edge_b[:, None].to(torch.float32), n_act / scen.users,
+        [scen.edge_b[:, None].to(torch.float32),
+         dynamics.div_const(n_act, scen.users),
          counts_f * inv, weak, edge_load, cap, util], -1)  # (cells, 8)
     return act, scen.member.to(torch.float32), end, agg.contiguous()
 
@@ -174,7 +179,7 @@ class FleetDQNConfig:
     noise: float = 0.02
     accuracy_threshold: float = 0.0   # QoS goal (paper Eq. 4)
     topk: int = 5                     # constraint head's per-user top-k
-    net: str = "shared"               # only 'shared' is ported
+    net: str = "shared"               # 'shared' | 'cell' (module doc)
 
 
 class FleetDQN:
@@ -206,10 +211,9 @@ class FleetDQN:
         per-window ring (``window_len`` steps per slot) to every
         stream."""
         self.cfg = cfg or FleetDQNConfig()
-        if self.cfg.net != "shared":
-            raise NotImplementedError(
-                f"FleetDQN(net={self.cfg.net!r}) is not ported yet; "
-                "repro_torch has the weight-shared 'shared' encoder")
+        if self.cfg.net not in ("shared", "cell"):
+            raise ValueError(f"unknown net form {self.cfg.net!r} "
+                             "(expected 'shared' or 'cell')")
         self.device = resolve_device(device)
         self.draws = draws if draws is not None else Draws(seed, self.device)
         scen, self.source = resolve_source(scen, fleet_cfg, self.draws)
@@ -229,12 +233,18 @@ class FleetDQN:
                                      device=dev)
         self.state_dim = state_dim(users)
         h = self.cfg.hidden
-        self.params = mlp_init(self.draws,
-                               [N_USER_FEATURES, h, h, N_PER_USER_ACTIONS])
+        if self.cfg.net == "shared":
+            self.params = mlp_init(
+                self.draws, [N_USER_FEATURES, h, h, N_PER_USER_ACTIONS])
+            self._per_user_q = make_shared_per_user_q(users, self.allowed)
+        else:
+            self.params = mlp_init(
+                self.draws, [self.state_dim, h, h,
+                             users * N_PER_USER_ACTIONS])
+            self._per_user_q = make_factored_q(users, self.allowed)
         for p in self.params:
             for t in p.values():
                 t.requires_grad_(True)
-        self._per_user_q = make_shared_per_user_q(users, self.allowed)
         self.opt = init_opt_state(self.params)
         self.buffer = replay_init(self.cfg.replay_capacity, self.state_dim,
                                   action_shape=(users,), device=dev)
@@ -266,54 +276,72 @@ class FleetDQN:
 
     # ---------------------------------------------------------- policy ----
     def _greedy(self, counts, scen):
-        """The fused encode/act head: ((cells, N) decisions, (cells,)
-        joint action ids)."""
-        act, mem, end, agg = fused_head_features(counts, scen)
+        """The greedy head: ((cells, N) decisions, (cells,) joint action
+        ids). The shared encoder's is the fused encode/act head (K2 on
+        the card); the ``'cell'`` net's is the reference's unfused
+        constraint-aware greedy in torch ops on either device."""
+        kw = dict(threshold=float(self.cfg.accuracy_threshold),
+                  topk=min(self.cfg.topk, N_PER_USER_ACTIONS))
         with torch.no_grad():
-            dec, _ = ops.dqn_head(
-                act, mem, end, agg, self.params, self.allowed,
-                self._acc_table,
-                threshold=float(self.cfg.accuracy_threshold),
-                topk=min(self.cfg.topk, N_PER_USER_ACTIONS))
+            if self.cfg.net == "shared":
+                act, mem, end, agg = fused_head_features(counts, scen)
+                dec, _ = ops.dqn_head(act, mem, end, agg, self.params,
+                                      self.allowed, self._acc_table, **kw)
+            else:
+                q = self._per_user_q(self.params,
+                                     encode_fleet_state(counts, scen))
+                # the per-user top-k in the stable order (values
+                # descending, ties by ascending id), as the plain K2
+                # takes it. lax.top_k orders tied ids otherwise, but they
+                # tie only as -1e30-masked ids, whose combos the invalid
+                # cull removes, so the decisions are the reference's
+                dec = ref.greedy_head_ref(q, scen.member.to(torch.float32),
+                                          self._acc_table, **kw)
         return dec, (dec.long() * self._powers[None, :]).sum(-1)
 
-    def _act(self, counts, scen, eps_t):
+    def _act(self, counts, scen, eps_t, draws=None):
         """eps-greedy over the factored head: an exploring user draws a
-        uniform allowed action."""
+        uniform allowed action (``draws``: default the agent's)."""
+        draws = draws or self.draws
         users = self.spec.n_users
         dec, _ = self._greedy(counts, scen)
         shape = (scen.cells, users)
-        j = (self.draws.uniform("explore_action", shape)
+        j = (draws.uniform("explore_action", shape)
              * self._n_allowed[None, :]).to(torch.int64)
         rand = self._explore_ids[torch.arange(users, device=self.device)
                                  [None, :], j]
-        explore = self.draws.uniform("explore", shape) < eps_t
+        explore = draws.uniform("explore", shape) < eps_t
         return torch.where(explore, rand, dec.long())
 
     # ------------------------------------------------------------ train ---
-    def _loss(self, s, a, r, s2):
+    def _loss(self, params, s, a, r, s2):
         """Per-user terms masked by the request bits stored in the state
         (inactive users' actions had no effect)."""
         users = self.spec.n_users
         act_m, act2_m = s[:, :users], s2[:, :users]
-        q = self._per_user_q(self.params, s)              # (B, N, A)
+        q = self._per_user_q(params, s)                   # (B, N, A)
         qa = (q.gather(2, a.long()[..., None])[..., 0] * act_m).sum(-1)
         with torch.no_grad():
-            q2 = (self._per_user_q(self.params, s2).max(-1).values
+            q2 = (self._per_user_q(params, s2).max(-1).values
                   * act2_m).sum(-1)
         target = r + self.cfg.gamma * q2
         return torch.mean((qa - target) ** 2)
 
-    def train_step(self, s, a, r, s2):
-        """One mini-batch AdamW step on ``(s, a, r, s2)``; returns the
-        loss (a 0-d tensor)."""
-        loss = self._loss(s, a, r, s2)
-        leaves = [p[k] for p in self.params for k in ("w", "b")]
+    def _update(self, params, opt, s, a, r, s2):
+        """One AdamW step of ``params`` and ``opt`` (in place) on the
+        mini-batch; returns the loss (a 0-d tensor)."""
+        loss = self._loss(params, s, a, r, s2)
+        leaves = [p[k] for p in params for k in ("w", "b")]
         grads = torch.autograd.grad(loss, leaves)
         grad_tree = [{"w": grads[2 * i], "b": grads[2 * i + 1]}
-                     for i in range(len(self.params))]
-        apply_updates(self.params, grad_tree, self.opt, self._opt_cfg)
+                     for i in range(len(params))]
+        apply_updates(params, grad_tree, opt, self._opt_cfg)
         return loss.detach()
+
+    def train_step(self, s, a, r, s2):
+        """One mini-batch AdamW step of the agent on ``(s, a, r, s2)``;
+        returns the loss (a 0-d tensor)."""
+        return self._update(self.params, self.opt, s, a, r, s2)
 
     def _step(self, eps_t):
         cfg, scen = self.cfg, self.scen
@@ -322,7 +350,7 @@ class FleetDQN:
         mean_ms, acc, counts2 = simulate_responses(self.draws, scen, a,
                                                    cfg.noise)
         # regression target: summed (not mean) response, no floor
-        r_train = -(mean_ms * scen.active.sum(-1)) / 1000.0
+        r_train = dynamics.ms_to_s(-(mean_ms * scen.active.sum(-1)))
         scen2, _ = self.source.step(self.draws, scen)
         s2 = encode_fleet_state(counts2, scen2)
         replay_push(self.buffer, s, a, r_train, s2)

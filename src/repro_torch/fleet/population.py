@@ -12,8 +12,10 @@ telemetry into a ``repro_torch.obs`` accumulator (``fleet_metrics``).
 
 ``fleet_bruteforce`` evaluates every candidate action for every cell in
 chunks, and ``train_against_oracle`` scores per-cell convergence
-against it. Coupled fleets (an attached topology) need the reference's
-best-response oracle, which is not ported yet.
+against it. On a coupled fleet (an attached topology) it dispatches to
+``topology_bruteforce``, best response by Gauss-Seidel rounds over the
+cells, each round one op (``kernels.ops.best_response_round``: on the
+card the CUDA kernel ``csrc/best_response.cu``).
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from repro_torch.core.spaces import (A_CLOUD, A_EDGE, SpaceSpec,
 from repro_torch.fleet import dynamics, topology
 from repro_torch.fleet.scenarios import FleetConfig, FleetScenario
 from repro_torch.kernels import ops
+from repro_torch.kernels.best_response import (BEST_RESPONSE_TOL,  # noqa: F401
+                                                pack_actions)
 from repro_torch.kernels.ref import first_argmax_ref
 from repro_torch.obs.metrics import MetricDef, MetricsAccumulator
 from repro_torch.obs.report import run_manifest
@@ -146,6 +150,21 @@ def nominal_expected_response(scen: FleetScenario, per_user):
         calib=scen.calib)
 
 
+def make_fleet_env_step(source, threshold: float = 0.0,
+                        noise: float = 0.02):
+    """Per-step fleet environment transition over any ``ScenarioSource``:
+    ``env_step(draws, scen, per_user) -> (scen2, counts2, mean_ms,
+    mean_acc, reward)`` (``api.make_env_step``). A bare ``FleetConfig``
+    raises, as in the reference: wrap it in a ``SyntheticSource``."""
+    from repro_torch.fleet.api import make_env_step
+    if isinstance(source, FleetConfig):
+        raise TypeError(
+            "make_fleet_env_step(FleetConfig) was removed; wrap the "
+            "config: make_fleet_env_step(repro_torch.fleet.api."
+            "SyntheticSource(cfg)) — bit-identical results")
+    return make_env_step(source, threshold=threshold, noise=noise)
+
+
 def default_actions(spec: SpaceSpec) -> np.ndarray:
     """Full joint space for N <= 3, the SOTA-restricted offloading set
     above."""
@@ -241,10 +260,11 @@ class FleetQLearning:
                       s.long()]
         return first_argmax_ref(rows)
 
-    def _explore(self, greedy, eps_t):
-        """One uniform drives both the explore decision and, given
-        ``u < eps``, the (still uniform) random action ``u / eps``."""
-        u = self.draws.uniform("explore", greedy.shape)
+    def _explore(self, greedy, eps_t, draws=None):
+        """One uniform (from ``draws``, default the agent's) drives both
+        the explore decision and, given ``u < eps``, the (still uniform)
+        random action ``u / eps``."""
+        u = (draws or self.draws).uniform("explore", greedy.shape)
         eps_b = eps_t.expand_as(u)      # elementwise true division below
         rand = torch.clamp((u / torch.clamp(eps_b, min=1e-9)
                             * self.n_actions).to(torch.int32),
@@ -437,15 +457,15 @@ def fleet_bruteforce(scen: FleetScenario, pu_table: torch.Tensor,
     """Per-cell optimum over the candidate action table under nominal
     load. Returns ((cells,) best ms, (cells,) best index).
 
-    Coupled fleets (an attached ``scen.topo``) need the reference's
-    best-response ``topology_bruteforce``, which the port does not have
-    yet: such a scenario raises instead of getting a wrong optimum."""
+    Isolated fleets get the exact chunked brute force; with an attached
+    ``scen.topo`` cells couple through shared edges and the cloud queue,
+    so this dispatches to the best-response ``topology_bruteforce`` —
+    same return contract, so ``train_against_oracle`` and
+    ``holdout_reward_ratio`` work on either fleet kind."""
     if scen.topo is not None:
-        raise NotImplementedError(
-            "fleet_bruteforce on a scenario with a topology needs the "
-            "coupled best-response oracle (topology_bruteforce), which "
-            "repro_torch does not port yet; detach it with "
-            "with_topology(scen, None) for the isolated optimum")
+        ms, idx, _, _ = topology_bruteforce(scen, pu_table, threshold,
+                                            chunk=chunk)
+        return ms, idx
     return _isolated_bruteforce(scen, pu_table, threshold, chunk)
 
 
@@ -471,3 +491,88 @@ def _isolated_bruteforce(scen: FleetScenario, pu_table: torch.Tensor,
         raise ValueError("no feasible action for threshold %.2f in %d cells"
                          % (threshold, n_inf))
     return best_ms, best_idx
+
+
+def _best_response_round(idx, pu_table, end_b, edge_b, member, feas,
+                         cand_e, cand_c, cell_edge, edge_capacity,
+                         cloud_servers, calib=None, packed=None):
+    """One Gauss-Seidel sweep: each cell in turn picks its best feasible
+    candidate given every other cell's current decision, with running
+    per-edge / cloud totals updated as it goes. ``feas`` / ``cand_e`` /
+    ``cand_c`` are the (cells, K) round-invariant tables built by
+    ``topology_bruteforce``, ``packed`` the candidates in the kernel's
+    form. Returns ``(new_idx, changed)``."""
+    return ops.best_response_round(idx, pu_table, end_b, edge_b, member,
+                                   feas, cand_e, cand_c, cell_edge,
+                                   edge_capacity, cloud_servers, calib,
+                                   packed)
+
+
+def _candidate_tables(scen: FleetScenario, pu_table, threshold: float,
+                      chunk: int):
+    """The round-invariant (cells, K) tables on the scenario's device,
+    built chunked over K: feasibility of each candidate's mean member
+    accuracy (float64, the reference's numpy arithmetic, users summed
+    left to right) and its edge / cloud offload counts among members."""
+    member = scen.member
+    cells, k = member.shape[0], pu_table.shape[0]
+    dev = scen.device
+    nm = torch.clamp(member.sum(-1), min=1).to(torch.float64)[:, None]
+    any_m = member.any(-1)[:, None]
+    feas = torch.empty((cells, k), dtype=torch.bool, device=dev)
+    cand_e = torch.empty((cells, k), dtype=torch.int32, device=dev)
+    cand_c = torch.empty((cells, k), dtype=torch.int32, device=dev)
+    for lo in range(0, k, chunk):
+        pu = pu_table[lo:lo + chunk].to(dev)                   # (k, N)
+        acc = dynamics.accuracies(pu, dtype=torch.float64)
+        m = member[:, None, :]
+        macc = torch.where(any_m, dynamics.sum_users(
+            torch.where(m, acc[None], 0.0)) / nm, 100.0)
+        feas[:, lo:lo + chunk] = dynamics.feasible(macc, threshold)
+        cand_e[:, lo:lo + chunk] = ((pu[None] == A_EDGE) & m).sum(-1)
+        cand_c[:, lo:lo + chunk] = ((pu[None] == A_CLOUD) & m).sum(-1)
+    return feas, cand_e, cand_c
+
+
+def topology_bruteforce(scen: FleetScenario, pu_table: torch.Tensor,
+                        threshold: float = 0.0, max_rounds: int = 50,
+                        chunk: int = 4096):
+    """Coupled-fleet oracle: coordinate descent by best response.
+
+    Starting from the isolated optimum, sweeps the fleet in Gauss-Seidel
+    rounds (each cell best-responds to every other cell's current
+    decision; feasibility depends only on a cell's own action, so the
+    filter is exact) until a full round changes nothing — a pure
+    equilibrium of the congestion game — or ``max_rounds`` sweeps.
+
+    Returns ``((cells,) ms, (cells,) index, converged, rounds)``: ``ms``
+    each cell's nominal-load expected response under shared contention,
+    ``converged`` the fixed-point check (False: a best-response cycle
+    cut off at ``max_rounds``, the last sweep returned). Without a
+    topology this is the isolated oracle (converged in 0 rounds)."""
+    if scen.topo is None:
+        ms, idx = _isolated_bruteforce(scen, pu_table, threshold, chunk)
+        return ms, idx, True, 0
+    # the isolated optimum starts the sweep (and raises on an infeasible
+    # threshold: feasibility does not depend on contention)
+    _, idx = _isolated_bruteforce(scen, pu_table, threshold, chunk)
+    feas, cand_e, cand_c = _candidate_tables(scen, pu_table, threshold,
+                                             chunk)
+    topo = scen.topo
+    pu = pu_table.to(scen.device)
+    packed = pack_actions(pu)          # once for every round
+    end_b, edge_b = scen.end_b.to(torch.int32), scen.edge_b.to(torch.int32)
+    converged, rounds = False, 0
+    for rounds in range(1, max_rounds + 1):
+        new_idx, changed = _best_response_round(
+            idx, pu, end_b, edge_b, scen.member, feas, cand_e, cand_c,
+            topo.cell_edge, topo.edge_capacity, topo.cloud_servers,
+            calib=scen.calib, packed=packed)
+        if not bool(changed):
+            converged = True
+            break
+        idx = new_idx
+    ms, _ = topology.fleet_topology_expected_response(
+        pu[idx.long()], scen.end_b, scen.edge_b, topo, scen.member,
+        calib=scen.calib)
+    return ms, idx, converged, rounds

@@ -130,8 +130,11 @@ def _segment_totals(values, segments, n_segments: int) -> torch.Tensor:
 def cloud_load_multiplier(n_cloud_total, cloud_servers):
     """M/M/c-style queueing inflation: ``rho = n_cloud_total /
     cloud_servers`` maps to ``1 / (1 - rho)`` clipped to ``[1,
-    CLOUD_QUEUE_MAX]``; an infinite queue gives exactly 1.0."""
-    rho = n_cloud_total / cloud_servers
+    CLOUD_QUEUE_MAX]``; an infinite queue gives exactly 1.0. The queue
+    size divides as a float32 tensor, so the card's quotient is the
+    reference's (a Python divisor is multiplied by its reciprocal)."""
+    n = torch.as_tensor(n_cloud_total).to(torch.float32)
+    rho = n / torch.full_like(n, cloud_servers)
     m = 1.0 / torch.clamp(1.0 - rho, min=1.0 / CLOUD_QUEUE_MAX)
     return torch.clamp(m, 1.0, CLOUD_QUEUE_MAX)
 
@@ -149,7 +152,7 @@ def shared_contention(per_user, topo: Topology, active=None):
     edge_tot = _segment_totals(e_cnt, topo.cell_edge, topo.n_edges)
     ce = topo.cell_edge.long()
     n_e_eff = edge_tot[ce] / topo.edge_capacity[ce]
-    mult = cloud_load_multiplier(c_cnt.sum().float(), topo.cloud_servers)
+    mult = cloud_load_multiplier(c_cnt.sum(), topo.cloud_servers)
     return n_e_eff, c_cnt, mult
 
 

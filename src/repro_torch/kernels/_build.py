@@ -96,6 +96,18 @@ class CudaKernel:
             self.launches += 1
 
 
+#: the active cost counters (``obs.prof``): each is called with (kernel
+#: name, operations, bytes) when an op meets FakeTensors and launches
+#: nothing
+COST_SINKS: list = []
+
+
+def record_cost(name: str, ops: int, nbytes: int) -> None:
+    """Hand one kernel call's cost to every active cost counter."""
+    for sink in COST_SINKS:
+        sink(name, ops, nbytes)
+
+
 def build(kernels) -> float:
     """Compile every stale kernel, one ``nvcc`` per source, all started
     together. Returns the wall seconds the build took; raises with the

@@ -96,3 +96,11 @@ def decode_attention_cuda(q, k_cache, v_cache, bias):
                   bias.data_ptr(), ws.data_ptr(), o.data_ptr(), b, s, h,
                   n_kv, hd, span, 1.0 / math.sqrt(hd), DTYPES[q.dtype])
     return o
+
+
+def cost(b: int, h: int, n_kv: int, hd: int, slots: int, elem: int):
+    """(operations, bytes) of one call — the arithmetic of the bound in
+    ``PERF.md`` §6: both caches read whole, q and o, the float32 bias
+    row; 2 * 2 * hd per (head, slot)."""
+    return 4 * hd * b * h * slots, (2 * elem * b * slots * n_kv * hd
+                                    + 2 * elem * b * h * hd + 4 * b * slots)

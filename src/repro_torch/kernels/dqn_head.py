@@ -114,3 +114,23 @@ def dqn_head_cuda(active, member, end_b, agg, w1, b1, w2, b2, w3, b3,
         acc_table, dec, q)), None if x_min is None else x_min.ctypes.data,
         cells, users, n_agg, hidden, n_act, int(bool(threshold)), int(topk))
     return dec, q
+
+
+def cost(cells: int, users: int, n_agg: int, hidden: int, n_act: int,
+         threshold: float, topk: int):
+    """(FP32 operations, bytes) of one call — the arithmetic of the bound
+    in ``PERF.md`` §6: per user row the (3 + n_agg) -> H -> H -> A MLP;
+    with a goal two operations per user of each of the ``topk^N``
+    combinations of every cell (the search over all of them; the kernel
+    skips digits a mask excludes). Bytes: the per-user and cell inputs,
+    the weights, mask and ladder read once, decisions and values out."""
+    rows = cells * users
+    n_feat = 3 + n_agg
+    ops = rows * 2 * (n_feat * hidden + hidden * hidden + hidden * n_act)
+    if threshold:
+        ops += cells * topk ** users * users * 2
+    n_params = (n_feat * hidden + hidden + hidden * hidden + hidden
+                + hidden * n_act + n_act)
+    nbytes = (rows * 3 * 4 + cells * n_agg * 4 + 4 * n_params
+              + 4 * n_act * (users + 1) + rows * 4 + rows * n_act * 4)
+    return ops, nbytes

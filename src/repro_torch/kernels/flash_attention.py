@@ -67,3 +67,19 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
                   sq, skv, h, n_kv, hd, int(bool(causal)), int(window),
                   skv - sq, 1.0 / math.sqrt(hd), DTYPES[q.dtype])
     return o
+
+
+def cost(b: int, sq: int, skv: int, h: int, n_kv: int, hd: int,
+         elem: int, *, causal: bool = True, window: int = 0):
+    """(operations, bytes) of one call — the arithmetic of the bound in
+    ``PERF.md`` §6: 2 * 2 * hd per (q, k) pair the mask keeps (q
+    right-aligned against the kv sequence), q, k, v read and o written
+    once at ``elem`` bytes a value."""
+    q_pos = torch.arange(sq, dtype=torch.int64) + (skv - sq)
+    hi = torch.clamp(q_pos, max=skv - 1) if causal else \
+        torch.full_like(q_pos, skv - 1)
+    lo = torch.clamp(q_pos - window + 1, min=0) if window else \
+        torch.zeros_like(q_pos)
+    pairs = int(torch.clamp(hi - lo + 1, min=0).sum())
+    return 4 * hd * b * h * pairs, elem * b * hd * (2 * sq * h
+                                                     + 2 * skv * n_kv)

@@ -102,3 +102,10 @@ def int8_matmul_cuda(x_q, sx, w_q, sw, out_dtype=torch.float32):
                   sw.data_ptr(), out.data_ptr(), m, n, k, bm, bn,
                   OUT_DTYPES[out_dtype])
     return out
+
+
+def cost(m: int, k: int, n: int, out_elem: int):
+    """(int8 operations, bytes) of one call — the arithmetic of the bound
+    in ``PERF.md`` §6: x, w and both scales read once, the output written
+    once at ``out_elem`` bytes a value."""
+    return 2 * m * k * n, m * k + k * n + 4 * (m + n) + out_elem * m * n

@@ -83,3 +83,15 @@ def selective_scan_cuda(u, dt, A, B, C, D):
                   C.data_ptr(), D.data_ptr(), y.data_ptr(), h_last.data_ptr(),
                   bt, s, di, n, DTYPES[u.dtype], lanes)
     return y, h_last
+
+
+def cost(bt: int, s: int, di: int, n: int, u_elem: int):
+    """(FP32 operations, bytes) of one call — the arithmetic of the bound
+    in ``PERF.md`` §6: per state dt*A, the exponential, h*dA + du*B, the
+    C product and its sum; per channel dt*u, u*D and its add. u, dt read
+    and y written once a (batch, step, channel); A, D, B, C read and
+    h_last written once."""
+    ops = 7 * bt * s * di * n + 3 * bt * s * di
+    nbytes = bt * s * di * (2 * u_elem + 4) \
+        + 4 * (di * n + di + 2 * bt * s * n + bt * di * n)
+    return ops, nbytes

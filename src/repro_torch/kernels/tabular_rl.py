@@ -43,3 +43,11 @@ def tabular_rl_cuda(q, s, a, r, s2, *, alpha: float, gamma: float):
                   s2.data_ptr(), greedy2.data_ptr(), td.data_ptr(), cells,
                   n_states, n_actions, float(alpha), float(gamma))
     return q, greedy2, td
+
+
+def cost(cells: int, n_states: int, k: int):
+    """(FP32 operations, bytes) of one call — the arithmetic of the bound
+    in ``PERF.md`` §6: row s2 and q[s, a] read, q[s, a] written, s, a, r,
+    s2 in and greedy2, td out; ~2 compares per row entry. ``n_states``
+    moves nothing: one row of each cell's table is read."""
+    return cells * 2 * k, cells * (4 * k + 32)

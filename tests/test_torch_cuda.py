@@ -14,7 +14,11 @@ refused; the
 selective scan at one step, 4,096 steps, state sizes 5, 8 and 16,
 channel counts that are no block multiple and both splits of a channel's
 states, over 2 and over 4 lanes; the banded sliding-window
-attention against the CPU's plain path.
+attention against the CPU's plain path; the coupled oracle's
+best-response round against its plain version (one cell, every cell on
+one edge, an infinite cloud, a calibration, one-user cells, tied
+candidates, one feasible candidate) and the float32 fleet env step
+against the CPU, bit for bit.
 Every test here needs a CUDA device
 and skips without one; run them on the GPU with
 
@@ -561,3 +565,176 @@ def test_single_cell_env_on_the_card_matches_the_cpu(cuda):
         for got, want in zip(card.expected_response_batch(acts),
                              cpu.expected_response_batch(acts)):
             assert torch.equal(got.cpu(), want), name
+
+
+# ------------------------------------------------ the coupled oracle ----
+def _coupled(cuda, cells, users, cell_edge, capacity, cloud_servers,
+             calib=None, seed=0):
+    """A mixed Table-5 fleet of 1..users-user cells on the card with the
+    given deployment map."""
+    from repro_torch.fleet import dynamics, scenarios, topology
+    from repro_torch.rng import Draws
+    scen = scenarios.mixed_table5_fleet(Draws(seed, cuda), cells, users,
+                                        min_users=1, max_users=users)
+    topo = topology.Topology(
+        torch.tensor(cell_edge, dtype=torch.int32, device=cuda),
+        torch.tensor(capacity, dtype=torch.float32, device=cuda),
+        float(cloud_servers))
+    if calib is not None:
+        calib = dynamics.Calibration(*(torch.tensor(x, device=cuda)
+                                       for x in calib))
+    return scenarios.FleetScenario(scen.end_b, scen.edge_b, scen.member,
+                                   scen.active, 0, topo, calib)
+
+
+def _check_best_response(scen, pu, threshold, max_rounds=8):
+    """Every round of the sweep: the kernel's indices and changed flag
+    equal the plain version's on the card, bit for bit, from the same
+    start; then the whole oracle through the kernel."""
+    from repro_torch.fleet import population
+    from repro_torch.kernels import best_response
+    feas, ce, cc = population._candidate_tables(scen, pu, threshold, 4096)
+    _, idx = population._isolated_bruteforce(scen, pu, threshold)
+    topo = scen.topo
+    args = (scen.end_b, scen.edge_b, scen.member, feas, ce, cc,
+            topo.cell_edge, topo.edge_capacity, topo.cloud_servers)
+    for _ in range(max_rounds):
+        before = best_response.KERNEL.launches
+        got, changed = best_response.best_response_cuda(
+            idx, best_response.pack_actions(pu), *args, calib=scen.calib)
+        want, want_changed = best_response.plain(idx, pu, *args,
+                                                 calib=scen.calib)
+        torch.cuda.synchronize()
+        assert best_response.KERNEL.launches == before + 1
+        assert torch.equal(got, want)
+        assert bool(changed.item()) == bool(want_changed)
+        if not bool(want_changed):
+            break
+        idx = want
+    return population.topology_bruteforce(scen, pu, threshold)
+
+
+def _full_table(users, cuda):
+    spec = spaces.SpaceSpec(users)
+    return torch.tensor(spec.decode_actions_batch(spec.all_actions()),
+                        device=cuda)
+
+
+@pytest.mark.parametrize("case", ["one_cell", "one_edge", "infinite_cloud",
+                                  "calibrated", "one_user", "four_users",
+                                  "five_users"])
+def test_best_response_kernel_matches_plain(cuda, case):
+    """Cells of 1..users members; four users take every joint action
+    (10^4 candidates, 40 per thread), five the holdout's restricted 3^5
+    (the packed ids' bits 16-19)."""
+    from repro_torch.fleet import population
+    rng = np.random.default_rng(3)
+    users, cells, threshold = 3, 96, 89.0
+    kw = dict(cell_edge=rng.integers(0, 6, cells), capacity=[1.0, 2.0, 0.5,
+                                                             1.0, 3.0, 1.0],
+              cloud_servers=3.0 * cells)
+    if case == "one_cell":
+        cells = 1
+        kw.update(cell_edge=[0], capacity=[1.0], cloud_servers=2.0)
+    elif case == "one_edge":
+        kw.update(cell_edge=np.zeros(cells), capacity=[1.0])
+    elif case == "infinite_cloud":
+        kw.update(cloud_servers=float("inf"))
+    elif case == "calibrated":
+        kw.update(calib=([1.3, 0.8, 1.1], [5.0, -20.0, 12.5]))
+    elif case == "one_user":
+        users, threshold = 1, 80.0
+    elif case == "four_users":
+        users = 4
+    elif case == "five_users":
+        users, threshold = 5, 85.0
+    scen = _coupled(cuda, cells, users, **kw)
+    spec = spaces.SpaceSpec(users)
+    pu = _full_table(users, cuda) if users < 5 else torch.tensor(
+        spec.decode_actions_batch(population.default_actions(spec)),
+        device=cuda)
+    _check_best_response(scen, pu, threshold)
+
+
+def test_best_response_kernel_all_tied_candidates_keep_the_first(cuda):
+    """Seven copies of one joint action: every score ties, so the first
+    index wins everywhere and nothing ever switches."""
+    rng = np.random.default_rng(4)
+    scen = _coupled(cuda, 40, 2, rng.integers(0, 3, 40), [1.0, 1.0, 2.0],
+                    60.0)
+    pu = torch.tensor([[8, 9]] * 7, device=cuda)
+    ms, idx, converged, rounds = _check_best_response(scen, pu, 0.0)
+    assert converged and rounds == 1 and not idx.any()
+
+
+def test_best_response_kernel_one_feasible_candidate(cuda):
+    """A goal only one candidate meets (both users on d0, the only rung
+    at 89.9 here): every cell keeps it."""
+    rng = np.random.default_rng(5)
+    scen = _coupled(cuda, 40, 2, rng.integers(0, 4, 40), [1.0] * 4, 30.0)
+    pu = torch.tensor([[k, k] for k in range(8)], device=cuda)
+    ms, idx, converged, rounds = _check_best_response(scen, pu, 89.0)
+    assert converged and not idx.any()
+
+
+def test_best_response_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import best_response
+    scen = _coupled(cuda, 4, 2, [0, 0, 1, 1], [1.0, 1.0], 8.0)
+    pu = _full_table(2, cuda)
+    z = torch.zeros((4, 100), dtype=torch.int32, device=cuda)
+    args = [torch.zeros(4, dtype=torch.int32, device=cuda),
+            best_response.pack_actions(pu), scen.end_b, scen.edge_b,
+            scen.member, z.bool(), z, z, scen.topo.cell_edge,
+            scen.topo.edge_capacity, 8.0]
+    bad = list(args)
+    bad[5] = z                                 # feas must be bool
+    with pytest.raises(TypeError):
+        best_response.best_response_cuda(*bad)
+    bad = list(args)
+    bad[0] = args[0].cpu()
+    with pytest.raises(ValueError, match="CUDA"):
+        best_response.best_response_cuda(*bad)
+
+
+def _env_step_on(dev, coupled):
+    """One float32 fleet env step on ``dev`` from the same inputs (the
+    noise injected), with the DQN's features of its outcome."""
+    from repro_torch.fleet import dynamics, policy, population, scenarios
+    from repro_torch.fleet import topology
+    from repro_torch.rng import Draws
+    s = scenarios.mixed_table5_fleet(Draws(4, "cpu"), 512, 3, min_users=1,
+                                     max_users=3)
+    topo = None
+    if coupled:
+        t = topology.hot_edge_topology(512, 8, hot_fraction=0.6,
+                                       capacity_tiers=(1.0, 2.0, 0.5),
+                                       cloud_servers=37.0)
+        topo = topology.Topology(t.cell_edge.to(dev), t.edge_capacity.to(dev),
+                                 t.cloud_servers)
+    s = scenarios.FleetScenario(*(getattr(s, f).to(dev) for f in (
+        "end_b", "edge_b", "member", "active")), 0, topo)
+    rng = np.random.default_rng(0)
+    a = torch.tensor(rng.integers(0, 10, (512, 3)), device=dev)
+    z = torch.tensor(rng.standard_normal(512, dtype=np.float32), device=dev)
+
+    class Noise(Draws):
+        def normal(self, site, shape):
+            return z
+    ms, acc, counts = population.simulate_responses(Noise(0, dev), s, a,
+                                                    0.02)
+    r = dynamics.reward(ms, acc, 85.0)
+    feats = policy.encode_fleet_state(counts, s)
+    head = policy.fused_head_features(counts, s)
+    return [x.cpu() for x in (ms, acc, r, counts, feats, *head)]
+
+
+@pytest.mark.parametrize("coupled", [False, True])
+def test_float32_fleet_env_step_on_the_card_matches_the_cpu(cuda, coupled):
+    """The float32 fleet step on the card equals the CPU's bit for bit:
+    the link capacities, the ms-to-s scale and the user count are taken
+    as the reference rounds them on every device (``dynamics.div_const``,
+    ``dynamics.fma``), the queue size divides as a tensor, and users sum
+    left to right."""
+    for got, want in zip(_env_step_on(cuda, coupled),
+                         _env_step_on("cpu", coupled)):
+        assert torch.equal(got, want)

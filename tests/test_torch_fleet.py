@@ -460,9 +460,14 @@ def test_draws_run_on_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_topology_fleets_raise_until_the_coupled_oracle_is_ported():
-    scen = scenarios.with_topology(
-        scenarios.table5_fleet("EXP-B", 6, 3, device="cpu"),
-        topology.identity_topology(6))
-    with pytest.raises(NotImplementedError, match="topology_bruteforce"):
-        population.fleet_bruteforce(scen, torch.zeros((1, 3),
-                                                      dtype=torch.int64))
+    """The name dates from before the coupled oracle was ported, when a
+    fleet with a topology raised. It now checks that such a fleet no
+    longer raises, and that under the identity topology it gives the
+    isolated optimum (here a one-candidate table, so index 0
+    everywhere)."""
+    iso = scenarios.table5_fleet("EXP-B", 6, 3, device="cpu")
+    scen = scenarios.with_topology(iso, topology.identity_topology(6))
+    pu = torch.zeros((1, 3), dtype=torch.int64)
+    ms, idx = population.fleet_bruteforce(scen, pu)
+    want_ms, want_idx = population.fleet_bruteforce(iso, pu)
+    assert torch.equal(idx, want_idx) and torch.equal(ms, want_ms)
