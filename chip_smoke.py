@@ -47,6 +47,15 @@ paths through the entry points a user calls:
   phase's shape; ``obs.prof`` stage costs of both agents and a scaling
   sweep over 1,024 to 32,768 cells (kernels K1, K2 and the port-only
   best-response kernel);
+* the sharded fleet (phase ``fleet_sharded``): both agents with
+  ``mesh=`` on 32,768 x 5 cells over 64 edges, one fleet shard-local
+  and one all-to-all with edge failures, unsharded, on a one-rank NCCL
+  mesh in this process, and on two gloo ranks sharing the card in their
+  own processes (each rank runs K1 and K2 on its block; every join has a
+  time limit): the Q-table, job counts, decisions and scenario blocks,
+  the DQN's parameters, the per-step fleet means, the telemetry and the
+  holdout ratios bit-equal to the unsharded run's, and
+  ``local_contention`` equal to ``shared_contention``;
 * the single-cell layer (phase ``single_cell``): ``bruteforce_optimal``
   on the card against the CPU for every experiment x threshold, N =
   1..5; tabular Q-learning (N = 3, goal 85) converging, its Q rows equal
@@ -2338,6 +2347,238 @@ def prof_phase(torch, R, prof, agents, kernels):
                               "cliff_cells", "classification", "summary")})
 
 
+# the sharded fleet (phase fleet_sharded): steps a run, the ranks sharing
+# the card, and the time limit of their join
+SHARD_STEPS = 40
+SHARD_RANKS = 2
+SHARD_JOIN_S = 300
+
+
+def fleet_namespace():
+    """The fleet modules of the port, as ``main`` passes them around."""
+    import types
+    from repro_torch import obs, serving as serving_pkg
+    from repro_torch.fleet import (api, calibrate, dynamics, policy,
+                                   population, scenarios, shard, topology)
+    from repro_torch.rng import Draws
+    return types.SimpleNamespace(api=api, policy=policy,
+                                 population=population, scenarios=scenarios,
+                                 Draws=Draws, calibrate=calibrate,
+                                 dynamics=dynamics, obs=obs,
+                                 serving=serving_pkg, topology=topology,
+                                 shard=shard)
+
+
+def shard_fleets(R):
+    """The two 32,768 x 5 fleets of phase ``fleet_sharded``, over 64
+    edges and a finite cloud queue: edges drawn within each rank's block
+    of cells (shard-local over the phase's ranks), and edges drawn over
+    all cells with edge failures (the all-to-all path)."""
+    base = dict(cells=CELLS, users=USERS, arrival_rate=1.2, p_r2w=0.05,
+                p_w2r=0.15, min_users=2, max_users=5,
+                n_edges=HOLDOUT_EDGES, cloud_servers=4.0 * CELLS)
+    return {"shard_local": R.scenarios.FleetConfig(
+                shard_local=True, n_shards=SHARD_RANKS, **base),
+            "all_to_all": R.scenarios.FleetConfig(p_edge_fail=0.05,
+                                                  **base)}
+
+
+def digest(torch, t, offset=0):
+    """A 64-bit digest of ``t``'s bits that adds over blocks: each
+    element's bit pattern times the odd weight ``2 i + 1`` of its flat
+    index ``i`` (``offset`` is the block's first), summed modulo 2^64.
+    One changed element always changes it."""
+    x = t.detach().contiguous()
+    if x.dtype == torch.bool:
+        x = x.to(torch.uint8)
+    bits = {1: torch.uint8, 4: torch.int32, 8: torch.int64}[x.element_size()]
+    v = x.view(bits).reshape(-1).to(torch.int64)
+    i = torch.arange(offset, offset + v.numel(), device=v.device)
+    return int((v * (2 * i + 1)).sum()) % 2 ** 64
+
+
+def sharded_runs(torch, R, mesh, steps=SHARD_STEPS):
+    """Both agents (mesh=``mesh``) on both fleets of ``shard_fleets``,
+    ``steps`` steps after 2 of warm-up: digests of the rank's blocks of
+    the Q-table, job counts and decisions at the block's offset, the DQN's
+    parameters (replicated), the assembled per-step fleet means,
+    telemetry and holdout ratios, and the wall per step. On a placed
+    shard-local fleet, ``local_contention`` is held equal to
+    ``shared_contention`` on the DQN's decisions."""
+    out = {}
+    for label, cfg in shard_fleets(R).items():
+        res = {}
+        for kind in ("tabular", "dqn"):
+            src = R.api.SyntheticSource(cfg)
+            if kind == "tabular":
+                agent = R.population.FleetQLearning(src, seed=0,
+                                                    device="cuda", mesh=mesh)
+            else:
+                agent = R.policy.FleetDQN(
+                    src, actions=R.population.default_actions(
+                        R.population.SpaceSpec(USERS)),
+                    cfg=R.policy.FleetDQNConfig(hidden=128, topk=5,
+                                                accuracy_threshold=85.0),
+                    seed=0, device="cuda", mesh=mesh)
+            agent.run(2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ms, acc = agent.run(steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            scen = agent.scen
+            rank = scen.mesh.rank if scen.mesh is not None else 0
+            per_cell = {"counts": agent.counts,
+                        "decisions": agent.greedy_decisions(),
+                        "end_b": scen.end_b, "active": scen.active}
+            if kind == "tabular":
+                per_cell["q"] = agent.q
+            r = {f"{k}_digest": digest(torch, v, rank * v.numel())
+                 for k, v in per_cell.items()}
+            if kind == "dqn":
+                r["params_digest"] = [digest(torch, p[k]) for p in
+                                      agent.params for k in ("w", "b")]
+            r.update(ms=ms.tolist(), acc=acc.tolist(),
+                     summary=agent.metrics_summary(),
+                     holdout=R.policy.holdout_reward_ratio(agent,
+                                                           scen).ratio,
+                     wall_ms_per_step=wall * 1e3 / steps)
+            if kind == "dqn" and cfg.shard_local and mesh is not None:
+                pu = agent.greedy_decisions()
+                got = R.shard.local_contention(pu, scen.topo, mesh,
+                                               active=scen.active)
+                want = R.topology.shared_contention(pu, scen.topo,
+                                                    active=scen.active)
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"local_contention differs from shared_contention "
+                      f"(rank {rank})")
+                r["local_contention_equal"] = True
+            res[kind] = r
+        out[label] = res
+    return out
+
+
+def sharded_rank(rank, world, init_file, out_dir):
+    """One rank of phase ``fleet_sharded``: a gloo group of ``world``
+    ranks on the one card, both agents on this rank's block of both
+    fleets, K1 and K2 counted on that path alone; the results go to
+    ``out_dir`` as JSON."""
+    sys.path.insert(0, SRC)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)         # the ranks share the host's cores
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.kernels import dqn_head, tabular_rl
+        R = fleet_namespace()
+        mesh = R.shard.fleet_mesh(device="cuda")
+        check(mesh.size == world and mesh.rank == rank, "gloo mesh")
+        kernels = (tabular_rl.KERNEL, dqn_head.KERNEL)
+        for k in kernels:
+            k.launches = 0
+        res = sharded_runs(torch, R, mesh)
+        res["launches"] = {k.name: k.launches for k in kernels}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _same_runs(got, want, what, blocks=None):
+    """Check two ``sharded_runs`` results equal; with ``blocks`` (the
+    ranks' results), the per-cell digests of ``got`` are the sum of the
+    ranks' block digests."""
+    for label, kinds in want.items():
+        for kind, w in kinds.items():
+            g = got[label][kind]
+            for key, v in w.items():
+                if key == "wall_ms_per_step" or key == \
+                        "local_contention_equal":
+                    continue
+                if blocks is not None and key.endswith("_digest") \
+                        and key != "params_digest":
+                    g_v = sum(b[label][kind][key] for b in blocks) % 2 ** 64
+                else:
+                    g_v = g[key]
+                check(g_v == v, f"fleet_sharded: {what} {label} {kind} "
+                                f"{key} differs from the unsharded run")
+
+
+def fleet_sharded(torch, R, kernels):
+    """Phase ``fleet_sharded``: both agents on both fleets of
+    ``shard_fleets`` at 32,768 x 5, unsharded; on a one-rank NCCL mesh
+    in this process (bit-equal to unsharded); then on two gloo ranks
+    sharing the card, spawned processes each on its block (the kernels
+    built here first): every block digest, fleet mean, telemetry summary
+    and holdout ratio equal to the unsharded run's, K1 and K2 launched
+    on every rank, every join under ``SHARD_JOIN_S``."""
+    import tempfile
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import _build
+    _build.build(kernels)
+    work = os.path.join(ROOT, "build", "fleet_sharded")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    plain = sharded_runs(torch, R, None)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    init = tempfile.mkdtemp(dir=work)
+    dist.init_process_group("nccl", init_method=f"file://{init}/nccl",
+                            rank=0, world_size=1)
+    try:
+        mesh = R.shard.fleet_mesh(device="cuda")
+        probe = torch.ones(4, device="cuda")
+        dist.all_reduce(probe)                    # the NCCL group works
+        check(bool((probe == 1).all()), "one-rank NCCL all_reduce")
+        one = sharded_runs(torch, R, mesh)
+    finally:
+        dist.destroy_process_group()
+    _same_runs(one, plain, "one NCCL rank")
+    ctx = mp.start_processes(
+        sharded_rank, args=(SHARD_RANKS, f"{init}/gloo", init),
+        nprocs=SHARD_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + SHARD_JOIN_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  f"fleet_sharded: the {SHARD_RANKS} ranks outlasted "
+                  f"{SHARD_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    blocks = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(init, f"rank{r}.json")) as f:
+            blocks.append(json.load(f))
+    for r, b in enumerate(blocks):
+        _same_runs(b, plain, f"gloo rank {r}", blocks=blocks)
+        for name, n in b["launches"].items():
+            check(n > 0, f"{name} was never launched on gloo rank {r}")
+    walls = {label: {kind: {
+        "unsharded": plain[label][kind]["wall_ms_per_step"],
+        "nccl_1": one[label][kind]["wall_ms_per_step"],
+        "gloo_2": [b[label][kind]["wall_ms_per_step"] for b in blocks]}
+        for kind in ("tabular", "dqn")} for label in plain}
+    emit(phase="fleet_sharded", cells=CELLS, users=USERS,
+         steps=SHARD_STEPS, ranks=SHARD_RANKS, edges=HOLDOUT_EDGES,
+         bit_equal=True, wall_ms_per_step=walls,
+         holdout={label: {kind: plain[label][kind]["holdout"]
+                          for kind in ("tabular", "dqn")}
+                  for label in plain},
+         local_contention_equal=all(
+             b["shard_local"]["dqn"].get("local_contention_equal")
+             for b in blocks),
+         seconds=time.perf_counter() - t0)
+    emit(phase="launches", fleet_sharded={
+        f"rank{r}": b["launches"] for r, b in enumerate(blocks)})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2348,12 +2589,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    import types
     from repro_torch.configs.base import get_config
     from repro_torch.core import spaces
-    from repro_torch import obs, serving as serving_pkg
-    from repro_torch.fleet import (api, calibrate, dynamics, policy,
-                                   population, scenarios, topology)
+    from repro_torch.fleet import dynamics
     from repro_torch.kernels import (_build, best_response,
                                      decode_attention, dqn_head,
                                      flash_attention, int8_matmul, ops, ref,
@@ -2364,13 +2602,8 @@ def main():
     from repro_torch.launch.serve import build_engines
     from repro_torch.models import build_model
     from repro_torch.models.variants import build_ladder
-    from repro_torch.rng import Draws
     from repro_torch.serving import Request, RequestBatcher, ServingEngine
-    R = types.SimpleNamespace(api=api, policy=policy, population=population,
-                              scenarios=scenarios, Draws=Draws,
-                              calibrate=calibrate, dynamics=dynamics,
-                              obs=obs, serving=serving_pkg,
-                              topology=topology)
+    R = fleet_namespace()
     fleet_kernels = [tabular_rl.KERNEL, dqn_head.KERNEL]
     serving_kernels = [flash_attention.KERNEL, decode_attention.KERNEL,
                        int8_matmul.KERNEL]
@@ -2450,7 +2683,11 @@ def main():
                                          best_response))
     cell_dqn(torch, R, dqn_head.KERNEL)
     prof_phase(torch, R, prof, [tab_agent, dqn_agent], kernels)
-    del fleets, runs
+    del fleets, runs, tab_agent, dqn_agent
+
+    # the sharded fleet: one NCCL rank here, then two gloo ranks on the
+    # card in their own processes, K1 and K2 counted on each rank
+    fleet_sharded(torch, R, fleet_kernels)
     decode_profile(torch, engines, caches)
     del engines, caches
 

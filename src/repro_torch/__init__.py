@@ -4,7 +4,9 @@ ladder, Falcon-Mamba and Hymba), their engines and the routed dispatch,
 and the paper's single-cell layer (``core``: the environment, tabular
 Q-learning, the DQN, the brute force, the baselines, the transfer
 protocol and the orchestrator) with the serving launcher's
-RL-orchestrated loop (``launch.serve``).
+RL-orchestrated loop (``launch.serve``). The fleet spans the ranks of a
+``torch.distributed`` group as a 1-D mesh (``fleet.shard``), each rank
+on its block of cells, bit-identical to the unsharded fleet.
 
 The package mirrors ``repro``'s layout (``fleet/dynamics.py`` here is the
 counterpart of ``repro/fleet/dynamics.py``, and so on) but imports

@@ -34,7 +34,7 @@ from repro_torch import resolve_device
 from repro_torch.core.spaces import SpaceSpec
 from repro_torch.fleet import dynamics, topology
 from repro_torch.fleet.population import (check_pad_width, default_actions,
-                                          fleet_bruteforce,
+                                          fleet_bruteforce, gather_cells,
                                           nominal_expected_response)
 from repro_torch.fleet.scenarios import (FleetConfig, FleetScenario,
                                          arrivals_from_timestamps,
@@ -89,14 +89,26 @@ class SyntheticSource:
     """`ScenarioSource` over the ``FleetConfig`` generators: ``reset``
     is ``init_fleet`` and ``step`` is ``step_fleet``. Pass ``scen`` to
     pin an explicitly built initial fleet, which ``reset`` returns as
-    is."""
+    is.
+
+    With a ``mesh`` (``fleet.shard.fleet_mesh``) ``reset`` draws the
+    whole fleet and keeps this rank's block of cells, and ``step``
+    advances the block (every per-cell draw taken for the whole fleet
+    and cut to the block), so the stream's values are the unsharded
+    ones."""
 
     state_is_scenario = True
 
     def __init__(self, cfg: FleetConfig,
-                 scen: Optional[FleetScenario] = None):
+                 scen: Optional[FleetScenario] = None, mesh=None):
         self.cfg = cfg
         self._scen0 = scen
+        self.mesh = mesh
+
+    def attach_mesh(self, mesh) -> None:
+        """Adopt the agent's fleet mesh (no-op when None)."""
+        if mesh is not None:
+            self.mesh = mesh
 
     @property
     def cells(self) -> int:
@@ -115,10 +127,16 @@ class SyntheticSource:
     def reset(self, draws):
         scen = self._scen0 if self._scen0 is not None \
             else init_fleet(draws, self.cfg)
+        if self.mesh is not None:
+            from repro_torch.fleet import shard
+            scen = shard.shard_scenario(scen, self.mesh)
         return scen, scen
 
     def step(self, draws, state):
         scen = step_fleet(draws, state, self.cfg)
+        if self.mesh is not None:
+            from repro_torch.fleet import shard
+            scen = shard.constrain_scenario(scen, self.mesh)
         return scen, scen
 
 
@@ -270,11 +288,12 @@ class TraceSource:
     """`ScenarioSource` that replays a recorded `FleetTrace`. Frames live
     on ``device``; ``step`` picks frame ``(t + 1) % horizon`` (the trace
     wraps) and consumes no draws. The recorded deployment map rides on
-    ``FleetScenario.topo``."""
+    ``FleetScenario.topo``. With a ``mesh`` each rank keeps its block of
+    cells of every frame (axis 1 of the ``(T, cells, ...)`` stacks)."""
 
     state_is_scenario = True
 
-    def __init__(self, trace: FleetTrace, device=None):
+    def __init__(self, trace: FleetTrace, device=None, mesh=None):
         trace.validate()
         self.trace = trace
         self.device = resolve_device(device)
@@ -286,10 +305,28 @@ class TraceSource:
         self._member = torch.tensor(trace.member_frames(), device=dev)
         self._active = torch.tensor(trace.active_frames(), device=dev)
         self._topo = trace.topology(dev)
+        self.mesh = None
+        self._placed = None
+        self.attach_mesh(mesh)
+
+    def attach_mesh(self, mesh) -> None:
+        """Keep this rank's block of cells of the frames (no-op when
+        ``mesh`` is None or the cells do not split over its ranks)."""
+        if mesh is None:
+            return
+        from repro_torch.fleet import shard
+        self.mesh = mesh
+        if self._placed is not None or not mesh.splits(self.cells):
+            return
+        self._placed = mesh
+        self._end_b, self._edge_b, self._member, self._active = (
+            shard.shard_array(x, mesh, axis=1) for x in
+            (self._end_b, self._edge_b, self._member, self._active))
+        self._topo = shard.shard_topology(self._topo, mesh)
 
     @classmethod
-    def load(cls, path, device=None) -> "TraceSource":
-        return cls(load_trace(path), device=device)
+    def load(cls, path, device=None, mesh=None) -> "TraceSource":
+        return cls(load_trace(path), device=device, mesh=mesh)
 
     @property
     def cells(self) -> int:
@@ -311,7 +348,7 @@ class TraceSource:
         i = t % self.horizon
         return FleetScenario(self._end_b[i], self._edge_b[i],
                              self._member[i], self._active[i], t,
-                             self._topo)
+                             self._topo, mesh=self._placed)
 
     def reset(self, draws):
         scen = self._frame(0)
@@ -684,10 +721,18 @@ def _tier_variant(a: int, local_variants) -> Tuple[str, str]:
 class FleetOrchestrator:
     """Runtime front door for a fleet: one vectorized greedy pass routes
     every cell, and — given serving engines — dispatches the routed
-    requests to real batched inference. Accepts any `FleetPolicy`."""
+    requests to real batched inference. Accepts any `FleetPolicy`.
 
-    def __init__(self, policy):
+    ``mesh`` (default: the policy's own fleet mesh, if any) places a
+    whole routed scenario and its job counts on the mesh before the
+    greedy pass, so a sharded fleet is routed where its cells live; the
+    decisions come back assembled whole on every rank, equal to the
+    unsharded route's."""
+
+    def __init__(self, policy, mesh=None):
         self.policy = policy
+        self.mesh = mesh if mesh is not None else getattr(policy, "mesh",
+                                                          None)
 
     @property
     def agent(self):
@@ -933,9 +978,19 @@ class FleetOrchestrator:
                     "pass scen=")
             if counts is None:
                 counts = getattr(policy, "counts", None)
+        if self.mesh is not None and scen.mesh is None:
+            from repro_torch.fleet import shard
+            placed = shard.shard_scenario(scen, self.mesh)
+            if counts is not None and placed is not scen:
+                counts = shard.shard_array(counts, self.mesh)
+            scen = placed
         if counts is None:
             counts = torch.zeros((scen.cells, 2), dtype=torch.int32,
                                  device=scen.device)
+        if dispatch is not None and scen.mesh is not None:
+            raise NotImplementedError(
+                "dispatching a sharded fleet to serving engines is not "
+                "ported: route it whole on one rank")
         decide = getattr(policy, "decisions", None) or policy.policy_decisions
         with _span(spans, "route.decide", cells=int(scen.cells)):
             dec, ids = decide(counts, scen)
@@ -949,6 +1004,9 @@ class FleetOrchestrator:
                                                         device=scen.device))
                 util = topology.edge_utilization(dec, topo,
                                                  active=scen.active)
+                if scen.topo is None and scen.mesh is not None:
+                    util = gather_cells(util, scen)
+        dec, ids = gather_cells(dec, scen), gather_cells(ids, scen)
         if dispatch is not None:
             slo_ms = dynamics.MAX_RESPONSE_MS if deadline_ms is None \
                 else float(deadline_ms)

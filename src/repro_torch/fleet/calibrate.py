@@ -170,8 +170,8 @@ class CalibratedDynamics:
     """`ScenarioSource` wrapper stamping a fitted ``Calibration`` onto
     every emitted scenario, so ``FleetDQN`` / ``FleetQLearning`` /
     ``nominal_expected_response`` switch to the calibrated latency path
-    unchanged. The reference's ``attach_mesh``/``mesh`` wait for the
-    port's fleet sharding."""
+    unchanged. A fleet mesh is the wrapped source's (``attach_mesh``
+    passes it on); the calibration, per tier, is replicated."""
 
     state_is_scenario = True
 
@@ -180,6 +180,15 @@ class CalibratedDynamics:
         require_scenario_state(source)
         self.source = source
         self.calib = calib
+
+    def attach_mesh(self, mesh) -> None:
+        attach = getattr(self.source, "attach_mesh", None)
+        if attach is not None:
+            attach(mesh)
+
+    @property
+    def mesh(self):
+        return getattr(self.source, "mesh", None)
 
     @property
     def cells(self) -> int:

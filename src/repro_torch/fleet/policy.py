@@ -17,6 +17,13 @@ unfused greedy, the same filter in torch ops, as the reference does.
 The regression target is the summed (not mean) response over active
 users, un-floored (see the reference's module docstring); the reported
 ``info["reward"]`` stays the paper's floored Eq.-4 reward.
+
+On a fleet mesh (``mesh=``, ``repro_torch.fleet.shard``) the policy is
+replicated and the population sharded: each rank acts on its block of
+cells (K2 on the card), steps it and pushes its rows into its part of
+the ring; every rank then takes the same AdamW step on the same
+assembled mini-batch, so no gradient is reduced and the update is the
+unsharded one bit for bit.
 """
 from __future__ import annotations
 
@@ -31,17 +38,21 @@ from repro_torch.core.networks import make_factored_q, mlp_apply, mlp_init
 from repro_torch.core.spaces import (N_PER_USER_ACTIONS, SpaceSpec,
                                      allowed_per_user)
 from repro_torch.fleet import dynamics
-from repro_torch.fleet.population import (FleetTrainResult, _host,
-                                          check_device, check_pad_width,
-                                          default_actions, fleet_bruteforce,
-                                          fleet_metrics,
+from repro_torch.fleet.population import (FleetTrainResult, _gather_host,
+                                          _host, adopt_mesh, check_device,
+                                          check_pad_width, default_actions,
+                                          fleet_bruteforce, fleet_cells,
+                                          fleet_means, fleet_metrics,
+                                          gather_cells,
                                           nominal_expected_response,
-                                          resolve_source, simulate_responses,
+                                          place_metrics, resolve_source,
+                                          simulate_responses,
                                           train_against_oracle)
 from repro_torch.fleet.replay import (replay_init, replay_push, replay_sample,
                                       replay_size)
-from repro_torch.fleet.scenarios import FleetConfig, FleetScenario
-from repro_torch.fleet.topology import _segment_totals
+from repro_torch.fleet.scenarios import (FleetConfig, FleetScenario,
+                                         cell_draws)
+from repro_torch.fleet.topology import _segment_totals, fleet_total
 from repro_torch.kernels import ops, ref
 from repro_torch.rng import Draws
 from repro_torch.training.optimizer import (apply_updates, constant_lr_adamw,
@@ -56,7 +67,10 @@ def state_dim(users: int) -> int:
 
 def _topo_features(counts, scen: FleetScenario):
     """The three (cells, 1) topology features — own-edge shared load,
-    own-edge capacity tier, fleet cloud utilization."""
+    own-edge capacity tier, fleet cloud utilization. The cloud count is
+    an integer total (all-reduced on a sharded fleet) taken to float32,
+    equal to the reference's float32 sum of whole job counts below
+    2^24 jobs."""
     inv = 1.0 / scen.users
     counts_f = counts.to(torch.float32)
     if scen.topo is None:
@@ -66,11 +80,12 @@ def _topo_features(counts, scen: FleetScenario):
     else:
         topo = scen.topo
         ce = topo.cell_edge.long()
-        tot = _segment_totals(counts[:, 0], topo.cell_edge, topo.n_edges)
+        tot = _segment_totals(counts[:, 0], topo.cell_edge, topo.n_edges,
+                              topo.mesh)
         cap_cell = topo.edge_capacity[ce]
         edge_load = (tot[ce] / cap_cell)[:, None] * inv
         cap = cap_cell[:, None]
-        used = counts_f[:, 1].sum()
+        used = fleet_total(counts[:, 1].sum(), topo.mesh).to(torch.float32)
         util = (used / torch.full_like(used, topo.cloud_servers)).expand(
             scen.cells, 1)
     return edge_load.to(torch.float32), cap, util
@@ -154,13 +169,18 @@ def holdout_reward_ratio(agent, scen: FleetScenario,
                          threshold: Optional[float] = None) -> HoldoutEval:
     """Score ``agent``'s cold-start greedy decisions on a (held-out)
     ``scen`` against the per-cell brute-force oracle over the agent's
-    candidate set."""
+    candidate set. On a sharded ``scen`` the per-cell arrays are
+    assembled whole before the means, so the result is the unsharded
+    one on every rank."""
     th = agent.accuracy_threshold if threshold is None else threshold
     expected = getattr(agent, "expected", None)
     g_ms, g_acc = (expected(scen) if expected is not None
                    else agent.greedy_expected(scen=scen))
+    opt = fleet_bruteforce(scen, agent.pu_table, th)[0]
+    g_ms, g_acc = (_gather_host(x, scen) for x in (g_ms, g_acc))
+    opt = gather_cells(opt, scen)
     feas = dynamics.feasible(g_acc, th)
-    opt_ms = _host(fleet_bruteforce(scen, agent.pu_table, th)[0])
+    opt_ms = _host(opt)
     achieved = np.where(feas, -g_ms, -dynamics.MAX_RESPONSE_MS)
     return HoldoutEval(float((-opt_ms).mean() / achieved.mean()),
                        achieved, -opt_ms, feas)
@@ -196,11 +216,18 @@ class FleetDQN:
                  actions: Optional[np.ndarray] = None, seed: int = 0,
                  device=None, draws: Optional[Draws] = None,
                  metrics: bool = True, n_windows: int = 0,
-                 window_len: int = 1):
+                 window_len: int = 1, mesh=None):
         """``scen`` is a ``ScenarioSource`` — or a ``FleetScenario`` plus
         its ``FleetConfig``. ``device`` defaults to ``cuda`` and raises
         without it; ``draws`` (default ``Draws(seed, device)``) is the
         random-draw seam, and also draws the initial weights.
+
+        ``mesh`` (``fleet.shard.fleet_mesh``; default: the source's own,
+        if any) is data-parallel training: params and optimizer state
+        replicate (checked equal over the ranks once, here), the
+        scenario stream and job counts shard along cells, the replay
+        ring's rows split over the ranks (``shard.shard_replay``), and
+        each step's mini-batch is assembled whole on every rank.
 
         ``metrics`` (default on) records per-step reward / response time
         (lanes = cells) / loss / replay occupancy / epsilon into a
@@ -218,6 +245,7 @@ class FleetDQN:
         self.draws = draws if draws is not None else Draws(seed, self.device)
         scen, self.source = resolve_source(scen, fleet_cfg, self.draws)
         check_device(scen, self.device, "FleetDQN")
+        self.mesh, scen = adopt_mesh(mesh, self.source, scen)
         self.fleet_cfg = getattr(self.source, "cfg", None)
         self.spec = SpaceSpec(scen.users)
         users = scen.users
@@ -248,12 +276,23 @@ class FleetDQN:
         self.opt = init_opt_state(self.params)
         self.buffer = replay_init(self.cfg.replay_capacity, self.state_dim,
                                   action_shape=(users,), device=dev)
+        if scen.mesh is not None:
+            from repro_torch.fleet import shard
+            if self.cfg.replay_capacity % fleet_cells(scen):
+                raise ValueError(
+                    f"a sharded FleetDQN splits its replay ring by cells: "
+                    f"replay_capacity ({self.cfg.replay_capacity}) must be "
+                    f"a multiple of the fleet's {fleet_cells(scen)} cells")
+            shard.replicate([self.params, self.opt], scen.mesh)
+            self.buffer = shard.shard_replay(self.buffer, scen.mesh)
+        self.draws = cell_draws(self.draws, scen)
         self.scen = scen
         self.counts = torch.zeros((scen.cells, 2), dtype=torch.int32,
                                   device=dev)
-        self.metrics = fleet_metrics(
-            scen.cells, "dqn", n_windows=n_windows, window_len=window_len,
-            device=dev) if metrics else None
+        self.metrics = place_metrics(fleet_metrics(
+            fleet_cells(scen), "dqn", n_windows=n_windows,
+            window_len=window_len, device=dev) if metrics else None,
+            scen.mesh)
         self.eps = self.cfg.eps_start
         self.steps = 0
         self._acc_table = dynamics.accuracies(
@@ -302,7 +341,7 @@ class FleetDQN:
     def _act(self, counts, scen, eps_t, draws=None):
         """eps-greedy over the factored head: an exploring user draws a
         uniform allowed action (``draws``: default the agent's)."""
-        draws = draws or self.draws
+        draws = cell_draws(draws or self.draws, scen)
         users = self.spec.n_users
         dec, _ = self._greedy(counts, scen)
         shape = (scen.cells, users)
@@ -389,8 +428,9 @@ class FleetDQN:
         for _ in range(n):
             info = self._step(eps_t)
             eps_t = torch.clamp(eps_t * (1.0 - decay), min=eps_min)
-            ms.append(info["mean_ms"].mean())
-            acc.append(info["mean_acc"].mean())
+            step_ms, step_acc = fleet_means(info, self.scen)
+            ms.append(step_ms)
+            acc.append(step_acc)
         self.eps = float(eps_t)
         self.steps += n
         if not n:

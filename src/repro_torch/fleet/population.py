@@ -16,6 +16,11 @@ against it. On a coupled fleet (an attached topology) it dispatches to
 ``topology_bruteforce``, best response by Gauss-Seidel rounds over the
 cells, each round one op (``kernels.ops.best_response_round``: on the
 card the CUDA kernel ``csrc/best_response.cu``).
+
+On a fleet mesh (``repro_torch.fleet.shard``, ``mesh=``) each rank holds
+its block of the Q-table, job counts, scenario and telemetry lanes, and
+K1 updates that block; the coupled oracle assembles the fleet whole and
+sweeps every cell in the reference's order on every rank.
 """
 from __future__ import annotations
 
@@ -30,7 +35,8 @@ from repro_torch import resolve_device
 from repro_torch.core.spaces import (A_CLOUD, A_EDGE, SpaceSpec,
                                      restricted_actions)
 from repro_torch.fleet import dynamics, topology
-from repro_torch.fleet.scenarios import FleetConfig, FleetScenario
+from repro_torch.fleet.scenarios import (FleetConfig, FleetScenario,
+                                         cell_draws)
 from repro_torch.kernels import ops
 from repro_torch.kernels.best_response import (BEST_RESPONSE_TOL,  # noqa: F401
                                                 pack_actions)
@@ -70,6 +76,55 @@ def fleet_metrics(cells: int, kind: str = "tabular", n_windows: int = 0,
     else:
         raise ValueError(f"unknown metrics kind {kind!r}")
     return MetricsAccumulator.create(defs, device=device)
+
+
+def place_metrics(mets: Optional[MetricsAccumulator], mesh):
+    """Place a telemetry pack for sharded training: per-cell lanes take
+    this rank's block, histograms and scalars replicate (identity
+    without a mesh)."""
+    if mets is None or mesh is None:
+        return mets
+    from repro_torch.fleet import shard
+    return mets.place(
+        lambda x, axis=0: shard.shard_array(x, mesh, axis=axis),
+        lambda x: shard.replicate(x, mesh), mesh=mesh)
+
+
+def adopt_mesh(mesh, source, scen):
+    """THE mesh-adoption step of both agent constructors: the fleet mesh
+    (an explicit argument wins, else the source's own) is attached to
+    the source and the initial scenario placed. Returns ``(mesh,
+    scen)``."""
+    mesh = mesh if mesh is not None else getattr(source, "mesh", None)
+    if mesh is None:
+        return None, scen
+    from repro_torch.fleet import shard
+    attach = getattr(source, "attach_mesh", None)
+    if attach is not None:
+        attach(mesh)
+    return mesh, shard.shard_scenario(scen, mesh)
+
+
+def fleet_cells(scen: FleetScenario) -> int:
+    """The whole fleet's cell count (``scen`` may hold one rank's
+    block)."""
+    return scen.cells * (scen.mesh.size if scen.mesh is not None else 1)
+
+
+def gather_cells(x: torch.Tensor, scen: FleetScenario) -> torch.Tensor:
+    """A per-cell tensor of ``scen``'s cells assembled whole (``x``
+    itself on an unsharded scenario)."""
+    if scen.mesh is None:
+        return x
+    from repro_torch.fleet import shard
+    return shard.gather_array(x, scen.mesh)
+
+
+def _gather_host(x: np.ndarray, scen: FleetScenario) -> np.ndarray:
+    if scen.mesh is None:
+        return x
+    t = torch.from_numpy(np.ascontiguousarray(x)).to(scen.mesh.device)
+    return _host(gather_cells(t, scen))
 
 
 def check_pad_width(n_users: int, scen: FleetScenario, who: str) -> None:
@@ -115,6 +170,7 @@ def simulate_responses(draws, scen: FleetScenario, per_user, noise: float):
     ``clip(1 + noise / sqrt(n_active) * z, 0.8, 1.2)``. With an attached
     ``scen.topo`` responses couple across cells; the returned counts
     stay per-cell own-job counts either way."""
+    draws = cell_draws(draws, scen)
     if scen.topo is None:
         mean_ms, acc = dynamics.expected_response(
             per_user, scen.end_b, scen.edge_b, active=scen.active,
@@ -203,11 +259,17 @@ class FleetQLearning:
                  actions: Optional[np.ndarray] = None, seed: int = 0,
                  device=None, draws: Optional[Draws] = None,
                  metrics: bool = True, n_windows: int = 0,
-                 window_len: int = 1):
+                 window_len: int = 1, mesh=None):
         """``scen`` is a ``ScenarioSource`` — or a ``FleetScenario`` plus
         its ``FleetConfig``. ``device`` defaults to ``cuda`` and raises
         without it; ``draws`` (default ``Draws(seed, device)``) is the
         random-draw seam.
+
+        ``mesh`` (``fleet.shard.fleet_mesh``; default: the source's own,
+        if any) shards the per-cell Q-table, job counts, scenario and
+        telemetry lanes over its ranks: the update is per-cell, so
+        training never leaves the rank (K1 runs on its block) and stays
+        bit-identical to the unsharded fleet.
 
         ``metrics`` (default on) records per-step reward / response
         time / |TD| (lanes = cells) / epsilon into a ``repro_torch.obs``
@@ -221,6 +283,8 @@ class FleetQLearning:
         self.draws = draws if draws is not None else Draws(seed, self.device)
         scen, self.source = resolve_source(scen, fleet_cfg, self.draws)
         check_device(scen, self.device, "FleetQLearning")
+        self.mesh, scen = adopt_mesh(mesh, self.source, scen)
+        self.draws = cell_draws(self.draws, scen)
         self.fleet_cfg = getattr(self.source, "cfg", None)
         self.spec = SpaceSpec(scen.users)
         self.actions = np.asarray(actions if actions is not None
@@ -238,9 +302,10 @@ class FleetQLearning:
         self.scen = scen
         self.counts = torch.zeros((scen.cells, 2), dtype=torch.int32,
                                   device=self.device)
-        self.metrics = fleet_metrics(
-            scen.cells, "tabular", n_windows=n_windows,
-            window_len=window_len, device=self.device) if metrics else None
+        self.metrics = place_metrics(fleet_metrics(
+            fleet_cells(scen), "tabular", n_windows=n_windows,
+            window_len=window_len, device=self.device) if metrics else None,
+            scen.mesh)
         self.eps = self.cfg.eps_start
         self.steps = 0
 
@@ -317,8 +382,9 @@ class FleetQLearning:
             s = self._state_index(self.counts, self.scen)
             greedy, info = self._core(s, greedy, eps_t)
             eps_t = torch.clamp(eps_t * (1.0 - decay), min=eps_min)
-            ms.append(info["mean_ms"].mean())
-            acc.append(info["mean_acc"].mean())
+            step_ms, step_acc = fleet_means(info, self.scen)
+            ms.append(step_ms)
+            acc.append(step_acc)
         self.eps = float(eps_t)
         self.steps += n
         if not n:
@@ -382,20 +448,40 @@ class FleetQLearning:
         return self.greedy_expected(scen=scen, counts=counts)
 
 
+def fleet_means(info: dict, scen: FleetScenario):
+    """The step's fleet-mean response ms and accuracy: on a sharded
+    fleet both are assembled whole (one all-reduce) and each reduced on a
+    fresh contiguous tensor, as the unsharded step reduces it."""
+    ms, acc = info["mean_ms"], info["mean_acc"]
+    if scen.mesh is None:
+        return ms.mean(), acc.mean()
+    both = gather_cells(torch.stack([ms, acc], 1), scen)
+    return both[:, 0].clone().mean(), both[:, 1].clone().mean()
+
+
 def train_against_oracle(agent, max_steps: int, check_every: int = 200,
                          tol: float = 0.01,
                          patience: int = 3) -> "FleetTrainResult":
     """THE fleet training loop, shared by both agents: per-cell
     convergence = greedy expected response within ``tol`` of that
     cell's brute-force optimum for ``patience`` consecutive checks. For
-    a dynamic source the oracle is recomputed per check."""
+    a dynamic source the oracle is recomputed per check. On a sharded
+    fleet the per-cell arrays are assembled whole on every rank, so the
+    result is the unsharded one."""
     threshold = agent.accuracy_threshold
     dynamic = bool(agent.source.dynamic)
+
+    def oracle_ms():
+        ms = fleet_bruteforce(agent.scen, agent.pu_table, threshold)[0]
+        return _host(gather_cells(ms, agent.scen))
+
+    def greedy():
+        return [_gather_host(x, agent.scen) for x in agent.greedy_expected()]
+
     opt_ms = None
     if not dynamic:
-        opt_ms = _host(fleet_bruteforce(agent.scen, agent.pu_table,
-                                        threshold)[0])
-    cells = agent.scen.cells
+        opt_ms = oracle_ms()
+    cells = fleet_cells(agent.scen)
     converged_at = np.full(cells, -1, np.int64)
     streak = np.zeros(cells, np.int64)
     t0 = time.perf_counter()
@@ -403,9 +489,8 @@ def train_against_oracle(agent, max_steps: int, check_every: int = 200,
     for step in range(check_every, max_steps + 1, check_every):
         agent.run(check_every)
         if dynamic:
-            opt_ms = _host(fleet_bruteforce(agent.scen, agent.pu_table,
-                                            threshold)[0])
-        g_ms, g_acc = agent.greedy_expected()
+            opt_ms = oracle_ms()
+        g_ms, g_acc = greedy()
         ok = dynamics.feasible(g_acc, threshold) & (g_ms <= opt_ms * (1 + tol))
         streak = np.where(ok, streak + 1, 0)
         newly = (streak >= patience) & (converged_at < 0)
@@ -417,18 +502,18 @@ def train_against_oracle(agent, max_steps: int, check_every: int = 200,
             break
     else:
         if max_steps < check_every:          # loop never ran
-            g_ms, g_acc = agent.greedy_expected()
+            g_ms, g_acc = greedy()
     if opt_ms is None:                       # dynamic fleet, loop never ran
-        opt_ms = _host(fleet_bruteforce(agent.scen, agent.pu_table,
-                                        threshold)[0])
+        opt_ms = oracle_ms()
     wall = time.perf_counter() - t0
     return FleetTrainResult(
         converged_at=converged_at, steps=agent.steps,
         frac_converged=float((converged_at >= 0).mean()),
         optimal_ms=np.asarray(opt_ms), greedy_ms=np.asarray(g_ms),
         greedy_acc=np.asarray(g_acc), history=history, wall_seconds=wall,
-        manifest=run_manifest(config=agent.cfg, wall_seconds=wall,
-                              steps=agent.steps))
+        manifest=run_manifest(config=agent.cfg,
+                              mesh=getattr(agent, "mesh", None),
+                              wall_seconds=wall, steps=agent.steps))
 
 
 @dataclasses.dataclass
@@ -461,7 +546,9 @@ def fleet_bruteforce(scen: FleetScenario, pu_table: torch.Tensor,
     ``scen.topo`` cells couple through shared edges and the cloud queue,
     so this dispatches to the best-response ``topology_bruteforce`` —
     same return contract, so ``train_against_oracle`` and
-    ``holdout_reward_ratio`` work on either fleet kind."""
+    ``holdout_reward_ratio`` work on either fleet kind. On a sharded
+    fleet the isolated brute force runs on each rank's block and the
+    results are that block's."""
     if scen.topo is not None:
         ms, idx, _, _ = topology_bruteforce(scen, pu_table, threshold,
                                             chunk=chunk)
@@ -486,11 +573,21 @@ def _isolated_bruteforce(scen: FleetScenario, pu_table: torch.Tensor,
         better = m < best_ms
         best_idx = torch.where(better, (i + lo).to(torch.int32), best_idx)
         best_ms = torch.where(better, m, best_ms)
-    n_inf = int(torch.isinf(best_ms).sum())
+    n_inf = int(topology.fleet_total(torch.isinf(best_ms).sum(), scen.mesh))
     if n_inf:
         raise ValueError("no feasible action for threshold %.2f in %d cells"
                          % (threshold, n_inf))
     return best_ms, best_idx
+
+
+def _whole_scenario(scen: FleetScenario) -> FleetScenario:
+    """A sharded scenario assembled whole (every rank gets every cell)."""
+    whole = lambda x: gather_cells(x, scen)  # noqa: E731
+    topo = dataclasses.replace(scen.topo, mesh=None,
+                               cell_edge=whole(scen.topo.cell_edge))
+    return FleetScenario(whole(scen.end_b), whole(scen.edge_b),
+                         whole(scen.member), whole(scen.active), scen.t,
+                         topo, scen.calib)
 
 
 def _best_response_round(idx, pu_table, end_b, edge_b, member, feas,
@@ -549,7 +646,16 @@ def topology_bruteforce(scen: FleetScenario, pu_table: torch.Tensor,
     each cell's nominal-load expected response under shared contention,
     ``converged`` the fixed-point check (False: a best-response cycle
     cut off at ``max_rounds``, the last sweep returned). Without a
-    topology this is the isolated oracle (converged in 0 rounds)."""
+    topology this is the isolated oracle (converged in 0 rounds).
+
+    A sharded fleet is assembled whole on every rank and swept in the
+    reference's order over all its cells (the Gauss-Seidel order is the
+    result); each rank keeps its block of ``ms`` and ``index``."""
+    if scen.mesh is not None and scen.topo is not None:
+        ms, idx, converged, rounds = topology_bruteforce(
+            _whole_scenario(scen), pu_table, threshold, max_rounds, chunk)
+        lo, k = scen.mesh.block(fleet_cells(scen))
+        return ms[lo:lo + k], idx[lo:lo + k], converged, rounds
     if scen.topo is None:
         ms, idx = _isolated_bruteforce(scen, pu_table, threshold, chunk)
         return ms, idx, True, 0

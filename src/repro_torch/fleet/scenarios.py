@@ -6,7 +6,9 @@ churn, heterogeneous cell sizes and multi-edge topologies, composed
 behind ``init_fleet`` / ``step_fleet``; ``table5_fleet`` and
 ``mixed_table5_fleet`` build fleets from the paper's Table-5 patterns.
 Every random draw goes through a ``repro_torch.rng.Draws`` at a named
-``"scenario.*"`` site.
+``"scenario.*"`` site. A scenario placed on a fleet mesh
+(``fleet.shard.shard_scenario``) holds its rank's block of cells and
+carries the mesh; ``step_fleet`` then draws through ``cell_draws``.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from repro_torch.fleet.dynamics import EXPERIMENTS, Calibration
 from repro_torch.fleet.topology import (Topology, hot_edge_topology,
                                         random_topology, skewed_topology,
                                         step_edge_failures)
-from repro_torch.rng import as_draws
+from repro_torch.rng import BlockDraws, as_draws
 
 
 def init_links(draws, shape, p_weak: float = 0.3, site="scenario.links"):
@@ -119,6 +121,11 @@ class FleetConfig:
     capacity_tiers: Tuple[float, ...] = (1.0,)
     cloud_servers: float = float("inf")
     p_edge_fail: float = 0.0
+    # cap the random assignment's locality to the blocks of an
+    # n_shards-way fleet mesh (repro_torch.fleet.shard) so the per-edge
+    # totals never cross ranks; None = the ranks of the initialized group
+    shard_local: bool = False
+    n_shards: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -132,6 +139,9 @@ class FleetScenario:
     t      : int                    step counter (drives diurnal curve)
     topo   : Topology | None        shared edge/cloud infrastructure
     calib  : Calibration | None     sim-to-real latency corrections
+    mesh   : FleetMesh | None       the fleet mesh whose ranks each hold
+                                    a block of the cells (None: the
+                                    whole fleet is here)
     """
     end_b: torch.Tensor
     edge_b: torch.Tensor
@@ -140,6 +150,7 @@ class FleetScenario:
     t: int
     topo: Optional[Topology] = None
     calib: Optional[Calibration] = None
+    mesh: Optional[object] = None
 
     @property
     def cells(self) -> int:
@@ -161,8 +172,22 @@ def make_topology(draws, cfg: FleetConfig) -> Optional[Topology]:
         return None
     kw = dict(capacity_tiers=tuple(cfg.capacity_tiers),
               cloud_servers=cfg.cloud_servers)
+    if cfg.shard_local and cfg.assignment != "random":
+        raise ValueError(
+            f"shard_local topologies are generated by the 'random' "
+            f"assignment, not {cfg.assignment!r} (skewed/hot edges "
+            "deliberately concentrate cells across blocks)")
+    if cfg.shard_local and cfg.p_edge_fail:
+        raise ValueError(
+            "shard_local=True cannot be combined with p_edge_fail: "
+            "step_edge_failures reroutes a failed edge's cells to ANY "
+            "other edge, which breaks the shard-locality invariant "
+            "local_contention relies on — use the all-to-all path for "
+            "fleets with edge failures")
     if cfg.assignment == "random":
-        return random_topology(draws, cfg.cells, cfg.n_edges, **kw)
+        return random_topology(draws, cfg.cells, cfg.n_edges,
+                               shard_local=cfg.shard_local,
+                               n_shards=cfg.n_shards, **kw)
     if cfg.assignment == "skewed":
         return skewed_topology(draws, cfg.cells, cfg.n_edges, skew=cfg.skew,
                                **kw)
@@ -209,10 +234,21 @@ def init_fleet(draws, cfg: FleetConfig) -> FleetScenario:
     return FleetScenario(end_b, edge_b, member, active, 0, topo)
 
 
+def cell_draws(draws, scen: FleetScenario):
+    """The draws for a step of ``scen``: on a sharded scenario, a
+    ``BlockDraws`` that draws every per-cell site for the whole fleet and
+    keeps this rank's block (``draws`` as given otherwise, or when it is
+    one already)."""
+    if scen.mesh is None or isinstance(draws, BlockDraws):
+        return draws
+    return BlockDraws(draws, scen.mesh.rank, scen.mesh.size, scen.cells)
+
+
 def step_fleet(draws, s: FleetScenario, cfg: FleetConfig) -> FleetScenario:
     """Advance every cell's exogenous state by one step. With
     ``cfg.p_edge_fail`` and an attached topology, each step may fail one
     edge and reroute its cells."""
+    draws = cell_draws(draws, s)
     topo = s.topo
     if cfg.p_edge_fail and topo is not None:
         topo = step_edge_failures(draws, topo, cfg.p_edge_fail)
@@ -225,7 +261,8 @@ def step_fleet(draws, s: FleetScenario, cfg: FleetConfig) -> FleetScenario:
         member = step_churn(draws, member, cfg.p_join, cfg.p_leave)
     t = s.t + 1
     active = member & _arrivals(draws, cfg, member.shape, t)
-    return FleetScenario(end_b, edge_b, member, active, t, topo, s.calib)
+    return FleetScenario(end_b, edge_b, member, active, t, topo, s.calib,
+                         s.mesh)
 
 
 def table5_fleet(name: str, cells: int, users: int = 5,

@@ -9,11 +9,17 @@ reference's segment sum) and feeds the ``counts`` / ``cloud_mult`` seam
 of ``dynamics.response_times``. Under ``identity_topology`` the
 effective counts equal the isolated per-cell counts and the multiplier
 is exactly 1.0, so the topology path reduces to the isolated one.
+
+A topology placed on a fleet mesh (``fleet.shard.shard_topology``)
+holds its rank's block of ``cell_edge`` and carries the mesh: the
+per-edge job totals and the fleet's cloud count, integer sums, are then
+all-reduced over the ranks before each cell reads its own edge's.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -34,10 +40,14 @@ class Topology:
                                       (1.0 = the paper's a1.large edge)
     cloud_servers : float             cloud queue size; ``inf`` disables
                                       cross-cell cloud queueing
+    mesh          : FleetMesh | None  the fleet mesh whose ranks each hold
+                                      a block of ``cell_edge`` (None: the
+                                      whole fleet is here)
     """
     cell_edge: torch.Tensor
     edge_capacity: torch.Tensor
     cloud_servers: float
+    mesh: Optional[object] = None
 
     @property
     def cells(self) -> int:
@@ -63,14 +73,60 @@ def identity_topology(cells: int, cloud_servers: float = math.inf,
                     torch.ones(cells, device=device), float(cloud_servers))
 
 
+def shard_blocks(cells: int, n_edges: int, n_shards: int):
+    """Validated block sizes ``(cells_per_shard, edges_per_shard)`` of a
+    shard-local layout: the first ``cells_per_shard`` cells and the first
+    ``edges_per_shard`` edges belong to shard 0, and so on — the
+    contiguous blocks the ranks of a 1-D fleet mesh hold
+    (``repro_torch.fleet.shard``)."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    if cells % n_shards or n_edges % n_shards:
+        raise ValueError(
+            f"shard-local layout needs cells ({cells}) and n_edges "
+            f"({n_edges}) divisible by n_shards ({n_shards}) so the "
+            "contiguous device blocks line up")
+    return cells // n_shards, n_edges // n_shards
+
+
+def _world_size() -> int:
+    """The ranks of the initialized ``torch.distributed`` group (1
+    without one): the default shard count, as the reference defaults to
+    its device count."""
+    import torch.distributed as dist
+    return dist.get_world_size() \
+        if dist.is_available() and dist.is_initialized() else 1
+
+
 def random_topology(draws, cells: int, n_edges: int, capacity_tiers=(1.0,),
-                    cloud_servers: float = math.inf) -> Topology:
+                    cloud_servers: float = math.inf,
+                    shard_local: bool = False,
+                    n_shards: Optional[int] = None) -> Topology:
     """Uniform cell->edge assignment (one ``randint`` draw at site
-    ``"scenario.topology"``)."""
-    ce = draws.randint("scenario.topology", (cells,), n_edges)
+    ``"scenario.topology"``). ``shard_local=True`` splits cells and
+    edges into ``n_shards`` (default: the ranks of the initialized
+    group) contiguous equal blocks and draws each cell's edge within its
+    own block, so no edge is shared across ranks
+    (``fleet.shard.local_contention``)."""
+    if not shard_local:
+        ce = draws.randint("scenario.topology", (cells,), n_edges)
+    else:
+        n = _world_size() if n_shards is None else n_shards
+        cpb, epb = shard_blocks(cells, n_edges, n)
+        block = torch.arange(cells, device=draws.device) // cpb
+        ce = block * epb + draws.randint("scenario.topology", (cells,), epb)
     return Topology(ce.to(torch.int32),
                     edge_capacities(n_edges, capacity_tiers, draws.device),
                     float(cloud_servers))
+
+
+def is_shard_local(topo: Topology, n_shards: int) -> bool:
+    """Host-side check of the shard-locality invariant on a whole
+    topology: every cell's edge lies in the cell's own contiguous shard
+    block."""
+    cpb, epb = shard_blocks(topo.cells, topo.n_edges, n_shards)
+    ce = topo.cell_edge.cpu().numpy()
+    return bool(((np.arange(topo.cells) // cpb) == (ce // epb)).all())
 
 
 def skewed_topology(draws, cells: int, n_edges: int, skew: float = 1.5,
@@ -118,13 +174,21 @@ def step_edge_failures(draws, topo: Topology, p_fail: float) -> Topology:
                         topo.n_edges - 1)
     new = (new + (new >= edge).to(new.dtype)).to(torch.int32)
     ce = torch.where(fail & (topo.cell_edge == edge), new, topo.cell_edge)
-    return Topology(ce, topo.edge_capacity, topo.cloud_servers)
+    return dataclasses.replace(topo, cell_edge=ce)
 
 
-def _segment_totals(values, segments, n_segments: int) -> torch.Tensor:
-    """Per-segment sums (the reference's ``segment_sum``)."""
+def fleet_total(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """``x``, an integer total over this rank's cells, summed over the
+    ranks of ``mesh`` (as it is without one)."""
+    return x if mesh is None else mesh.all_sum(x)
+
+
+def _segment_totals(values, segments, n_segments: int,
+                    mesh=None) -> torch.Tensor:
+    """Per-segment sums (the reference's ``segment_sum``), over every
+    rank's cells on a fleet mesh."""
     out = torch.zeros(n_segments, dtype=values.dtype, device=values.device)
-    return out.index_add_(0, segments.long(), values)
+    return fleet_total(out.index_add_(0, segments.long(), values), mesh)
 
 
 def cloud_load_multiplier(n_cloud_total, cloud_servers):
@@ -149,10 +213,12 @@ def shared_contention(per_user, topo: Topology, active=None):
         at_cloud = at_cloud & active
     e_cnt = at_edge.sum(-1)
     c_cnt = at_cloud.sum(-1)
-    edge_tot = _segment_totals(e_cnt, topo.cell_edge, topo.n_edges)
+    edge_tot = _segment_totals(e_cnt, topo.cell_edge, topo.n_edges,
+                               topo.mesh)
     ce = topo.cell_edge.long()
     n_e_eff = edge_tot[ce] / topo.edge_capacity[ce]
-    mult = cloud_load_multiplier(c_cnt.sum(), topo.cloud_servers)
+    mult = cloud_load_multiplier(fleet_total(c_cnt.sum(), topo.mesh),
+                                 topo.cloud_servers)
     return n_e_eff, c_cnt, mult
 
 
@@ -189,5 +255,5 @@ def edge_utilization(per_user, topo: Topology, active=None):
     if active is not None:
         at_edge = at_edge & active
     edge_tot = _segment_totals(at_edge.sum(-1), topo.cell_edge,
-                               topo.n_edges)
+                               topo.n_edges, topo.mesh)
     return edge_tot / topo.edge_capacity

@@ -30,15 +30,21 @@ the window slot is ``step // window_len`` (mod ``n_windows``), and
 ``summary()`` reports a learning-curve time series.
 
 The update counter ``step`` is a Python int, as the port keeps
-``FleetScenario.t`` and the cache position. The reference's ``place``
-(sharded placement of the leaves) waits for the port's fleet sharding
-and is not here.
+``FleetScenario.t`` and the cache position.
+
+``place`` readies an accumulator for a sharded fleet
+(``repro_torch.fleet.shard``): each rank keeps its block of the
+per-cell lanes, while histograms, under/overflow counters and
+single-lane streams are replicated. A placed ``update`` all-reduces
+its histogram and counter increments (integers, exact), and
+``summary`` / ``lane_means`` assemble the lanes whole first, so every
+number equals the unsharded accumulator's.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, Sequence
+from typing import Callable, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -111,10 +117,16 @@ class MetricsAccumulator:
     """
 
     def __init__(self, data: Dict[str, Dict[str, torch.Tensor]],
-                 defs: Dict[str, MetricDef], step: int = 0):
+                 defs: Dict[str, MetricDef], step: int = 0, mesh=None):
         self.data = data
         self.defs = defs
         self.step = int(step)
+        #: the fleet mesh whose ranks hold the lane blocks (``place``)
+        self.mesh = mesh
+
+    def _split(self, name: str) -> bool:
+        """Does this rank hold a block of the stream's lanes?"""
+        return self.data[name]["count"].shape[0] != self.defs[name].lanes
 
     @property
     def device(self) -> torch.device:
@@ -181,14 +193,15 @@ class MetricsAccumulator:
                 raise KeyError(
                     f"unknown metric {name!r}; have {sorted(self.data)}")
             df = self.defs[name]
+            d = self.data[name]
+            lanes = d["count"].shape[0]       # this rank's block when placed
             x = self._as_f32(val)
-            if x.numel() % df.lanes:
+            if x.numel() % lanes:
                 raise ValueError(
                     f"metric {name!r}: value of size {x.numel()} does not "
-                    f"split into {df.lanes} lanes")
-            x = x.reshape(df.lanes, -1)
+                    f"split into {lanes} lanes")
+            x = x.reshape(lanes, -1)
             k = x.shape[1]
-            d = self.data[name]
             if k == 1:        # one sample a lane: the fleet loops' case
                 tot = x[:, 0]
                 sq, mn, mx = tot * tot, tot, tot
@@ -206,12 +219,22 @@ class MetricsAccumulator:
             d["sumsq"] += sq
             torch.minimum(d["mn"], mn, out=d["mn"])
             torch.maximum(d["mx"], mx, out=d["mx"])
-            d["hist"].index_add_(0, idx.reshape(-1),
-                                 torch.ones((idx.numel(),),
-                                            dtype=torch.int32,
-                                            device=x.device))
-            d["underflow"] += (x < lo).sum()
-            d["overflow"] += (x >= hi).sum()
+            ones = torch.ones((idx.numel(),), dtype=torch.int32,
+                              device=x.device)
+            under, over = (x < lo).sum(), (x >= hi).sum()
+            if self._split(name):
+                # the whole fleet's increments: integers, summed exactly
+                inc = torch.zeros(df.bins + 2, dtype=torch.int32,
+                                  device=x.device)
+                inc[:df.bins].index_add_(0, idx.reshape(-1), ones)
+                inc[df.bins], inc[df.bins + 1] = under, over
+                inc = self.mesh.all_sum(inc)
+                d["hist"] += inc[:df.bins]
+                under, over = inc[df.bins], inc[df.bins + 1]
+            else:
+                d["hist"].index_add_(0, idx.reshape(-1), ones)
+            d["underflow"] += under
+            d["overflow"] += over
             if df.n_windows:
                 slot = (self.step // df.window_len) % df.n_windows
                 d["wcount"][slot] += k
@@ -251,7 +274,39 @@ class MetricsAccumulator:
                     wmn=torch.minimum(d["wmn"], o["wmn"]),
                     wmx=torch.maximum(d["wmx"], o["wmx"]))
         return MetricsAccumulator(data, dict(self.defs),
-                                  max(self.step, other.step))
+                                  max(self.step, other.step), self.mesh)
+
+    # -- placement -------------------------------------------------------
+    def place(self, shard_fn: Callable, replicate_fn: Callable,
+              mesh=None) -> "MetricsAccumulator":
+        """Place leaves for sharded training: lane leaves of multi-lane
+        metrics (lanes = cells) go through ``shard_fn(x, axis)`` (axis 0
+        of the base leaves, axis 1 of the ``(n_windows, lanes)`` ring);
+        histograms, under/overflow counters and single-lane leaves
+        through ``replicate_fn``. ``mesh`` is the fleet mesh whose ranks
+        hold the lane blocks: a placed update all-reduces its histogram
+        and counter increments over it."""
+        replicated = ("hist", "underflow", "overflow")
+        data = {}
+        for name, d in self.data.items():
+            sharded = self.defs[name].lanes > 1
+            leaf = {}
+            for k, v in d.items():
+                if k in replicated or not sharded:
+                    leaf[k] = replicate_fn(v)
+                elif k in ("wcount", "wtotal", "wmn", "wmx"):
+                    leaf[k] = shard_fn(v, 1)      # lanes are axis 1
+                else:
+                    leaf[k] = shard_fn(v, 0)
+            data[name] = leaf
+        return MetricsAccumulator(data, dict(self.defs), self.step, mesh)
+
+    def _whole(self, name: str, key: str) -> torch.Tensor:
+        """A leaf with its lanes assembled whole."""
+        v = self.data[name][key]
+        if key in ("hist", "underflow", "overflow") or not self._split(name):
+            return v
+        return self.mesh.gather(v, axis=1 if key.startswith("w") else 0)
 
     # -- host-side reporting ---------------------------------------------
     def summary(self) -> Dict[str, dict]:
@@ -260,7 +315,7 @@ class MetricsAccumulator:
         out = {}
         for name, d in self.data.items():
             df = self.defs[name]
-            h = {k: v.detach().cpu().numpy() for k, v in d.items()}
+            h = {k: self._whole(name, k).detach().cpu().numpy() for k in d}
             count = h["count"].astype(np.int64)
             total = h["total"].astype(np.float64)
             sumsq = h["sumsq"].astype(np.float64)
@@ -330,8 +385,7 @@ class MetricsAccumulator:
 
     def lane_means(self, name: str) -> np.ndarray:
         """Per-lane means (NaN for empty lanes) — e.g. per-cell reward."""
-        d = self.data[name]
-        count = d["count"].cpu().numpy().astype(np.float64)
-        total = d["total"].cpu().numpy().astype(np.float64)
+        count = self._whole(name, "count").cpu().numpy().astype(np.float64)
+        total = self._whole(name, "total").cpu().numpy().astype(np.float64)
         with np.errstate(invalid="ignore", divide="ignore"):
             return total / np.where(count > 0, count, np.nan)

@@ -408,18 +408,17 @@ def scaling_sweep(cells_grid: Sequence[int], users: int = 3, mesh=None,
 
     ``cliff_cells`` names the first grid size whose time per cell-step
     exceeds ``(1 + cliff_tol) x`` the grid minimum (None when flat).
-    ``mesh`` waits for the port's fleet sharding and raises.
+    With ``mesh`` (``fleet.shard.fleet_mesh``) the scenario and actions
+    shard along the fleet axis and every number is per rank: the flops
+    of the rank's block, and its time over its block of cells.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "scaling_sweep(mesh=...) needs the fleet sharding the port "
-            "does not have yet")
     from repro_torch import resolve_device
     from repro_torch.fleet.api import SyntheticSource, make_env_step
     from repro_torch.fleet.scenarios import FleetConfig
     from repro_torch.rng import Draws
 
     dev = resolve_device(device)
+    ndev = mesh.size if mesh is not None else 1
     cfg_kw = dict(arrival_rate=1.0, p_r2w=0.05, p_w2r=0.1)
     cfg_kw.update(config_kwargs or {})
     flops_per_cell: Dict[int, float] = {}
@@ -427,14 +426,14 @@ def scaling_sweep(cells_grid: Sequence[int], users: int = 3, mesh=None,
     per_device_sps: Dict[int, float] = {}
     for cells in cells_grid:
         source = SyntheticSource(FleetConfig(cells=cells, users=users,
-                                             **cfg_kw))
+                                             **cfg_kw), mesh=mesh)
         env_step = make_env_step(source)
         draws = Draws(1, dev)
         scen, _ = source.reset(Draws(0, dev))
-        a1 = torch.zeros((cells, users), dtype=torch.int32, device=dev)
+        a1 = torch.zeros((scen.cells, users), dtype=torch.int32, device=dev)
         prof = profile_fn(lambda s, a: env_step(draws, s, a), scen, a1,
                           name=f"env_step_{cells}")
-        flops_per_cell[cells] = prof.flops / cells
+        flops_per_cell[cells] = prof.flops / scen.cells
 
         def run_chunk(scen):
             for _ in range(chunk):
@@ -449,11 +448,11 @@ def scaling_sweep(cells_grid: Sequence[int], users: int = 3, mesh=None,
             _sync(dev)
         dt = time.perf_counter() - t0
         total = n_chunks * chunk * cells
-        per_device_sps[cells] = total / dt
-        us_dev_per_cell[cells] = dt / total * 1e6
+        per_device_sps[cells] = total / dt / ndev
+        us_dev_per_cell[cells] = dt * ndev / total * 1e6
 
-    return {"grid": list(cells_grid), "users": users, "devices": 1,
-            "sharded": False, "backend": dev.type,
+    return {"grid": list(cells_grid), "users": users, "devices": ndev,
+            "sharded": mesh is not None, "backend": dev.type,
             **_classify(list(cells_grid), flops_per_cell, us_dev_per_cell,
                         per_device_sps, cliff_tol, flop_tol)}
 

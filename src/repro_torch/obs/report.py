@@ -92,8 +92,9 @@ def git_info() -> dict:
 
 
 def run_manifest(config: Any = None, mesh=None, **extra) -> dict:
-    """The provenance stamp. ``mesh`` waits for the port's sharding and
-    is recorded as None when not given; ``extra`` keys (e.g.
+    """The provenance stamp. ``mesh`` (a ``fleet.shard.FleetMesh``) is
+    recorded by its axis sizes, ``{"fleet": ranks}``, and as None when
+    not given; ``extra`` keys (e.g.
     ``wall_seconds=...``) merge in last. ``backend`` is PyTorch's
     default device kind here: ``"cuda"`` when a card is visible, else
     ``"cpu"``."""

@@ -54,3 +54,49 @@ def as_draws(seed_or_draws, device=None) -> Draws:
     if isinstance(seed_or_draws, Draws):
         return seed_or_draws
     return Draws(int(seed_or_draws), device)
+
+
+#: the sites whose draws are shaped ``(cells, ...)`` once a scenario is
+#: built: on a sharded fleet each rank draws the whole fleet's values and
+#: keeps its own block (``BlockDraws``)
+CELL_SITES = frozenset({"explore", "explore_action", "noise",
+                        "scenario.links", "scenario.churn",
+                        "scenario.arrivals", "scenario.edge_fail"})
+
+
+class BlockDraws(Draws):
+    """The draws of one rank of a sharded fleet: a draw at a per-cell
+    site whose leading dimension is this rank's block of ``block`` cells
+    is drawn for all ``block * n_blocks`` cells from ``base`` and cut to
+    rows ``[rank * block, (rank + 1) * block)``, so every rank consumes
+    ``base`` exactly as the unsharded fleet does and keeps the values
+    the unsharded fleet gives its cells. Every other draw passes through
+    unchanged."""
+
+    def __init__(self, base: Draws, rank: int, n_blocks: int, block: int):
+        self.base = base
+        self.device = base.device
+        self.gen = base.gen
+        self.rank, self.n_blocks, self.block = rank, n_blocks, block
+
+    def _cut(self, site, shape):
+        shape = tuple(shape)
+        if site in CELL_SITES and shape and shape[0] == self.block:
+            return (self.block * self.n_blocks,) + shape[1:], True
+        return shape, False
+
+    def _keep(self, x, cut):
+        return x[self.rank * self.block:(self.rank + 1) * self.block] \
+            if cut else x
+
+    def uniform(self, site: str, shape) -> torch.Tensor:
+        shape, cut = self._cut(site, shape)
+        return self._keep(self.base.uniform(site, shape), cut)
+
+    def normal(self, site: str, shape) -> torch.Tensor:
+        shape, cut = self._cut(site, shape)
+        return self._keep(self.base.normal(site, shape), cut)
+
+    def randint(self, site: str, shape, high: int, low: int = 0):
+        shape, cut = self._cut(site, shape)
+        return self._keep(self.base.randint(site, shape, high, low), cut)

@@ -62,31 +62,57 @@ def _leaves(tree):
     return [p[k] for p in tree for k in sorted(p)]
 
 
+def _sqrt32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, as XLA and the card
+    compute it: PyTorch's vectorized CPU ``sqrt`` can be 1 ulp off, so
+    the root is taken in float64 and rounded once."""
+    return torch.sqrt(x.double()).float()
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in _leaves(tree)))
+    return _sqrt32(sum(torch.sum(torch.square(g.float()))
+                       for g in _leaves(tree)))
+
+
+def _fma(s: float, x: torch.Tensor, c: torch.Tensor, out: torch.Tensor):
+    """``s * x + c`` into the float32 ``out`` with one rounding: the
+    reference's step runs under ``jax.jit``, and XLA's CPU compiler (JAX
+    0.9.0) contracts these products into fused multiply-adds. Emulated in
+    float64, where the product of two float32 values is exact."""
+    return torch.add(c.double(), x, alpha=float(np.float32(s)), out=out)
 
 
 def apply_updates(params, grads, state, cfg: AdamWConfig):
     """One AdamW step, updating ``params`` and ``state`` IN PLACE.
-    Returns ``(params, state, {"grad_norm", "lr"})``."""
+    Returns ``(params, state, {"grad_norm", "lr"})``.
+
+    The arithmetic is the reference's as ``jax.jit`` compiles it, on
+    every device: the clip scale and ``v / b2c`` are true divisions by
+    device tensors (a Python divisor is multiplied by its reciprocal on
+    the card, and in ``clip / norm`` on both devices), ``(m / b1c) /
+    (sqrt(v / b2c) + eps)`` is the one division ``m / (b1c * (...))``,
+    and the moment and parameter updates are fused multiply-adds."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
-    scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    scale = (torch.clamp(torch.full_like(gnorm, cfg.grad_clip)
+                         / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip else 1.0)
     lr = float(lr_at(cfg, step))
     f = np.float32
-    b1c = float(f(1) - f(cfg.b1) ** f(step))
-    b2c = float(f(1) - f(cfg.b2) ** f(step))
+    b1c = torch.tensor(f(1) - f(cfg.b1) ** f(step), device=gnorm.device)
+    b2c = torch.tensor(f(1) - f(cfg.b2) ** f(step), device=gnorm.device)
     with torch.no_grad():
         for p, g, m, v in zip(_leaves(params), _leaves(grads),
                               _leaves(state["m"]), _leaves(state["v"])):
             g = g.float() * scale
-            m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
-            v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)
-            u = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+            _fma(cfg.b1, m, (1 - cfg.b1) * g, out=m)
+            _fma(cfg.b2, v, (1 - cfg.b2) * g * g, out=v)
+            u = m / (b1c * (_sqrt32(v / b2c) + cfg.eps))
             if cfg.weight_decay and p.ndim >= 2:
                 u = u + cfg.weight_decay * p.float()
-            p.copy_((p.float() - lr * u).to(p.dtype))
+            if p.dtype == torch.float32:
+                _fma(-lr, u, p, out=p)
+            else:
+                p.copy_((p.float() - lr * u).to(p.dtype))
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

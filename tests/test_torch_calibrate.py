@@ -35,6 +35,18 @@ from repro_torch.rng import Draws
 TRACE = os.path.join(os.path.dirname(__file__), "data", "trace_small.npz")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread: ``calibrate_serving`` compares the walls of
+    two routes, and several test workers share the host's cores, so
+    with torch's default thread count a worker's walls swing with the
+    load of the others between the two routes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _carry(js):
     topo = None if js.topo is None else (
         np.asarray(js.topo.cell_edge), np.asarray(js.topo.edge_capacity),

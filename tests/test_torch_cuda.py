@@ -17,8 +17,9 @@ states, over 2 and over 4 lanes; the banded sliding-window
 attention against the CPU's plain path; the coupled oracle's
 best-response round against its plain version (one cell, every cell on
 one edge, an infinite cloud, a calibration, one-user cells, tied
-candidates, one feasible candidate) and the float32 fleet env step
-against the CPU, bit for bit.
+candidates, one feasible candidate), the float32 fleet env step and the AdamW
+step against the CPU, bit for bit, and a short ``FleetDQN`` run's
+parameters against the CPU's.
 Every test here needs a CUDA device
 and skips without one; run them on the GPU with
 
@@ -738,3 +739,83 @@ def test_float32_fleet_env_step_on_the_card_matches_the_cpu(cuda, coupled):
     for got, want in zip(_env_step_on(cuda, coupled),
                          _env_step_on("cpu", coupled)):
         assert torch.equal(got, want)
+
+
+def test_adamw_step_on_the_card_matches_the_cpu(cuda):
+    """The AdamW step on the card equals the CPU's bit for bit, clipped
+    and not: the clip scale and ``v / b2c`` divide by device tensors
+    (a Python divisor is a reciprocal product on the card), the update's
+    multiply-adds are one rounding on both devices, and the square roots
+    are correctly rounded."""
+    from repro_torch.training import optimizer
+    cfg = optimizer.constant_lr_adamw(1e-3)
+    rng = np.random.default_rng(0)
+    shapes = [{"w": (11, 128), "b": (128,)}, {"w": (128, 10), "b": (10,)}]
+    init = [{k: rng.standard_normal(s).astype(np.float32)
+             for k, s in layer.items()} for layer in shapes]
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = [{k: torch.tensor(v, device=dev) for k, v in layer.items()}
+                  for layer in init]
+        state = optimizer.init_opt_state(params)
+        g_rng = np.random.default_rng(1)
+        for i in range(12):
+            # multiples of 1/4 (clipped) or 1/512 (not): their squares
+            # sum exactly in any order, so both norms are the same
+            denom = 4.0 if i % 2 == 0 else 512.0
+            grads = [{k: torch.tensor(
+                (g_rng.integers(-8, 9, s) / denom).astype(np.float32),
+                device=dev) for k, s in layer.items()} for layer in shapes]
+            optimizer.apply_updates(params, grads, state, cfg)
+        runs[dev.type] = [params, state["m"], state["v"]]
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        for g, w in zip(got, want):
+            for k in g:
+                assert torch.equal(g[k].cpu(), w[k]), k
+
+
+def test_short_fleet_dqn_run_on_the_card_matches_the_cpu(cuda):
+    """Five FleetDQN steps from the same draws (taken on the host, so
+    both devices see the same values) at full exploration: the
+    environment, the replay and the AdamW step are bit-equal on both
+    devices, the loss's float32 matmuls sum in another order (cuBLAS
+    against the CPU's), so the parameters agree within 1e-5 abs +
+    1e-4 rel."""
+    from repro_torch.fleet import api, policy, scenarios
+    from repro_torch.rng import Draws
+
+    class HostDraws(Draws):
+        """Draws from a CPU generator, moved to ``device``."""
+
+        def __init__(self, seed, device):
+            super().__init__(seed, "cpu")
+            self.device = torch.device(device)
+
+        def uniform(self, site, shape):
+            return torch.rand(shape, generator=self.gen).to(self.device)
+
+        def normal(self, site, shape):
+            return torch.randn(shape, generator=self.gen).to(self.device)
+
+        def randint(self, site, shape, high, low=0):
+            return torch.randint(low, high, shape,
+                                 generator=self.gen).to(self.device)
+
+    cfg = scenarios.FleetConfig(cells=256, users=3, arrival_rate=1.0,
+                                p_r2w=0.05, p_w2r=0.1, n_edges=8,
+                                cloud_servers=64.0)
+    kw = dict(hidden=32, replay_capacity=1024, batch_size=64,
+              eps_start=1.0, eps_min=1.0, accuracy_threshold=85.0)
+    params = {}
+    for dev in (cuda, torch.device("cpu")):
+        agent = policy.FleetDQN(api.SyntheticSource(cfg), device=dev,
+                                draws=HostDraws(3, dev),
+                                cfg=policy.FleetDQNConfig(**kw))
+        agent.run(5)
+        params[dev.type] = agent.params
+        counts = agent.counts.cpu()
+    for g, w in zip(params["cuda"], params["cpu"]):
+        for k in ("w", "b"):
+            torch.testing.assert_close(g[k].detach().cpu(), w[k].detach(),
+                                       atol=1e-5, rtol=1e-4)
+    assert counts.sum() > 0

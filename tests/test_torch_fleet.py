@@ -459,12 +459,10 @@ def test_draws_run_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     assert d.uniform("explore", (3,)).device.type == "cpu"
 
 
-def test_topology_fleets_raise_until_the_coupled_oracle_is_ported():
-    """The name dates from before the coupled oracle was ported, when a
-    fleet with a topology raised. It now checks that such a fleet no
-    longer raises, and that under the identity topology it gives the
-    isolated optimum (here a one-candidate table, so index 0
-    everywhere)."""
+def test_identity_topology_fleet_gives_the_isolated_optimum():
+    """A fleet with a topology goes through the coupled oracle, and
+    under the identity topology it gives the isolated optimum (here a
+    one-candidate table, so index 0 everywhere)."""
     iso = scenarios.table5_fleet("EXP-B", 6, 3, device="cpu")
     scen = scenarios.with_topology(iso, topology.identity_topology(6))
     pu = torch.zeros((1, 3), dtype=torch.int64)

@@ -276,9 +276,24 @@ def test_scaling_sweep_schema_and_classification():
     assert f["16"] <= 1.15 * f["8"]
 
 
-def test_scaling_sweep_on_a_mesh_waits_for_fleet_sharding():
-    with pytest.raises(NotImplementedError, match="sharding"):
-        scaling_sweep([8], mesh=object(), device="cpu")
+def test_scaling_sweep_on_a_mesh_waits_for_fleet_sharding(tmp_path):
+    """The name dates from before the fleet sharding was ported, when a
+    mesh raised. On a one-rank gloo mesh the sweep now runs and reports
+    per-rank numbers equal in kind to the unsharded sweep's (two ranks:
+    ``tests/test_torch_shard.py``)."""
+    import torch.distributed as dist
+    from repro_torch.fleet import shard
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/init",
+                            rank=0, world_size=1)
+    try:
+        rep = scaling_sweep([8], mesh=shard.fleet_mesh(device="cpu"),
+                            steps=4, chunk=2, device="cpu")
+    finally:
+        dist.destroy_process_group()
+    plain = scaling_sweep([8], steps=4, chunk=2, device="cpu")
+    assert rep["sharded"] and not plain["sharded"]
+    assert rep["devices"] == plain["devices"] == 1
+    assert rep["flops_per_cell"] == plain["flops_per_cell"]
 
 
 @pytest.mark.parametrize("flops16,want", [(100.0, "runtime"),
