@@ -35,6 +35,22 @@ paths through the entry points a user calls:
   fleet routed into the engines; and Hymba-1.5B at full size (32 hybrid
   layers, d_model 1600) generating at batch 8 from a 2,048-token prompt,
   longer than its 1,024-token window (kernels K3, K4, K5, K6);
+* the mixture-of-experts path: ``build_engines`` over
+  Granite-3.0-1B-A400M at its published size (24 layers, d_model 1,024,
+  16/8 heads of 64, 32 experts of d_ff 512, top-8; d0 bf16 and d4 with
+  int8 attention and experts), a 2-layer full-width cut of each held
+  against the CPU (phase ``moe_cpu_agreement``: every MoE block on the
+  card against the CPU's on the CPU's own input, its choice of experts
+  equal wherever the router's margin exceeds 1e-4; the logits, greedy
+  tokens and router probabilities of the whole cut), each variant's
+  ``generate`` at batch 64, prompt 256, 16 new tokens (``moe_serving``:
+  the prefill's ``dropped_frac``, the K/V cache's shape, parameters
+  held against ``param_count()``), and a 256-cell 3-user fleet routed
+  into the engines (``route_dispatch_moe``); decode and prefill
+  profiles of both (kernels K3, K4, and K5 on d4's projections and,
+  batched over the 32 experts in one launch, on its expert products;
+  their ``kernel_parity`` lines, K5's bit-exact beside the loop of 32
+  ``torch._int_mm`` calls, follow the single-cell layer's);
 * the coupled fleet (phases ``coupled_oracle``, ``coupled_holdout``,
   ``cell_dqn``, ``prof``): ``topology_bruteforce`` through the
   best-response kernel on the reference benchmark's hot edge (64 cells of
@@ -75,7 +91,12 @@ after; every route checks its identities (each active user served
 once, or shed once where a bridge is overloaded; batching + compute +
 dispatch = wall; queue + measured = e2e; attained + violated =
 dispatched). Every phase prints one JSON line; any failed check raises
-and the exit code is non-zero. The ``kernel_parity`` lines of K2, K3,
+and the exit code is non-zero. Every time a ``kernel_parity`` line
+reports (the kernel's, its plain version's and the library call's, warm
+and cold) comes from one method, CUDA events around a call queued behind
+a spin kernel that hides its launch (``hidden_ms``); ``profiler_ms``
+gives ``torch.profiler``'s reading of the kernel beside it, for the
+offset between the two. The ``kernel_parity`` lines of K2, K3,
 K4 and K5 also give each case's time with the L2 cache cold
 (``cold_ms``, ``library_cold_ms``: a 256 MB read before each call) and
 ``bound_share`` (bound over time); K2's lines cover every action allowed
@@ -125,12 +146,19 @@ SSM_VARIANTS = ("d0", "d4")
 HYBRID_BATCH, HYBRID_PROMPT = 8, 2048
 HYBRID_MAX_LEN = HYBRID_PROMPT + NEW_TOKENS
 SSM_ROUTE_CELLS = 256
+# the mixture-of-experts path: Granite-3.0-1B-A400M's served variants and
+# its routed fleet's seed
+MOE_ARCH, MOE_VARIANTS, MOE_ROUTE_SEED = "granite-moe-1b-a400m", \
+    ("d0", "d4"), 17
 # the exponentials' own rate: 16 per clock on each SM's special function
 # units x 132 SMs x the 1.98 GHz boost clock (NVIDIA's Hopper white paper)
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # bytes read between two calls of a cold-L2 reading: five times the 50 MB
 # L2 cache
 FLUSH_BYTES = 256 << 20
+# clock cycles a second that size a spin kernel (``hidden_ms``): the boost
+# clock, so a spin lasts at least as long as asked at any lower clock
+SPIN_HZ = 1.98e9
 # the port's kernel functions, whose device time a step profile reports
 OUR_KERNELS = ("tabular_rl_kernel", "dqn_head_kernel",
                "best_response_kernel", "flash_attention_tc_kernel",
@@ -185,21 +213,51 @@ def burst_ms(fn, n=10):
     return a.elapsed_time(b) / n
 
 
-def device_ms(fn, warmup=3, reps=20):
-    """Mean device time per call of every CUDA kernel ``fn`` launches,
-    from a ``torch.profiler`` trace (the kernels' own time, without the
-    host's launch overhead). None when the trace holds no device time."""
-    import torch
+#: pairs of traces taken before a profiler reading is given up
+TRACE_TRIES = 3
+
+
+def kernel_counts(torch, fn, reps=1):
+    """({kernel name: launches}, {kernel name: device us}) of a
+    ``torch.profiler`` trace of ``reps`` calls of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(us for _, us in device_events(prof))
-    return total_us / reps / 1e3 if total_us > 0 else None
+    counts, us = {}, {}
+    for n, t in device_events(prof):
+        counts[n] = counts.get(n, 0) + 1
+        us[n] = us.get(n, 0.0) + t
+    return counts, us
+
+
+def traced_ms(torch, fn, reps):
+    """Mean device ms per call of the kernels ``fn`` launches: for each
+    kernel, its mean time a launch in a trace of ``reps`` calls times its
+    launches in a trace of one call. The profiler drops events at times
+    (1-4 us kernels most, PERF.md §7) and a reading must not come out
+    short for it, so the two traces must hold the same kernels, else both
+    are taken again, up to ``TRACE_TRIES`` times; None if they never
+    do."""
+    for _ in range(TRACE_TRIES):
+        one, _ = kernel_counts(torch, fn)
+        counts, us = kernel_counts(torch, fn, reps)
+        if one and set(one) == set(counts):
+            return sum(one[n] * us[n] / counts[n] for n in one) / 1e3
+    return None
+
+
+def device_ms(fn, warmup=3, reps=20):
+    """Mean device time per call of every CUDA kernel ``fn`` launches,
+    from ``torch.profiler`` traces (the kernels' own time, without the
+    host's launch overhead; ``traced_ms``). None when no two traces held
+    the same kernels."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    return traced_ms(torch, fn, reps)
 
 
 def device_events(prof):
@@ -209,31 +267,45 @@ def device_events(prof):
             if e.device_type == DeviceType.CUDA]
 
 
-def cold_ms(fn, reps=20):
-    """Mean device time per call of the kernels ``fn`` launches with the
-    L2 cache cold: a sum over a ``FLUSH_BYTES`` buffer runs before each
-    call (as the model's call finds its inputs after the layers between
-    have streamed their weights through the L2), and only the kernels
-    named in a trace of one call of ``fn`` are counted, never the
-    flush's. None when the traces hold no time of those kernels."""
+def hidden_ms(fn, reps=20, before=None):
+    """Mean device time per call of ``fn`` in ms from a CUDA event pair
+    around each call, with the host's launch of the call hidden: a spin
+    kernel (``torch.cuda._sleep``) twice as long as the host takes to
+    issue one call runs first (after ``before()`` where given), so the
+    call's kernels are queued by the time the first event is reached and
+    the pair times the device alone. Needs no profiler trace."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    buf = torch.ones(FLUSH_BYTES // 4, device="cuda")
-
-    def names(f):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            f()
-            torch.cuda.synchronize()
-        return {n for n, _ in device_events(prof)}
     fn()
-    own = names(fn) - names(buf.sum)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            buf.sum()
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(us for n, us in device_events(prof) if n in own)
-    return total_us / reps / 1e3 if total_us > 0 else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(2 * issue_s * SPIN_HZ) + int(50e-6 * SPIN_HZ)
+    total = 0.0
+    for _ in range(reps):
+        if before is not None:
+            before()
+        torch.cuda._sleep(cycles)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
+
+
+def cold_ms(fn, reps=20):
+    """Mean device time per call of ``fn`` with the L2 cache cold: a sum
+    over a ``FLUSH_BYTES`` buffer runs before each call (as the model's
+    call finds its inputs after the layers between have streamed their
+    weights through the L2), outside the event pair that times the call
+    (``hidden_ms``)."""
+    import torch
+    buf = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    return hidden_ms(fn, reps, before=buf.sum)
 
 
 def ptxas_summary(log):
@@ -259,7 +331,7 @@ def ptxas_summary(log):
 
 def profile_window(torch, run):
     """One ``torch.profiler`` window around ``run()``: (host wall us, to
-    the device's end; {kernel name: device us})."""
+    the device's end; {kernel name: device us}; device events)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -268,17 +340,17 @@ def profile_window(torch, run):
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
-    for n, us in device_events(prof):
+    by_name, events = {}, device_events(prof)
+    for n, us in events:
         by_name[n] = by_name.get(n, 0.0) + us
-    return wall_us, by_name
+    return wall_us, by_name, len(events)
 
 
 def step_profile(torch, run, steps=5, top=5, **label):
     """Device busy share of ``run()`` (``steps`` steps of a path) and the
     ``top`` kernels with the most device time, from one ``torch.profiler``
     window."""
-    wall_us, by_name = profile_window(torch, run)
+    wall_us, by_name, n_events = profile_window(torch, run)
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     ours = {}
@@ -290,6 +362,7 @@ def step_profile(torch, run, steps=5, top=5, **label):
     emit(phase="step_profile", **label, steps=steps,
          wall_ms_per_step=wall_us / steps / 1e3,
          device_ms_per_step=busy / steps / 1e3,
+         device_events_per_step=n_events / steps,
          device_busy_share=busy / wall_us if wall_us else None,
          top_kernels=[[n[:80], us / steps / 1e3] for n, us in top],
          our_kernels_ms_per_step=ours,
@@ -298,14 +371,19 @@ def step_profile(torch, run, steps=5, top=5, **label):
          if busy else None)
 
 
-def timed(fn, warmup=3, reps=20):
-    """(ms, wall_ms, source): the profiler's device time per call where
-    the trace has it, else the CUDA-event time; and the CUDA-event time
-    per call, which includes the host's launch overhead."""
+def timed(fn, warmup=3, reps=20, profile=False):
+    """(ms, wall_ms, profiler_ms): the device time per call from CUDA
+    events with the launch hidden (``hidden_ms``), the one method of every
+    time a kernel's line reports (the kernel's, its plain version's and
+    the library call's, warm and cold); the CUDA-event time per call,
+    which includes the host's launch overhead; and, with ``profile``,
+    ``torch.profiler``'s reading of the same calls (``device_ms``: the
+    kernels' own time, without the event pair's few microseconds), for
+    the offset between the two methods, None where no two traces held the
+    same kernels (or without ``profile``)."""
     wall = time_ms(fn, warmup, reps)
-    dev = device_ms(fn, warmup, reps)
-    return (dev, wall, "profiler") if dev is not None else \
-        (wall, wall, "events")
+    prof = device_ms(fn, warmup, reps) if profile else None
+    return hidden_ms(fn, reps), wall, prof
 
 
 def bound(bytes_moved, ops, ops_per_s=FP32_OPS_PER_S):
@@ -339,8 +417,9 @@ def tabular_phase(torch, tabular_rl, ref):
     err = max(float((q_k - q_p).abs().max()), float((td_k - td_p).abs().max()))
     check(err <= 1e-6, f"tabular_rl: q/td differ by {err}")
     qk, qp = q0.clone(), q0.clone()
-    ms, wall_ms, src = timed(
-        lambda: tabular_rl.tabular_rl_cuda(qk, s, a, r, s2, **kw))
+    ms, wall_ms, prof_ms = timed(
+        lambda: tabular_rl.tabular_rl_cuda(qk, s, a, r, s2, **kw),
+        profile=True)
     plain_ms, plain_wall_ms, _ = timed(
         lambda: ref.fused_tabular_ref(qp, s, a, r, s2, **kw))
     # what the function must move: row s2 and q[s, a] read, q[s, a]
@@ -354,7 +433,7 @@ def tabular_phase(torch, tabular_rl, ref):
     emit(phase="kernel_parity", kernel="tabular_rl",
          shape=[cells, n_states, k], greedy2_equal=True, max_abs_err=err,
          tolerance=1e-6, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-         bound_by=b_by, timing=src, wall_ms=wall_ms,
+         bound_by=b_by, profiler_ms=prof_ms, wall_ms=wall_ms,
          plain_wall_ms=plain_wall_ms)
     return entry
 
@@ -454,7 +533,8 @@ def head_phase(torch, dqn_head, ref, dynamics, spaces, ptxas):
         check(torch.equal(d_k, d_own), "dqn_head: decisions differ from "
               f"the plain logic on the kernel's q at {threshold}, {mask} "
               "allowed")
-        ms, wall_ms, src = timed(lambda: dqn_head.dqn_head_cuda(*args, **kw))
+        ms, wall_ms, prof_ms = timed(
+            lambda: dqn_head.dqn_head_cuda(*args, **kw), profile=True)
         plain_ms, plain_wall_ms, _ = timed(
             lambda: ref.dqn_head_ref(*args, **kw))
         if not threshold:
@@ -474,7 +554,8 @@ def head_phase(torch, dqn_head, ref, dynamics, spaces, ptxas):
              cells_differing=int(differ.sum()), ms=ms, plain_ms=plain_ms,
              bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
              cold_ms=cold_ms(lambda: dqn_head.dqn_head_cuda(*args, **kw)),
-             timing=src, wall_ms=wall_ms, plain_wall_ms=plain_wall_ms,
+             profiler_ms=prof_ms, wall_ms=wall_ms,
+             plain_wall_ms=plain_wall_ms,
              ptxas=regs[0] if regs else None)
     main = out["all", 85.0]           # the DQN phase's QoS operating point
     return dict(name="dqn_head", route="cuda",
@@ -511,6 +592,19 @@ INT8_SHAPES = tuple((SERVE_BATCH * PROMPT, k, n) for k, n in (
                    (SERVE_BATCH, 4096, 16384), (SERVE_BATCH, 8192, 4096),
                    (SERVE_BATCH, 256, 1024), (SERVE_BATCH, 1024, 256))
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+#: Granite-3.0-1B-A400M's attention (16 q / 8 kv heads of 64) at its
+#: 64 x 256 prefill and 512-slot decode; K5 at its d4 attention
+#: projections (wq/wo 1,024 -> 1,024, wk/wv 1,024 -> 512) at prefill and
+#: decode rows; and K5 over its 32 int8 experts, (E, M, K, N): gate/up
+#: (1,024 -> 512) and down (512 -> 1,024) at the prefill's 64 rows x 80
+#: capacity slots and at decode's 64 x 1
+MOE_FLASH_CASES = (("granite", SERVE_BATCH, PROMPT, 16, 8, 64, 0),)
+MOE_DECODE_CASES = (("granite", SERVE_BATCH, MAX_LEN, 16, 8, 64, 0),)
+MOE_INT8_SHAPES = tuple((m, 1024, n) for m in (SERVE_BATCH * PROMPT,
+                                                SERVE_BATCH)
+                        for n in (1024, 512))
+MOE_EXPERT_SHAPES = tuple((32, SERVE_BATCH * c, k, n) for c in (80, 1)
+                          for k, n in ((1024, 512), (512, 1024)))
 
 
 def sdpa(torch, q, k, v, **kw):
@@ -546,9 +640,9 @@ def flash_phase(torch, flash_attention, cases=FLASH_CASES, path="serving"):
             errs.append(err)
             if dtype != "bfloat16":
                 continue
-            ms, wall_ms, src = timed(lambda: flash_attention
-                                     .flash_attention_cuda(q, k, v,
-                                                           window=window))
+            ms, wall_ms, prof_ms = timed(
+                lambda: flash_attention.flash_attention_cuda(
+                    q, k, v, window=window), profile=True)
             plain_ms, _, _ = timed(lambda: flash_attention.plain(
                 q, k, v, window=window))
             qp = torch.arange(s, device="cuda")[:, None]
@@ -574,7 +668,8 @@ def flash_phase(torch, flash_attention, cases=FLASH_CASES, path="serving"):
                        bound_share=b_ms / ms)
             emit(phase="kernel_parity", kernel="flash_attention", path=path,
                  layout=name, shape=[b, s, h, kv, hd], window=window,
-                 dtype=dtype, max_abs_err=err, tolerance=tol, timing=src,
+                 dtype=dtype, max_abs_err=err, tolerance=tol,
+                 profiler_ms=prof_ms,
                  wall_ms=wall_ms, **row)
             if name == "d0/d4" and s == PROMPT:
                 main = row
@@ -623,9 +718,9 @@ def decode_phase(torch, ops, decode_attention, cases=DECODE_CASES,
             errs.append(err)
             if dtype != "bfloat16":
                 continue
-            ms, wall_ms, src = timed(
+            ms, wall_ms, prof_ms = timed(
                 lambda: decode_attention.decode_attention_cuda(
-                    q, kc, vc, bias))
+                    q, kc, vc, bias), profile=True)
             plain_ms, _, _ = timed(
                 lambda: decode_attention.plain(q, kc, vc, bias))
             mask = bias.to(dt)[:, None, None, :]
@@ -649,7 +744,8 @@ def decode_phase(torch, ops, decode_attention, cases=DECODE_CASES,
                        bound_share=b_ms / ms, blocks=b * kv * splits)
             emit(phase="kernel_parity", kernel="decode_attention",
                  path=path, layout=name, shape=[b, sc, h, kv, hd],
-                 window=window, dtype=dtype, max_abs_err=err, tolerance=tol, timing=src,
+                 window=window, dtype=dtype, max_abs_err=err,
+                 tolerance=tol, profiler_ms=prof_ms,
                  wall_ms=wall_ms, **row)
             if name == "d0/d4" and sc == MAX_LEN:
                 main = row
@@ -702,7 +798,7 @@ def int8_phase(torch, ref, int8_matmul, shapes=INT8_SHAPES, path="serving"):
         def lib():
             return (torch._int_mm(xl, wq).to(torch.float32) * sxl * sw)[
                 :m].to(bf16)
-        ms, wall_ms, src = timed(kern)
+        ms, wall_ms, prof_ms = timed(kern, profile=True)
         plain_ms, _, _ = timed(lambda: int8_matmul.plain(xq, sx, wq, sw,
                                                          bf16))
         lib_ms, _, _ = timed(lib)
@@ -717,7 +813,8 @@ def int8_phase(torch, ref, int8_matmul, shapes=INT8_SHAPES, path="serving"):
         emit(phase="kernel_parity", kernel="int8_matmul", path=path,
              shape=[m, k, n], library_rows=xl.shape[0],
              dtype="bfloat16", bit_exact=["float32", "bfloat16"],
-             max_abs_err=0.0, tile=[bm, bn], timing=src, wall_ms=wall_ms,
+             max_abs_err=0.0, tile=[bm, bn], profiler_ms=prof_ms,
+             wall_ms=wall_ms,
              **row)
         if (m, k, n) == (SERVE_BATCH * PROMPT, 256, 1024):
             main = row
@@ -727,6 +824,55 @@ def int8_phase(torch, ref, int8_matmul, shapes=INT8_SHAPES, path="serving"):
                 source="src/repro_torch/csrc/int8_matmul.cu",
                 replaces="src/repro/kernels/int8_matmul.py:40",
                 max_abs_err=0.0, **main)
+
+
+def int8_batched_phase(torch, ref, int8_matmul, shapes=MOE_EXPERT_SHAPES,
+                       path="moe_serving"):
+    """K5 over a batch of experts, (E, M, K) x (E, K, N) on K-major
+    weights, one launch: bit-exact against the plain version in float32
+    and bfloat16; timed in bfloat16 (the path's type), warm and with the
+    L2 cold. No single PyTorch call computes a batched int8 product, so
+    ``library_ms`` is null; the loop of E ``torch._int_mm`` calls with the
+    dequantization to bf16 is timed beside it for information."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    bf16 = torch.bfloat16
+    for e, m, k, n in shapes:
+        xq, sx = ref.quantize_ref(torch.randn((e, m, k), generator=g,
+                                              device="cuda"))
+        wq, sw = ref.quantize_ref(torch.randn((e, k, n), generator=g,
+                                              device="cuda"), dim=1)
+        wq = int8_matmul.k_major(wq)
+        for dt in (torch.float32, bf16):
+            got = int8_matmul.int8_matmul_cuda(xq, sx, wq, sw, dt)
+            want = int8_matmul.plain(xq, sx, wq, sw, dt)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"int8_matmul x {e} experts "
+                  f"{m}x{k}x{n} {dt}: not bit-exact (max err "
+                  f"{float((got.float() - want.float()).abs().max())})")
+        del got, want
+
+        def kern():
+            return int8_matmul.int8_matmul_cuda(xq, sx, wq, sw, bf16)
+
+        def loop():
+            return [(torch._int_mm(xq[i], wq[i]).to(torch.float32) * sx[i]
+                     * sw[i]).to(bf16) for i in range(e)]
+        ms, wall_ms, prof_ms = timed(kern, profile=True)
+        plain_ms, _, _ = timed(lambda: int8_matmul.plain(xq, sx, wq, sw,
+                                                         bf16), 1, 3)
+        loop_ms, _, _ = timed(loop)
+        ops_, nbytes = int8_matmul.cost(m, k, n, 2, e)
+        b_ms, b_by = bound(nbytes, ops_, INT8_TC_OPS_PER_S)
+        bm, bn = int8_matmul.plan(m, n, k)
+        emit(phase="kernel_parity", kernel="int8_matmul", path=path,
+             experts=e, shape=[m, k, n], dtype="bfloat16",
+             bit_exact=["float32", "bfloat16"], max_abs_err=0.0,
+             tile=[bm, bn], blocks=e * -(-m // bm) * -(-n // bn),
+             profiler_ms=prof_ms, wall_ms=wall_ms, ms=ms,
+             cold_ms=cold_ms(kern),
+             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+             bound_share=b_ms / ms, library_ms=None,
+             int_mm_loop_ms=loop_ms, launches_per_call=1)
 
 
 # ----------------------------------------------------------------- K6 ----
@@ -785,8 +931,8 @@ def scan_phase(torch, selective_scan, ptxas):
         if dtype != "bfloat16":
             emit(phase="kernel_parity", **line)
             continue
-        ms, wall_ms, src = timed(
-            lambda: selective_scan.selective_scan_cuda(*args))
+        ms, wall_ms, prof_ms = timed(
+            lambda: selective_scan.selective_scan_cuda(*args), profile=True)
         plain_ms, _, _ = timed(lambda: selective_scan.plain(*args),
                                warmup=1, reps=5)
         # u, dt read and y written once per (batch, step, channel); A, D,
@@ -801,7 +947,8 @@ def scan_phase(torch, selective_scan, ptxas):
                    library_ms=None)
         # the time the special function units alone need when every
         # exponential runs there, as this kernel's do
-        emit(phase="kernel_parity", **line, timing=src, wall_ms=wall_ms,
+        emit(phase="kernel_parity", **line, profiler_ms=prof_ms,
+             wall_ms=wall_ms,
              sfu_ms=exps / SFU_OPS_PER_S * 1e3, **row)
         if label == "falcon":
             main = row
@@ -1089,7 +1236,7 @@ def metrics_overhead(torch, R):
         agent.run(METRICS_STEPS)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / METRICS_STEPS
-        win_us, by_name = profile_window(torch, lambda: agent.run(5))
+        win_us, by_name, _ = profile_window(torch, lambda: agent.run(5))
         dev = sum(by_name.values()) / 5 / 1e3
         return {"wall_ms_per_step": wall, "device_ms_per_step": dev,
                 "device_busy_share": dev * 5e3 / win_us}
@@ -1499,23 +1646,28 @@ def decode_profile(torch, engines, caches, steps=5, path="serving",
                      arch=eng.model.cfg.name, what="decode step")
 
 
-def prefill_profile(torch, engines, batch, prompt, max_len, path):
-    """The device time of one prefill of variant d0 at ``batch`` x
-    ``prompt`` tokens: its busy share, the port's kernels' ms and share
-    (K6's in every Mamba block) and the eight kernels with the most
-    device time."""
+def prefill_profile(torch, engines, batch, prompt, max_len, path,
+                    variants=("d0",)):
+    """The device time of one prefill of each of ``variants`` at
+    ``batch`` x ``prompt`` tokens: its busy share, the port's kernels' ms
+    and share (K6's in every Mamba block) and the eight kernels with the
+    most device time."""
     import numpy as np
-    eng = engines["S"]["d0"]
-    cfg = eng.model.cfg
-    toks = torch.tensor(np.random.default_rng(4).integers(
-        0, cfg.vocab_size, (batch, prompt)).astype(np.int32), device="cuda")
+    for vid in variants:
+        eng = engines["S"][vid]
+        cfg = eng.model.cfg
+        toks = torch.tensor(np.random.default_rng(4).integers(
+            0, cfg.vocab_size, (batch, prompt)).astype(np.int32),
+            device="cuda")
 
-    def run():
-        with torch.inference_mode():
-            eng.model.prefill(eng.params, {"tokens": toks}, max_len=max_len)
-    run()
-    step_profile(torch, run, 1, top=8, path=path, variant="d0",
-                 arch=cfg.name, what="prefill", batch=batch, prompt=prompt)
+        def run():
+            with torch.inference_mode():
+                eng.model.prefill(eng.params, {"tokens": toks},
+                                  max_len=max_len)
+        run()
+        step_profile(torch, run, 1, top=8, path=path, variant=vid,
+                     arch=cfg.name, what="prefill", batch=batch,
+                     prompt=prompt)
 
 
 def serving_cpu_agreement(torch, engines, build_model, ServingEngine):
@@ -1598,13 +1750,183 @@ def cut_layers(params, picks):
     return out
 
 
+#: batch rows of ``moe_cpu_agreement``'s cuts
+MOE_AGREE_BATCH = 16
+#: the largest difference allowed between the card's and the CPU's router
+#: probabilities on one input (the same float32 product on both)
+MOE_BLOCK_PROB_LIMIT = 1e-5
+#: and over a whole 2-layer cut, where each router's input carries the
+#: card's bf16 attention and, in d4, its int8 rounding of activations:
+#: 7.8e-4 (d0) and 1.5e-3 (d4) read at 8 and 16 rows (PERF.md §6), with
+#: room above, and well below what a wrong block before a router moves
+MOE_PROB_LIMIT = 5e-3
+
+
+def _pairs(card, cpu, out=None):
+    """{id of each dict of the CPU copy ``cpu`` of a param tree: the same
+    dict of ``card``}."""
+    out = {} if out is None else out
+    if isinstance(cpu, dict):
+        out[id(cpu)] = card
+        for k in cpu:
+            _pairs(card[k], cpu[k], out)
+    elif isinstance(cpu, list):
+        for g, c in zip(card, cpu):
+            _pairs(g, c, out)
+    return out
+
+
+class MoEAgreement:
+    """Within its ``with`` block, the MoE blocks of one model run on the
+    card and on the CPU (``model_cpu_agreement``) are held two ways.
+
+    Block by block, on one input: each CPU call of ``moe.moe_apply`` runs
+    again on the card, with the card's copy of its weights (``card``, from
+    ``_pairs``), on the CPU's own input. A token's set of experts must be
+    the CPU's wherever the CPU router's k-th/(k+1)-th margin exceeds 1e-4,
+    and the router probabilities agree within ``MOE_BLOCK_PROB_LIMIT``;
+    at least half the batch rows must keep every choice, and on those
+    rows the kept entries are equal and the outputs within the bf16
+    tolerance (atol 0.125 + rtol 1e-2).
+
+    End to end: every router call of the model is recorded by device
+    (the i-th on the card against the i-th on the CPU) and the
+    probabilities must agree within ``MOE_PROB_LIMIT``; a choice may flip
+    there where the two routers' inputs differ and the margin is small,
+    and the phase counts the flips, the margins where they fell, and the
+    batch rows none of whose tokens ever flipped."""
+
+    def __init__(self, torch, moe, card):
+        self.torch, self.moe, self.card = torch, moe, card
+        self.router, self.apply = moe.router, moe.moe_apply
+        self.calls, self.recording = {"cuda": [], "cpu": []}, True
+        self.equal = self.total = self.tokens_equal = self.tokens = 0
+        self.margin_1e4_differ = 0
+        self.margins_differ, self.prob_diff = [], 0.0
+        self.diverged = None
+        self.blocks = self.block_tokens = 0
+        self.block_margins_differ, self.block_rows = [], []
+        self.block_prob_diff = self.block_share = 0.0
+
+    def __enter__(self):
+        def router(params, x, cfg):
+            out = self.router(params, x, cfg)
+            if self.recording:
+                self.calls[x.device.type].append((out[0], out[2],
+                                                  cfg.moe.top_k))
+            return out
+
+        def apply(params, x, cfg):
+            out = self.apply(params, x, cfg)
+            if x.device.type == "cpu":
+                self.hold_block(self.card[id(params)], x, cfg, out)
+            return out
+        self.moe.router, self.moe.moe_apply = router, apply
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.router, self.moe.moe_apply = self.router, self.apply
+
+    def same_sets(self, probs, ids_g, ids_c, k):
+        """(the tokens whose sets of experts are equal, the CPU router's
+        k-th/(k+1)-th margin), both (B, S)."""
+        torch = self.torch
+        srt = torch.sort(probs, dim=-1, descending=True).values
+        return ((torch.sort(ids_g, -1).values
+                 == torch.sort(ids_c, -1).values).all(-1),
+                srt[..., k - 1] - srt[..., k])
+
+    def hold_block(self, params, x, cfg, out):
+        torch, k = self.torch, cfg.moe.top_k
+        y_c, probs_c, ids_c, keep_c = out
+        self.recording = False
+        y_g, probs_g, ids_g, keep_g = (t.cpu() for t in self.apply(
+            params, x.cuda(), cfg))
+        self.recording = True
+        same, margin = self.same_sets(probs_c, ids_g, ids_c, k)
+        n_bad = int((~same & (margin > 1e-4)).sum())
+        check(n_bad == 0, f"{cfg.name}: {n_bad} tokens of an MoE block "
+              "chose other experts on the card than on the CPU on the same "
+              "input where the router's margin exceeds 1e-4")
+        diff = float((probs_g - probs_c).abs().max())
+        check(diff <= MOE_BLOCK_PROB_LIMIT, f"{cfg.name}: router "
+              f"probabilities differ by {diff} on the same input")
+        rows = same.all(-1)
+        n_rows = int(rows.sum())
+        check(2 * n_rows >= rows.numel(), f"{cfg.name}: only {n_rows} of "
+              f"{rows.numel()} rows keep every choice of an MoE block")
+        check(torch.equal(keep_g[rows], keep_c[rows]), f"{cfg.name}: an "
+              "MoE block drops other entries on the card")
+        yg, yc = y_g.float()[rows], y_c.float()[rows]
+        check(bool(torch.allclose(yg, yc, atol=0.125, rtol=1e-2)),
+              f"{cfg.name}: an MoE block's output on the card differs from "
+              f"the CPU's by {float((yg - yc).abs().max())} on the same "
+              "input")
+        self.blocks += 1
+        self.block_tokens += same.numel()
+        self.block_margins_differ += margin[~same].tolist()
+        self.block_rows.append(n_rows)
+        self.block_prob_diff = max(self.block_prob_diff, diff)
+        self.block_share = max(self.block_share, limit_share(yg, yc))
+
+    def fold(self, batch):
+        """Fold in the model's router calls since the last reading."""
+        torch = self.torch
+        if self.diverged is None:
+            self.diverged = torch.zeros(batch, dtype=torch.bool)
+        card, cpu = self.calls["cuda"], self.calls["cpu"]
+        check(len(card) == len(cpu), "router: card and CPU calls differ")
+        for (probs_g, ids_g, k), (probs, ids_c, _) in zip(card, cpu):
+            ids_g = ids_g.cpu()
+            same, margin = self.same_sets(probs, ids_g, ids_c, k)
+            self.equal += int((ids_g == ids_c).sum())
+            self.total += ids_c.numel()
+            self.tokens_equal += int(same.sum())
+            self.tokens += same.numel()
+            self.prob_diff = max(self.prob_diff, float(
+                (probs_g.cpu() - probs).abs().max()))
+            self.margin_1e4_differ += int((~same & (margin > 1e-4)).sum())
+            self.margins_differ += margin[~same].tolist()
+            self.diverged |= (~same).any(-1)
+        card.clear(), cpu.clear()
+        check(self.prob_diff <= MOE_PROB_LIMIT, "router probabilities on "
+              f"the card and the CPU differ by {self.prob_diff} > "
+              f"{MOE_PROB_LIMIT}")
+
+    def line(self):
+        return dict(block_calls=self.blocks, block_tokens=self.block_tokens,
+                    block_sets_differ=len(self.block_margins_differ),
+                    block_min_margin_where_differ=min(
+                        self.block_margins_differ, default=None),
+                    block_prob_max_diff=self.block_prob_diff,
+                    block_prob_limit=MOE_BLOCK_PROB_LIMIT,
+                    block_rows_held_min=min(self.block_rows, default=None),
+                    block_limit_share=self.block_share,
+                    router_choices_equal_share=self.equal / self.total,
+                    router_sets_equal_share=self.tokens_equal / self.tokens,
+                    router_tokens=self.tokens,
+                    router_sets_differ=len(self.margins_differ),
+                    router_prob_max_diff=self.prob_diff,
+                    router_prob_limit=MOE_PROB_LIMIT,
+                    min_margin_where_differ=min(self.margins_differ,
+                                                default=None),
+                    max_margin_where_differ=max(self.margins_differ,
+                                                default=None),
+                    margin_1e4_differ=self.margin_1e4_differ,
+                    rows_held=int((~self.diverged).sum()))
+
+
 def model_cpu_agreement(torch, cfg, params, build_model, batch, prompt,
-                        variant, steps=3):
+                        variant, steps=3, phase="ssm_cpu_agreement",
+                        moe=None):
     """The card's model and the CPU's plain path on the same weights (a
     copy of the card's): prefill and ``steps`` decode steps fed the CPU's
     greedy tokens, logits within the bf16 tolerance (atol 0.125 + rtol
     1e-2), greedy tokens equal where the CPU's top-2 margin is > 0.25.
+    With ``moe`` (the module ``models.moe``) every MoE block is held on
+    the CPU's input and the routers end to end (``MoEAgreement``).
     Returns the phase's line."""
+    import contextlib
     import numpy as np
     m = build_model(cfg)
     p_cpu = _to_cpu(params)
@@ -1613,12 +1935,16 @@ def model_cpu_agreement(torch, cfg, params, build_model, batch, prompt,
         .astype(np.int32)
     max_len = prompt + steps + 1
     errs, shares, clear_rows, equal = [], [], 0, True
-    with torch.inference_mode():
+    rec = MoEAgreement(torch, moe, _pairs(params, p_cpu)) \
+        if moe is not None else None
+    with torch.inference_mode(), (rec or contextlib.nullcontext()):
         lg, cg = m.prefill(params, {"tokens": torch.tensor(
             toks, device="cuda")}, max_len=max_len)
         lc, cc = m.prefill(p_cpu, {"tokens": torch.tensor(toks)},
                            max_len=max_len)
         for step in range(steps + 1):
+            if rec is not None:
+                rec.fold(batch)
             a, b_ = lg[:, -1, :vocab].float().cpu(), lc[:, -1, :vocab].float()
             errs.append(float((a - b_).abs().max()))
             shares.append(limit_share(a, b_))
@@ -1632,18 +1958,22 @@ def model_cpu_agreement(torch, cfg, params, build_model, batch, prompt,
             equal &= bool(same[clear].all())
             if step == steps:
                 break
-            cur = b_.argmax(-1)[:, None].int()
+            cur = lc[:, -1, :vocab].float().argmax(-1)[:, None].int()
             lg, cg = m.decode(params, cg, cur.cuda())
             lc, cc = m.decode(p_cpu, cc, cur)
     check(equal, f"{cfg.name} {variant}: card and CPU pick different "
           "greedy tokens where the margin is clear")
-    line = dict(phase="ssm_cpu_agreement", arch=cfg.name, variant=variant,
-                layers=cfg.n_layers, d_model=cfg.d_model,
-                d_inner=cfg.d_inner, batch=batch, prompt=prompt,
+    line = dict(phase=phase, arch=cfg.name, variant=variant,
+                layers=cfg.n_layers, d_model=cfg.d_model)
+    if cfg.ssm is not None:
+        line["d_inner"] = cfg.d_inner
+    line.update(batch=batch, prompt=prompt,
                 decode_steps=steps, logits_max_abs_err=max(errs),
                 logits_tolerance=[0.125, 1e-2],
                 logits_limit_share=max(shares),
                 clear_margin_tokens=clear_rows, tokens_equal=equal)
+    if rec is not None:
+        line.update(rec.line())
     emit(**line)
     return line
 
@@ -1670,12 +2000,19 @@ def _held(params):
 
 
 def family_line(cfg, params, init_s):
+    """The served model's sizes: its SSM fields where it has Mamba
+    blocks, its experts where it is a mixture of experts."""
     n, nbytes = _held(params)
-    return dict(arch=cfg.name, quant=cfg.quant, n_layers=cfg.n_layers,
-                d_model=cfg.d_model, d_inner=cfg.d_inner,
-                state=cfg.ssm.state_dim, vocab=cfg.vocab_size,
-                params_analytic=cfg.param_count(), params_held=n,
+    line = dict(arch=cfg.name, quant=cfg.quant, n_layers=cfg.n_layers,
+                d_model=cfg.d_model, vocab=cfg.vocab_size)
+    if cfg.ssm is not None:
+        line.update(d_inner=cfg.d_inner, state=cfg.ssm.state_dim)
+    if cfg.moe is not None:
+        line.update(n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                    capacity_factor=cfg.moe.capacity_factor, d_ff=cfg.d_ff)
+    line.update(params_analytic=cfg.param_count(), params_held=n,
                 weight_gb=nbytes / 1e9, init_seconds=init_s)
+    return line
 
 
 def ssm_serving(torch, engines, init_s):
@@ -1765,6 +2102,74 @@ def hybrid_serving(torch, engines, init_s):
     return {"d0": cache}
 
 
+# ------------------------------------------------ mixture-of-experts ----
+def prefill_drops(torch, eng, toks, moe):
+    """``dropped_frac`` of each MoE block in one prefill of ``toks``
+    (``moe.moe_aux`` of each ``moe.moe_apply``, whose aux statistics the
+    served model never computes)."""
+    fracs = []
+    inner = moe.moe_apply
+
+    def recording(params, x, cfg):
+        out = inner(params, x, cfg)
+        fracs.append(moe.moe_aux(*out[1:], cfg.moe.n_experts)
+                     ["dropped_frac"])
+        return out
+    moe.moe_apply = recording
+    try:
+        with torch.inference_mode():
+            eng.model.prefill(eng.params, {"tokens": torch.tensor(
+                toks, device="cuda")}, max_len=MAX_LEN)
+    finally:
+        moe.moe_apply = inner
+    return [float(f) for f in fracs]
+
+
+def moe_serving(torch, engines, init_s, moe):
+    """Granite-3.0-1B-A400M d0 and d4 at full size: ``generate`` at batch
+    64, prompt 256, 16 new tokens, cache 512; the K/V cache checked at
+    (24, 64, 512, 8, 64); the prefill's drops per layer; the parameters
+    held against ``param_count()``."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    out = {}
+    for vid in MOE_VARIANTS:
+        eng = engines["S"][vid]
+        cfg = eng.model.cfg
+        toks = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, PROMPT)) \
+            .astype(np.int32)
+        out[vid], prefill_ms, decode_ms, wall = timed_generate(
+            torch, eng, toks, MAX_LEN)
+        (seg,) = out[vid]["segments"]
+        kv = (cfg.n_layers, SERVE_BATCH, MAX_LEN, cfg.n_kv_heads,
+              cfg.resolved_head_dim)
+        check(set(seg) == {"k", "v"} and tuple(seg["k"].shape) == kv
+              == tuple(seg["v"].shape) == (24, 64, 512, 8, 64),
+              f"{vid}: unexpected K/V cache {tuple(seg['k'].shape)}")
+        drops = prefill_drops(torch, eng, toks, moe)
+        check(len(drops) == cfg.n_layers and
+              all(0.0 <= f < 1.0 for f in drops),
+              f"{vid}: prefill drops {drops}")
+        line = family_line(cfg, eng.params, init_s[vid])
+        if cfg.quant == "none":
+            check(line["params_held"] == line["params_analytic"],
+                  f"{vid}: {line['params_held']} parameters held, "
+                  f"{line['params_analytic']} by param_count()")
+        emit(phase="moe_serving", variant=vid, **line,
+             active_params=cfg.active_param_count(),
+             heads=[cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+             capacity_prefill=moe.capacity(PROMPT, cfg.moe.top_k,
+                                           cfg.moe.n_experts,
+                                           cfg.moe.capacity_factor),
+             batch=SERVE_BATCH, prompt=PROMPT, new_tokens=NEW_TOKENS,
+             max_len=MAX_LEN, kv_cache=list(kv), prefill_ms=prefill_ms,
+             decode_ms_per_token=decode_ms, generate_ms=wall * 1e3,
+             tokens_per_s=SERVE_BATCH * NEW_TOKENS / wall,
+             prefill_dropped_frac_mean=sum(drops) / len(drops),
+             prefill_dropped_frac_max=max(drops))
+    return out
+
+
 # ------------------------------------------------ the single-cell layer ----
 #: the serving launcher's shapes: one request a call, a 16-token prompt,
 #: a cache of 64 slots (``build_engines``' default ``max_len``)
@@ -1802,7 +2207,8 @@ def single_cell_bruteforce(torch, C):
                 cases += 1
     env = C.EndEdgeCloudEnv(5, C.EXPERIMENTS["EXP-A"], noise=0,
                             device="cuda")
-    ms, _, src = timed(lambda: C.bruteforce_optimal(env, 85.0))
+    ms, _, prof_ms = timed(lambda: C.bruteforce_optimal(env, 85.0),
+                           profile=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(20):
@@ -1811,7 +2217,7 @@ def single_cell_bruteforce(torch, C):
     emit(phase="single_cell", part="bruteforce", cases=cases,
          n5_candidates=best[3], n5_best=list(env.spec.decode_action(best[0])),
          n5_best_ms=best[1], n5_device_ms=ms, n5_host_ms=host_ms,
-         timing=src)
+         profiler_ms=prof_ms)
 
 
 def single_cell_qlearning(torch, C):
@@ -1919,14 +2325,15 @@ def single_cell_dqn(torch, C, dynamics):
         check(held >= SC_GREEDY_STATES // 10,
               f"DQN {form}: only {held} states with a clear margin")
         batch = agent.buffer.sample(agent.cfg.batch_size)
-        upd_ms, upd_wall_ms, src = timed(lambda: agent._train(*batch))
+        upd_ms, upd_wall_ms, prof_ms = timed(lambda: agent._train(*batch),
+                                             profile=True)
         emit(phase="single_cell", part="dqn", form=form, users=n, goal=goal,
              hidden=agent.cfg.hidden, steps=SC_DQN_STEPS,
              updates=len(losses), first_loss=losses[0], last_loss=losses[-1],
              eps=agent.eps, host_ms_per_step=secs * 1e3 / SC_DQN_STEPS,
              greedy_states=SC_GREEDY_STATES, greedy_held=held,
              update_device_ms=upd_ms, update_wall_ms=upd_wall_ms,
-             timing=src)
+             profiler_ms=prof_ms)
 
 
 def single_cell_serve(torch, serve, kernels):
@@ -2121,7 +2528,7 @@ def coupled_oracle_parity(torch, R, fleets, runs, best_response):
         def kern():
             return best_response.best_response_cuda(idx0, packed, *args,
                                                     feas, ce, cc, *tail)
-        ms, wall_ms, src = timed(kern, warmup=1, reps=5)
+        ms, wall_ms, prof_ms = timed(kern, warmup=1, reps=5, profile=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         best_response.plain(idx0, pu, *args, feas, ce, cc, *tail)
@@ -2133,7 +2540,8 @@ def coupled_oracle_parity(torch, R, fleets, runs, best_response):
         def floor():
             return best_response.best_response_cuda(
                 zeros, packed[:1].contiguous(), *args, *one, *tail)
-        floor_ms, _, floor_src = timed(floor, warmup=1, reps=5)
+        floor_ms, _, floor_prof_ms = timed(floor, warmup=1, reps=5,
+                                            profile=True)
         burst, floor_burst = burst_ms(kern), burst_ms(floor)
         cells, k, users = scen.cells, pu.shape[0], scen.users
         ops, nbytes = best_response.cost(cells, k, users, topo.n_edges)
@@ -2148,7 +2556,8 @@ def coupled_oracle_parity(torch, R, fleets, runs, best_response):
                     bound_by=b_by, sequential_floor_ms=floor_ms,
                     sequential_floor_burst_ms=floor_burst,
                     bound_share=b_ms / ms, floor_share=floor_burst / burst,
-                    timing=src, floor_timing=floor_src)
+                    profiler_ms=prof_ms,
+                    floor_profiler_ms=floor_prof_ms)
         if label.startswith("hot_edge"):
             iso = R.scenarios.with_topology(scen, None)
             _, blind = pop.fleet_bruteforce(iso, pu, COUPLED_GOAL)
@@ -2270,7 +2679,7 @@ def cell_dqn(torch, R, head_kernel):
     agent.run(COUPLED_STEPS)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    win_us, by_name = profile_window(torch, lambda: agent.run(5))
+    win_us, by_name, _ = profile_window(torch, lambda: agent.run(5))
     dev_ms = sum(by_name.values()) / 5 / 1e3
     held = R.scenarios.mixed_table5_fleet(R.Draws(7, "cuda"), CELLS, USERS,
                                           min_users=1, max_users=5)
@@ -2581,6 +2990,7 @@ def fleet_sharded(torch, R, kernels):
 
 def main():
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device available")
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -2600,7 +3010,7 @@ def main():
     from repro_torch import core
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch.serve import build_engines
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, moe
     from repro_torch.models.variants import build_ladder
     from repro_torch.serving import Request, RequestBatcher, ServingEngine
     R = fleet_namespace()
@@ -2704,6 +3114,14 @@ def main():
     decode_phase(torch, ops, decode_attention, cli_decode,
                  path="single_cell")
     int8_phase(torch, ref, int8_matmul, cli_int8, path="single_cell")
+    # the MoE path's kernels at Granite-3.0-1B-A400M's shapes: K3 and K4 at
+    # its attention, K5 at d4's projections and over its 32 int8 experts
+    # in one launch
+    flash_phase(torch, flash_attention, MOE_FLASH_CASES, path="moe_serving")
+    decode_phase(torch, ops, decode_attention, MOE_DECODE_CASES,
+                 path="moe_serving")
+    int8_phase(torch, ref, int8_matmul, MOE_INT8_SHAPES, path="moe_serving")
+    int8_batched_phase(torch, ref, int8_matmul)
 
     # the state-space path: Falcon-Mamba-7B (d0, d4) and Hymba-1.5B (d0)
     # at full size
@@ -2735,17 +3153,45 @@ def main():
          ssm_path=ssm_launches)
     for name, n in ssm_launches.items():
         check(n > 0, f"{name} was never launched on the state-space path")
+
+    # the mixture-of-experts path: Granite-3.0-1B-A400M (d0, d4) at full
+    # size (its kernels at its shapes were held above)
+    moe_engines, moe_init = build_family(torch, build_engines,
+                                         get_config(MOE_ARCH), MOE_VARIANTS,
+                                         MAX_LEN)
+    for vid in MOE_VARIANTS:          # 2 layers at full width
+        eng = moe_engines["S"][vid]
+        model_cpu_agreement(
+            torch, dataclasses.replace(eng.model.cfg, n_layers=2),
+            cut_layers(eng.params, [[(0, 0), (0, 1)]]), build_model,
+            MOE_AGREE_BATCH, 32, vid, phase="moe_cpu_agreement", moe=moe)
+    for k in serving_kernels:         # the MoE path's launches only
+        k.launches = 0
+    moe_caches = moe_serving(torch, moe_engines, moe_init, moe)
+    route_dispatch(torch, R, moe_engines, cells=SSM_ROUTE_CELLS,
+                   phase="route_dispatch_moe", seed=MOE_ROUTE_SEED)
+    moe_launches = {k.name: k.launches for k in serving_kernels}
+    emit(phase="launches", moe_path=moe_launches)
+    for name, n in moe_launches.items():
+        check(n > 0, f"{name} was never launched on the MoE path")
+    decode_profile(torch, moe_engines, moe_caches, path="moe_serving")
+    prefill_profile(torch, moe_engines, SERVE_BATCH, PROMPT, MAX_LEN,
+                    "moe_serving", variants=MOE_VARIANTS)
+    del moe_engines, moe_caches
+
+    # the state-space path's profiles
     decode_profile(torch, ssm_engines, ssm_caches, path="ssm_serving")
     decode_profile(torch, hyb_engines, hyb_caches, path="hybrid_serving",
                    batch=HYBRID_BATCH)
-    prefill_profile(torch, ssm_engines, SERVE_BATCH, PROMPT, MAX_LEN,
-                    "ssm_serving")
     prefill_profile(torch, hyb_engines, HYBRID_BATCH, HYBRID_PROMPT,
                     HYBRID_MAX_LEN, "hybrid_serving")
+    prefill_profile(torch, ssm_engines, SERVE_BATCH, PROMPT, MAX_LEN,
+                    "ssm_serving")
     for e in entries:
         e["launches"] = launches[e["name"]]
         check(e["launches"] > 0,
               f"{e['name']} was never launched on its main path")
+    emit(phase="elapsed", seconds=time.perf_counter() - t_start)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}

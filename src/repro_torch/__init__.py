@@ -1,6 +1,7 @@
 """repro_torch — the PyTorch/CUDA port of ``repro``: the fleet
 online-learning loop, the serving path of the served models (the edge
-ladder, Falcon-Mamba and Hymba), their engines and the routed dispatch,
+ladder, Falcon-Mamba, Hymba and the mixture-of-experts Granite), their
+engines and the routed dispatch,
 and the paper's single-cell layer (``core``: the environment, tabular
 Q-learning, the DQN, the brute force, the baselines, the transfer
 protocol and the orchestrator) with the serving launcher's

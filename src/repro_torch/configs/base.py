@@ -5,8 +5,11 @@
 ``scale_width`` is the variant-ladder scaling and ``reduced`` the
 smoke-test cut of a family. ``get_config`` knows the configurations the
 port can build: ``edge-ladder`` (the paper's Table-4 ladder as a small
-decoder transformer), ``falcon-mamba-7b`` (pure Mamba-1 SSM) and
-``hymba-1.5b`` (attention and Mamba heads in parallel).
+decoder transformer), ``falcon-mamba-7b`` (pure Mamba-1 SSM),
+``hymba-1.5b`` (attention and Mamba heads in parallel), and the
+mixture-of-experts ``granite-moe-1b-a400m`` and ``dbrx-132b`` (whose
+head_dim of 128 the attention kernels do not have yet: it runs on the
+CPU, at ``reduced`` size).
 """
 from __future__ import annotations
 
@@ -166,7 +169,9 @@ class ModelConfig:
 #: arch id -> module of ``repro_torch.configs`` holding its ``CONFIG``
 _MODULE_FOR = {"edge-ladder": "edge_ladder",
                "falcon-mamba-7b": "falcon_mamba_7b",
-               "hymba-1.5b": "hymba_1_5b"}
+               "hymba-1.5b": "hymba_1_5b",
+               "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+               "dbrx-132b": "dbrx_132b"}
 
 
 def get_config(arch_id: str) -> ModelConfig:

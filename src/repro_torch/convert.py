@@ -65,7 +65,10 @@ def model_params(params_np, cfg, device=None) -> dict:
     ``layers.init_linear`` holds them (strides (1, in)), and float32
     scales; norm gains stay float32. A Mamba block keeps the reference's
     types: ``conv_w`` in ``cfg.dtype``, ``conv_b``, ``dt_w``, ``dt_b``,
-    ``A_log`` and ``D`` float32. Weights stay ``(in, out)``."""
+    ``A_log`` and ``D`` float32. A MoE block keeps its router's ``w``
+    float32, and its experts' leaves ``w`` (E, in, out), ``w_q`` (K-major
+    per expert) and ``s`` (E, 1, out) as a linear's. Weights stay ``(in,
+    out)``."""
     from repro_torch.models.layers import dt
     dev = resolve_device(device)
     wdtype = dt(cfg.dtype)
@@ -74,10 +77,11 @@ def model_params(params_np, cfg, device=None) -> dict:
              "conv_w": wdtype, "conv_b": f32, "dt_w": f32, "dt_b": f32,
              "A_log": f32, "D": f32}
 
-    def leaves(tree, name=None):
+    def leaves(tree, name=None, parent=None):
         if isinstance(tree, dict):
-            return {k: leaves(v, k) for k, v in tree.items()}
-        t = torch.tensor(np.asarray(tree), dtype=types[name], device=dev)
+            return {k: leaves(v, k, name) for k, v in tree.items()}
+        dtype = f32 if parent == "router" else types[name]
+        t = torch.tensor(np.asarray(tree), dtype=dtype, device=dev)
         return k_major(t) if name == "w_q" else t
 
     def layer(tree, i):

@@ -11,6 +11,14 @@
 // of every int8 variant of the served models: the edge ladder's d4..d7
 // and Falcon-Mamba's d4 (in_proj, out_proj).
 //
+// Expert batch. One launch computes E independent products of one shape
+// (the int8 experts of a mixture-of-experts layer, repro/models/moe.py
+// _expert_matmul: Granite d4's 32 experts, each over its capacity rows):
+// blockIdx.y is the expert, whose operands lie one after another, x at a
+// stride of M K, w of N K, sx of M, sw of N, out of M N. Within an
+// expert the tile walk, the plan and the epilogue are those of one
+// product; a plain 2-D product is a batch of 1.
+//
 // Bound. Prefill shapes are bound by operations: Falcon-Mamba d4's
 // projections at 64 x 256 tokens (16,384 x 4,096 x 16,384 and 16,384 x
 // 8,192 x 4,096) do ~1,800 operations per byte, far past the ridge of the
@@ -53,7 +61,8 @@
 // these tiles alone, whose blocks already keep the card's memory busy.
 //
 // Binding: plain C entry point int8_matmul_launch (ctypes); out_bf16 0
-// writes float32, 1 bfloat16. K must be a multiple of 16 (the wrapper
+// writes float32, 1 bfloat16; batch is the number of experts (1 for one
+// product). K must be a multiple of 16 (the wrapper
 // zero-pads K otherwise). It returns cudaGetLastError() after the launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -177,6 +186,16 @@ int8_matmul_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const int tid = threadIdx.x;
+
+  // this block's expert: its operands and output
+  const long long e = blockIdx.y;
+  x += e * M * K;
+  w += e * N * K;
+  sx += e * M;
+  sw += e * N;
+  out = out_bf16 ? static_cast<void*>(static_cast<__nv_bfloat16*>(out) +
+                                      e * M * N)
+                 : static_cast<void*>(static_cast<float*>(out) + e * M * N);
 
   // the output tile, walked in groups of kGroupM tile rows
   const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
@@ -304,7 +323,7 @@ int8_matmul_kernel(const int8_t* __restrict__ x, const float* __restrict__ sx,
 template <int BM, int BN, int STAGES>
 cudaError_t launch(const void* x, const void* sx, const void* w,
                    const void* sw, void* out, int M, int N, int K,
-                   int out_bf16, cudaStream_t stream) {
+                   int out_bf16, int batch, cudaStream_t stream) {
   using T = Tiles<BM, BN, STAGES>;
   auto kernel = int8_matmul_kernel<BM, BN, STAGES>;
   // the shared memory past 48 KB, granted once per device
@@ -318,7 +337,7 @@ cudaError_t launch(const void* x, const void* sx, const void* w,
     if (err != cudaSuccess) return err;
     if (dev < kMaxDevices) granted[dev] = true;
   }
-  const int grid = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const dim3 grid(((M + BM - 1) / BM) * ((N + BN - 1) / BN), batch);
   kernel<<<grid, T::kThreads, T::kSmem, stream>>>(
       static_cast<const int8_t*>(x), static_cast<const float*>(sx),
       static_cast<const int8_t*>(w), static_cast<const float*>(sw), out, M,
@@ -328,20 +347,24 @@ cudaError_t launch(const void* x, const void* sx, const void* w,
 
 }  // namespace
 
-// x (M, K) and w (N, K) int8 row-major (w is the weight's K-major
-// storage), sx (M,) and sw (N,) float32, out (M, N)
+// batch products, each of x (M, K) and w (N, K) int8 row-major (w is the
+// weight's K-major storage), sx (M,) and sw (N,) float32, out (M, N); the
+// batch's operands one after another
 extern "C" int int8_matmul_launch(const void* x, const void* sx,
                                   const void* w, const void* sw, void* out,
                                   int M, int N, int K, int bm, int bn,
-                                  int out_bf16, void* stream) {
-  if (M <= 0 || N <= 0) return 0;
-  if (K <= 0 || K % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+                                  int out_bf16, int batch, void* stream) {
+  if (M <= 0 || N <= 0 || batch <= 0) return 0;
+  if (K <= 0 || K % 16 != 0 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (bm == 128 && bn == 256)
-    err = launch<128, 256, 4>(x, sx, w, sw, out, M, N, K, out_bf16, st);
+    err = launch<128, 256, 4>(x, sx, w, sw, out, M, N, K, out_bf16, batch,
+                              st);
   else if (bm == 64 && bn == 64)
-    err = launch<64, 64, 6>(x, sx, w, sw, out, M, N, K, out_bf16, st);
+    err = launch<64, 64, 6>(x, sx, w, sw, out, M, N, K, out_bf16, batch,
+                            st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -21,6 +21,10 @@ One kernel template serves both; ``plan`` picks the instance (see the
 source note in the ``.cu`` file). The epilogue
 rounds exactly as the plain version, so the two agree bit for bit in
 float32 and in bfloat16.
+
+Batched operands, ``(E, M, K)`` x ``(E, K, N)``, take one launch for all
+E products (the int8 experts of ``models.moe``): the kernel's second grid
+axis is the expert.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import (I, P, CudaKernel, check_aligned,
                                         check_cuda)
 
-KERNEL = CudaKernel("int8_matmul", [P] * 5 + [I] * 6)
+KERNEL = CudaKernel("int8_matmul", [P] * 5 + [I] * 7)
 
 #: K bytes per pipeline step of the kernel
 BK = 128
@@ -43,7 +47,8 @@ OUT_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def plain(x_q, sx, w_q, sw, out_dtype=torch.float32):
     """The plain version (a CPU tensor takes it): ``ref.int8_matmul_ref``
-    rounded once to ``out_dtype``."""
+    rounded once to ``out_dtype``; batched operands broadcast through its
+    ``@``."""
     return ref.int8_matmul_ref(x_q, sx, w_q, sw).to(out_dtype)
 
 
@@ -66,46 +71,53 @@ def int8_matmul_cuda(x_q, sx, w_q, sw, out_dtype=torch.float32):
     """Launch the CUDA kernel. ``x_q``: (M, K) int8 contiguous; ``sx``:
     (M, 1) f32; ``w_q``: (K, N) int8, K-major (strides (1, K)); ``sw``:
     (1, N) f32. Returns the (M, N) product in ``out_dtype`` (float32 or
-    bfloat16).
+    bfloat16). Batched: ``x_q`` (E, M, K), ``sx`` (E, M, 1), ``w_q`` (E,
+    K, N) with each expert K-major (strides (N K, 1, K)), ``sw`` (E, 1, N)
+    -> (E, M, N), one launch for the E products.
 
     Where K is no multiple of 16 the kernel's 16-byte loads cannot reach
     the rows, so x_q and w_q are zero-padded along K to a multiple of 32
     first: exact, since zeros add nothing to the int32 sum. It is the same
     kernel on the padded operands, not a fallback."""
-    m, k = x_q.shape
-    n = w_q.shape[1]
+    if x_q.dim() == 2:
+        return int8_matmul_cuda(x_q[None], sx[None], w_q[None], sw[None],
+                                out_dtype)[0]
+    e, m, k = x_q.shape
+    n = w_q.shape[-1]
     if k < 1:
         raise ValueError("int8_matmul needs K >= 1")
     if out_dtype not in OUT_DTYPES:
         raise TypeError(f"int8_matmul writes float32 or bfloat16, got "
                         f"{out_dtype}")
     check_cuda("x_q", x_q, torch.int8)
-    check_cuda("sx", sx, torch.float32, (m, 1))
-    if w_q.shape[0] != k or not w_q.t().is_contiguous():
-        raise ValueError(f"w_q must be a K-major ({k}, N) int8 weight: a "
-                         f"view of (N, K) row-major storage, strides (1, "
-                         f"K), as k_major(w_q) makes it; got shape "
-                         f"{tuple(w_q.shape)}, strides {w_q.stride()}")
-    check_cuda("w_q", w_q.t(), torch.int8)
-    check_cuda("sw", sw, torch.float32, (1, n))
+    check_cuda("sx", sx, torch.float32, (e, m, 1))
+    w_t = w_q.transpose(-1, -2)
+    if w_q.shape[:2] != (e, k) or not w_t.is_contiguous():
+        raise ValueError(f"w_q must be a K-major ({k}, N) int8 weight for "
+                         f"each of {e}: a view of (N, K) row-major storage, "
+                         f"strides (1, K), as k_major(w_q) makes it; got "
+                         f"shape {tuple(w_q.shape)}, strides {w_q.stride()}")
+    check_cuda("w_q", w_t, torch.int8)
+    check_cuda("sw", sw, torch.float32, (e, 1, n))
     if k % 16:
         pad = -k % 32
         x_q = F.pad(x_q, (0, pad))
-        w_q = F.pad(w_q.t(), (0, pad)).t()
+        w_q = F.pad(w_t, (0, pad)).transpose(-1, -2)
         k += pad
     check_aligned(x_q=x_q, w_q=w_q)
-    out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
-    if not m or not n:
+    out = torch.empty((e, m, n), dtype=out_dtype, device=x_q.device)
+    if not (e and m and n):
         return out
     bm, bn = plan(m, n, k)
     KERNEL.launch(x_q.data_ptr(), sx.data_ptr(), w_q.data_ptr(),
                   sw.data_ptr(), out.data_ptr(), m, n, k, bm, bn,
-                  OUT_DTYPES[out_dtype])
+                  OUT_DTYPES[out_dtype], e)
     return out
 
 
-def cost(m: int, k: int, n: int, out_elem: int):
-    """(int8 operations, bytes) of one call — the arithmetic of the bound
-    in ``PERF.md`` §6: x, w and both scales read once, the output written
-    once at ``out_elem`` bytes a value."""
-    return 2 * m * k * n, m * k + k * n + 4 * (m + n) + out_elem * m * n
+def cost(m: int, k: int, n: int, out_elem: int, batch: int = 1):
+    """(int8 operations, bytes) of one call of ``batch`` products — the
+    arithmetic of the bound in ``PERF.md`` §6: x, w and both scales read
+    once, the output written once at ``out_elem`` bytes a value."""
+    return (batch * 2 * m * k * n,
+            batch * (m * k + k * n + 4 * (m + n) + out_elem * m * n))

@@ -108,13 +108,16 @@ def decode_attention(q, k_cache, v_cache, kv_pos, cur_pos, *,
 def int8_matmul(x_q, sx, w_q, sw, *, out_dtype=torch.float32):
     """(M, K) int8 x (K, N) int8 -> (M, N) ``(acc * sx) * sw`` with ``sx``
     (M, 1) and ``sw`` (1, N), rounded once to ``out_dtype``; see
-    ``ref.int8_matmul_ref``. On the card ``w_q`` must be K-major (strides
-    (1, K)); see ``kernels/int8_matmul.py``."""
+    ``ref.int8_matmul_ref``. With a leading expert axis on every operand
+    ((E, M, K), (E, M, 1), (E, K, N), (E, 1, N)) the E products take one
+    launch. On the card each ``w_q`` must be K-major (strides (1, K));
+    see ``kernels/int8_matmul.py``."""
     if is_fake(x_q):
-        (m, k), n = x_q.shape, w_q.shape[1]
-        out = x_q.new_empty((m, n), dtype=out_dtype)
-        record_cost("int8_matmul", *_int8_matmul.cost(m, k, n,
-                                                      out.element_size()))
+        *lead, m, k = x_q.shape
+        n = w_q.shape[-1]
+        out = x_q.new_empty((*lead, m, n), dtype=out_dtype)
+        record_cost("int8_matmul", *_int8_matmul.cost(
+            m, k, n, out.element_size(), lead[0] if lead else 1))
         return out
     fn = _int8_matmul.plain if _route(x_q) == "cpu" else \
         _int8_matmul.int8_matmul_cuda

@@ -46,22 +46,29 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int,
     return {"w": w.to(dtype)}
 
 
+def quantize_rows(x):
+    """Each row (last axis) of ``x`` as int8 with its float32 scale:
+    scale = (max |x| + 1e-8) / 127, x_q = clip(round(x / scale), +-127),
+    round half to even. Returns ``(x_q, scale)``, the scale with a
+    trailing axis of 1."""
+    # max |x| (exact in float32) and x / sx in float32 (x upcast exactly
+    # by type promotion), in as few eager ops as the reference's rounding
+    # allows
+    amax = torch.linalg.vector_norm(x, math.inf, -1, keepdim=True,
+                                    dtype=torch.float32)
+    sx = amax.add_(1e-8).div_(127.0)
+    return torch.div(x, sx).round_().clamp_(-127, 127).to(torch.int8), sx
+
+
 def linear(params, x):
     """y = x @ W. The int8 path quantizes each token's activations
-    (scale = (max |x| + 1e-8) / 127, round half to even, clip to +-127)
-    and takes the int8 x int8 product through ``ops.int8_matmul`` (K5)
-    with the per-column weight scales, which rounds it once to
-    ``x.dtype``. Its ``w_q`` is held K-major (``init_linear``)."""
+    (``quantize_rows``) and takes the int8 x int8 product through
+    ``ops.int8_matmul`` (K5) with the per-column weight scales, which
+    rounds it once to ``x.dtype``. Its ``w_q`` is held K-major
+    (``init_linear``)."""
     if "w_q" in params:
         lead = x.shape[:-1]
-        x2 = x.reshape(-1, x.shape[-1])
-        # max |x| (exact in float32) and x / sx in float32 (x upcast
-        # exactly by type promotion), in as few eager ops as the
-        # reference's rounding allows
-        amax = torch.linalg.vector_norm(x2, math.inf, -1, keepdim=True,
-                                        dtype=torch.float32)
-        sx = amax.add_(1e-8).div_(127.0)
-        x_q = torch.div(x2, sx).round_().clamp_(-127, 127).to(torch.int8)
+        x_q, sx = quantize_rows(x.reshape(-1, x.shape[-1]))
         y = ops.int8_matmul(x_q, sx, params["w_q"], params["s"],
                             out_dtype=x.dtype)
         return y.reshape(*lead, -1)

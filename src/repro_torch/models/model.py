@@ -1,5 +1,5 @@
 """Model facade — the port of ``repro/models/model.py`` for the dense,
-state-space and hybrid decoder families:
+state-space, hybrid and mixture-of-experts decoder families:
 
     model = build_model(cfg)
     params = model.init(seed, device="cuda")
@@ -42,6 +42,8 @@ class Model:
         params instead of reseeding."""
         cfg = self.cfg
         dev = resolve_device(device)
+        if dev.type == "cuda":
+            T.check_kernel_shapes(cfg)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         params = {
             "embed": {"w": (torch.randn((cfg.padded_vocab, cfg.d_model),

@@ -1,13 +1,18 @@
 """The decoder stack — the port of ``repro/models/transformer.py`` for the
-dense, state-space (``ssm``) and hybrid families (the served edge-ladder,
-Falcon-Mamba and Hymba models).
+dense, state-space (``ssm``), hybrid and mixture-of-experts (``moe``)
+families (the served edge-ladder, Falcon-Mamba, Hymba and Granite-MoE
+models).
 
 Layers are grouped into homogeneous SEGMENTS (contiguous runs sharing
 one attention kind, global vs sliding) as in the reference; where the
 reference stacks a segment's params on a leading axis for ``lax.scan``,
 the port keeps a list of per-layer param dicts and runs a Python loop.
 A layer's mixer is attention (dense), the Mamba block (ssm), or both on
-the same normed input, each output normed and the two averaged (hybrid).
+the same normed input, each output normed and the two averaged (hybrid);
+its feed-forward is the MLP or, in the moe family, ``moe.moe_apply``:
+the block without its aux statistics, which prefill and decode never
+compute, as the reference's prefill drops them (the loss comes with the
+training slice, through ``moe.moe_block``).
 
 Cache layout: ``{"pos": int, "segments": [seg_cache, ...]}`` where an
 attention segment holds ``{"k", "v": (Lseg, B, Sc, KV, hd)}`` with Sc
@@ -18,9 +23,11 @@ updates its layer's slices IN PLACE (the K/V row at slot ``pos % Sc``,
 the conv window and the SSM state); the values equal the reference's
 functional update.
 
-The mixture-of-experts, encoder-decoder and vision families raise
+The encoder-decoder, audio and vision families raise
 ``NotImplementedError`` (ROADMAP queue 1, other architectures), as do
-the reference's int8 KV cache and logit soft-capping.
+the reference's int8 KV cache and logit soft-capping; so does a head_dim
+the attention kernels have no instance of, on the card
+(``check_kernel_shapes``).
 """
 from __future__ import annotations
 
@@ -28,12 +35,14 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels import decode_attention, flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 
 _LATER = "(ROADMAP queue 1: other architectures of the served models)"
 #: the families the port serves
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "ssm", "hybrid", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,12 +71,24 @@ def seg_window(cfg, seg: Segment) -> int:
 
 
 def check_supported(cfg) -> None:
-    """The port runs the dense, ssm and hybrid decoders (so far)."""
-    if cfg.arch_type not in FAMILIES or cfg.moe is not None or \
-            cfg.is_encdec:
+    """The port runs the dense, ssm, hybrid and moe decoders (so far)."""
+    if cfg.arch_type not in FAMILIES or cfg.is_encdec:
         raise NotImplementedError(
             f"repro_torch serves the {'/'.join(FAMILIES)} decoder families "
             f"only; {cfg.name!r} is {cfg.arch_type!r} {_LATER}")
+
+
+def check_kernel_shapes(cfg) -> None:
+    """On the card, attention runs through K3 and K4, which have
+    instances for ``HEAD_DIMS`` only: any other head_dim raises here,
+    before a weight is drawn."""
+    hd = cfg.resolved_head_dim
+    if cfg.has_attention and (hd not in flash_attention.HEAD_DIMS
+                              or hd not in decode_attention.HEAD_DIMS):
+        raise NotImplementedError(
+            f"{cfg.name!r} has head_dim {hd}; the attention kernels have "
+            f"{flash_attention.HEAD_DIMS} (ROADMAP queue 1: K3/K4 at "
+            f"head_dim 128 and 256)")
 
 
 # ---------------------------------------------------------------------------
@@ -85,7 +106,10 @@ def _init_layer(gen: torch.Generator, cfg):
         p["ssm"] = M.init_mamba(gen, cfg)
         p["ln_attn_out"] = L.init_rmsnorm(cfg.d_model, dev)
         p["ln_ssm_out"] = L.init_rmsnorm(cfg.d_model, dev)
-    if cfg.has_mlp:
+    if cfg.moe is not None:
+        p["ln2"] = L.init_rmsnorm(cfg.d_model, dev)
+        p["moe"] = MOE.init_moe(gen, cfg)
+    elif cfg.has_mlp:
         p["ln2"] = L.init_rmsnorm(cfg.d_model, dev)
         p["mlp"] = L.init_mlp(gen, cfg)
     return p
@@ -100,6 +124,9 @@ def init_segment(gen: torch.Generator, cfg, seg: Segment) -> list:
 
 
 def _ffn(p, x, cfg):
+    if "moe" in p:
+        h = L.rmsnorm(p["ln2"], x, cfg.rms_norm_eps)
+        return x + MOE.moe_apply(p["moe"], h, cfg)[0]
     if "mlp" in p:
         h = L.rmsnorm(p["ln2"], x, cfg.rms_norm_eps)
         return x + L.mlp(p["mlp"], h, cfg.mlp_act)

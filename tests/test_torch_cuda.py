@@ -10,7 +10,9 @@ flash attention at the edges of its tiles and masks, and decode attention
 split over many slot ranges with wholly masked splits and rows; the int8
 product on the K-major weight at ragged M, N and K (K zero-padded to a
 multiple of 32), M = 1, in float32 and bfloat16, and a row-major weight
-refused; the
+refused, also batched over experts in one launch (Granite d4's shapes);
+the mixture-of-experts block card vs CPU, and DBRX refused on the card
+(head_dim 128); the
 selective scan at one step, 4,096 steps, state sizes 5, 8 and 16,
 channel counts that are no block multiple and both splits of a channel's
 states, over 2 and over 4 lanes; the banded sliding-window
@@ -355,6 +357,47 @@ def test_int8_matmul_kernel_ragged_and_bf16_out(cuda, m, k, n, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype
     assert torch.equal(got, want)
+
+
+def _batched_int8_args(cuda, e, m, k, n):
+    """E experts' quantized operands, each weight K-major."""
+    g = torch.Generator(device=cuda).manual_seed(e + m + k)
+    xq, sx = ref.quantize_ref(torch.randn((e, m, k), generator=g,
+                                          device=cuda))
+    wq, sw = ref.quantize_ref(torch.randn((e, k, n), generator=g,
+                                          device=cuda), dim=1)
+    return xq, sx, int8_matmul.k_major(wq), sw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,m,k,n", [
+    (32, 64, 1024, 512),            # Granite d4's decode gate/up
+    (32, 64, 512, 1024),            # and down
+    (32, 640, 1024, 512),           # a prefill of 8 rows x 80 slots
+    (4, 300, 333, 65),              # ragged, K padded to 352
+    (3, 1, 256, 64),                # one row an expert
+    (2, 129, 64, 257),              # ragged prefill tiles
+])
+def test_batched_int8_matmul_is_one_bit_exact_launch(cuda, e, m, k, n,
+                                                     dtype):
+    xq, sx, wq, sw = _batched_int8_args(cuda, e, m, k, n)
+    before = int8_matmul.KERNEL.launches
+    got = int8_matmul.int8_matmul_cuda(xq, sx, wq, sw, dtype)
+    torch.cuda.synchronize()
+    assert int8_matmul.KERNEL.launches == before + 1
+    want = int8_matmul.plain(xq, sx, wq, sw, dtype)
+    assert got.shape == (e, m, n) and torch.equal(got, want)
+    for i in (0, e - 1):            # and each expert's own product
+        assert torch.equal(got[i], int8_matmul.int8_matmul_cuda(
+            xq[i], sx[i], wq[i], sw[i], dtype))
+
+
+def test_batched_int8_matmul_refuses_a_row_major_expert_weight(cuda):
+    xq, sx, wq, sw = _batched_int8_args(cuda, 4, 64, 128, 64)
+    with pytest.raises(ValueError, match="K-major"):
+        ops.int8_matmul(xq, sx, wq.contiguous(), sw)
+    with pytest.raises(ValueError, match="shape"):
+        ops.int8_matmul(xq, sx[:3], wq, sw)
 
 
 def test_serving_kernels_refuse_wrong_types_on_the_card(cuda):
@@ -819,3 +862,57 @@ def test_short_fleet_dqn_run_on_the_card_matches_the_cpu(cuda):
             torch.testing.assert_close(g[k].detach().cpu(), w[k].detach(),
                                        atol=1e-5, rtol=1e-4)
     assert counts.sum() > 0
+
+
+def _moe_pair(quant):
+    """A reduced Granite layer's MoE block at full width (d_model 1024,
+    d_ff 512, 32 experts, top-8) and its params on the card and on the
+    CPU (the same values)."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m"),
+                              n_layers=2, quant=quant)
+    p = moe.init_moe(torch.Generator(device="cuda").manual_seed(0), cfg)
+    cpu = {k: {n: t.cpu() for n, t in v.items()} for k, v in p.items()}
+    return cfg, p, cpu
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+@pytest.mark.parametrize("s", [1, 96])
+def test_moe_block_on_the_card_matches_the_cpu(cuda, quant, s):
+    """``moe_block`` (bmm or the batched K5) on the card against the CPU's
+    plain path on the same weights: the router's choices equal wherever
+    its k-th/(k+1)-th margin exceeds 1e-4; where every choice agrees, the
+    same drops and outputs within the bf16 tolerance (otherwise the rows
+    whose choices all agree)."""
+    from repro_torch.models import moe
+    cfg, p, cpu = _moe_pair(quant)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((8, s, cfg.d_model), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    before = int8_matmul.KERNEL.launches
+    y, aux = moe.moe_block(p, x, cfg)
+    torch.cuda.synchronize()
+    assert int8_matmul.KERNEL.launches == before + (3 if quant == "int8"
+                                                    else 0)
+    yc, auxc = moe.moe_block(cpu, x.cpu(), cfg)
+    _, _, ids = moe.router(p, x, cfg)
+    probs, _, idc = moe.router(cpu, x.cpu(), cfg)
+    srt = torch.sort(probs, dim=-1, descending=True).values
+    clear = (srt[..., cfg.moe.top_k - 1] - srt[..., cfg.moe.top_k]) > 1e-4
+    same = (ids.cpu() == idc).all(-1)
+    assert bool(same[clear].all())
+    rows = same.all(-1)
+    if bool(rows.all()):
+        assert float(aux["dropped_frac"]) == float(auxc["dropped_frac"])
+    torch.testing.assert_close(y.float().cpu()[rows], yc.float()[rows],
+                               atol=0.125, rtol=1e-2)
+
+
+def test_dbrx_on_the_card_raises_before_a_weight_is_drawn(cuda):
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import build_engines
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+        build_engines(get_config("dbrx-132b"), variants=("d0",),
+                      device=cuda)

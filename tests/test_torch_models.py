@@ -164,6 +164,6 @@ def test_ring_cache_slot_positions():
 def test_other_families_name_the_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         build_model(dataclasses.replace(get_config("edge-ladder"),
-                                        arch_type="moe"))
+                                        arch_type="audio"))
     with pytest.raises(KeyError, match="edge-ladder"):
         get_config("gemma-7b")

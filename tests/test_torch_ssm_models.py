@@ -31,7 +31,7 @@ from repro.configs import reduced as jreduced
 from repro.models import build_model as jbuild_model
 from repro.models.variants import build_ladder as jbuild_ladder
 from repro_torch import convert
-from repro_torch.configs.base import MoEConfig, get_config, reduced
+from repro_torch.configs.base import get_config, reduced
 from repro_torch.fleet import api, scenarios
 from repro_torch.launch.serve import build_engines
 from repro_torch.models import build_model
@@ -245,7 +245,6 @@ def test_route_dispatch_serves_every_active_user_on_the_ssm_engines():
 
 # --------------------------------------------------------- unsupported ----
 @pytest.mark.parametrize("change", [
-    dict(arch_type="moe", moe=MoEConfig(n_experts=4, top_k=2)),
     dict(arch_type="audio", n_enc_layers=2, enc_seq=32),
     dict(arch_type="vlm", n_img_tokens=8),
 ])

@@ -16,8 +16,9 @@ For every bf16 case of ``chip_smoke.py``'s ``FLASH_CASES`` (causal, with
 its window) and ``DECODE_CASES`` (a random 30% of slots masked by the
 bias), one JSON line per tree: ``{"src": ..., "<kernel> <layout> <S>":
 [warm ms, cold ms, max abs error against the plain version]}``; warm and
-cold as ``chip_smoke.timed`` and ``chip_smoke.cold_ms`` take them (the
-profiler's device time; cold with the L2 flushed before each call).
+cold as ``chip_smoke.timed`` and ``chip_smoke.cold_ms`` take them (CUDA
+events with the launch hidden, ``hidden_ms``; cold with the L2 flushed
+before each call).
 End to end, the same line holds ``"serving <variant> decode ms/token"``
 and ``"serving <variant> prefill ms"`` for the edge ladder's d0 and d4,
 each a list of ``REPS`` readings of ``chip_smoke.timed_generate`` (host
