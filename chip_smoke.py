@@ -51,6 +51,28 @@ paths through the entry points a user calls:
   batched over the 32 experts in one launch, on its expert products;
   their ``kernel_parity`` lines, K5's bit-exact beside the loop of 32
   ``torch._int_mm`` calls, follow the single-cell layer's);
+* the dense and VLM path, last (K3 and K4 at head_dim 128 and 256): K3
+  and K4 held against their plain versions at its layouts (InternLM2's
+  48/8 heads of 128, Yi's 56/8, Gemma3-4B's 8/4 heads of 256 at 8 x
+  2,048, global and windowed, Gemma-7B's 16/16, PaliGemma's 8/1; bf16,
+  float32 at one layout of each head dim), each with the registers and
+  spills of its instance; 2-layer full-width cuts of the five configs
+  (Gemma3's a sliding and a global layer, its prompt past the window;
+  PaliGemma behind 16 image tokens) on the card against the CPU (phase
+  ``dense_cpu_agreement``); ``build_engines`` over Gemma3-4B (34
+  layers, d_model 2,560, vocab 262,144, 5:1 sliding:global, window
+  1,024; 3.88 B parameters) at batch 8 x 2,048 and InternLM2-20B (48
+  layers, d_model 6,144, 48/8 heads of 128; 19.9 B parameters) at batch
+  32 x 256, each d0 bf16 and d4 int8 at its published size, parameters
+  held against ``param_count()``, peak memory printed (``dense_serving``),
+  a 256-cell 3-user fleet routed into Gemma3's engines
+  (``route_dispatch_dense``) and their decode and prefill profiles; then
+  PaliGemma-3B whole through ``Model.prefill`` / ``decode`` (batch 16,
+  256 stub image embeddings + 256 text tokens, 16 decode steps),
+  Gemma-7B whole, Yi-34B at full width cut to 8 of its 60 layers and
+  DBRX-132B to 2 of its 40 through ``build_engines`` d0 at batch 16 x
+  256 (``vlm_and_cuts``), each model freed before the next (kernels
+  K3, K4, and K5 on the d4 variants);
 * the coupled fleet (phases ``coupled_oracle``, ``coupled_holdout``,
   ``cell_dqn``, ``prof``): ``topology_bruteforce`` through the
   best-response kernel on the reference benchmark's hot edge (64 cells of
@@ -84,7 +106,9 @@ paths through the entry points a user calls:
   versions at its shapes (batch 1 x 16 tokens, 64 slots, d5's and d6's
   projections at 16 rows and 1).
 
-The phase ``cpu_agreement`` also holds the float32 fleet env step on
+(The dense and VLM path runs last in the script, after the state-space
+path's profiles.) The phase ``cpu_agreement`` also holds the float32
+fleet env step on
 the card bit-equal to the CPU on an isolated and a coupled fleet. Each
 path's kernel launch counts are set to 0 just before it and read just
 after; every route checks its identities (each active user served
@@ -108,9 +132,10 @@ each decode ``step_profile`` the port's kernels' device ms per step. A
 ``step_profile`` of one prefill of Falcon-Mamba d0 and of Hymba d0
 attributes their device time to kernels (K6's share among them). The
 line before the card's name lists every kernel with its launches on its
-path, its error against the plain version, its time beside the plain
-version's, its bound and, where one PyTorch call computes the same
-function, that call's time. The last line is ``{"ok": true, "device":
+main path and on each path that launched it (``launches_by_path``), its
+error against the plain version, its time beside the plain version's,
+its bound and, where one PyTorch call computes the same function, that
+call's time. The last line is ``{"ok": true, "device":
 {...}}``. It needs a CUDA device and the ``src/repro_torch`` package
 beside it, and imports nothing of JAX.
 """
@@ -162,13 +187,19 @@ SPIN_HZ = 1.98e9
 # the port's kernel functions, whose device time a step profile reports
 OUR_KERNELS = ("tabular_rl_kernel", "dqn_head_kernel",
                "best_response_kernel", "flash_attention_tc_kernel",
-               "flash_attention_kernel", "decode_partial_kernel",
+               "flash_attention_f32_kernel",
+               "decode_partial_kernel",
                "decode_merge_kernel", "int8_matmul_kernel",
                "selective_scan_kernel")
 
 
+#: the script's start; every line gives its seconds since (``t_s``)
+T0 = time.perf_counter()
+
+
 def emit(**kw):
-    print(json.dumps(kw), flush=True)
+    print(json.dumps(dict(kw, t_s=round(time.perf_counter() - T0, 1))),
+          flush=True)
 
 
 def check(cond, msg):
@@ -617,14 +648,46 @@ def sdpa(torch, q, k, v, **kw):
         enable_gqa=True, **kw)
 
 
-def flash_phase(torch, flash_attention, cases=FLASH_CASES, path="serving"):
+def instance_regs(ptxas, *parts):
+    """[registers, spill store bytes, spill load bytes] of the one kernel
+    function of a ``ptxas_summary`` whose mangled name holds every one of
+    ``parts`` (template arguments as the mangling writes them), else
+    None."""
+    hits = [v for fn, v in (ptxas or {}).items()
+            if all(p in fn for p in parts)]
+    return hits[0] if len(hits) == 1 else None
+
+
+def flash_regs(ptxas, dtype, hd):
+    """The ptxas line of K3's instance for ``dtype`` at head dim ``hd``."""
+    if dtype == "bfloat16":
+        return instance_regs(ptxas, "flash_attention_tc_kernelILi%dE" % hd)
+    return instance_regs(ptxas, "flash_attention_f32_kernelILi%dE" % hd)
+
+
+def decode_regs(ptxas, dtype, hd, g):
+    """The ptxas line of K4's partial kernel for ``dtype``, head dim
+    ``hd`` and the compiled group (1, 2, 8 or 16 heads) that takes ``g``
+    q heads a kv head."""
+    gb = 1 if g <= 1 else 2 if g <= 2 else 8 if g <= 8 else 16
+    t = "I13__nv_bfloat16" if dtype == "bfloat16" else "If"
+    return instance_regs(ptxas, "decode_partial_kernel%sLi%dELi%dE"
+                         % (t, hd, gb))
+
+
+def flash_phase(torch, flash_attention, cases=FLASH_CASES, path="serving",
+                ptxas=None, f32=None):
     """K3, causal, at every case of ``cases``; bf16 (the path's type) and
-    float32. Returns the kernels-line entry when ``cases`` hold the
-    serving path's main shape, else None."""
+    float32 (at the cases named in ``f32``, default all). Each line gives
+    the registers and spills of the instance that ran (``ptxas``: the
+    ``ptxas_summary`` of K3's build). Returns the kernels-line entry when
+    ``cases`` hold the serving path's main shape, else None."""
     g = torch.Generator(device="cuda").manual_seed(5)
     errs, main = [], None
     for name, b, s, h, kv, hd, window in cases:
         for dtype in ("bfloat16", "float32"):
+            if dtype == "float32" and f32 is not None and name not in f32:
+                continue
             dt = getattr(torch, dtype)
             q, k, v = (torch.randn(shape, generator=g, device="cuda")
                        .to(dt) for shape in ((b, s, h, hd), (b, s, kv, hd),
@@ -638,7 +701,12 @@ def flash_phase(torch, flash_attention, cases=FLASH_CASES, path="serving"):
             check(err <= tol, f"flash_attention {name} S={s} {dtype}: "
                   f"error {err} > {tol}")
             errs.append(err)
-            if dtype != "bfloat16":
+            if dtype != "bfloat16":   # checked, not timed
+                emit(phase="kernel_parity", kernel="flash_attention",
+                     path=path, layout=name, shape=[b, s, h, kv, hd],
+                     window=window, dtype=dtype, max_abs_err=err,
+                     tolerance=tol,
+                     registers_spills=flash_regs(ptxas, dtype, hd))
                 continue
             ms, wall_ms, prof_ms = timed(
                 lambda: flash_attention.flash_attention_cuda(
@@ -655,10 +723,9 @@ def flash_phase(torch, flash_attention, cases=FLASH_CASES, path="serving"):
             lib_ms, _, _ = timed(lib)
             # q, k, v read once, o written once (bf16); the products the
             # data needs: 2 * 2 * hd per (q, k) pair the mask keeps
-            nbytes = 2 * b * s * hd * (2 * h + 2 * kv)
-            pairs = int(band.sum())
-            b_ms, b_by = bound(nbytes, 4 * hd * b * h * pairs,
-                               BF16_TC_OPS_PER_S)
+            ops_, nbytes = flash_attention.cost(b, s, s, h, kv, hd, 2,
+                                                window=window)
+            b_ms, b_by = bound(nbytes, ops_, BF16_TC_OPS_PER_S)
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=lib_ms,
                        cold_ms=cold_ms(lambda: flash_attention
@@ -670,7 +737,8 @@ def flash_phase(torch, flash_attention, cases=FLASH_CASES, path="serving"):
                  layout=name, shape=[b, s, h, kv, hd], window=window,
                  dtype=dtype, max_abs_err=err, tolerance=tol,
                  profiler_ms=prof_ms,
-                 wall_ms=wall_ms, **row)
+                 wall_ms=wall_ms,
+                 registers_spills=flash_regs(ptxas, dtype, hd), **row)
             if name == "d0/d4" and s == PROMPT:
                 main = row
     if main is None:
@@ -682,17 +750,20 @@ def flash_phase(torch, flash_attention, cases=FLASH_CASES, path="serving"):
 
 
 def decode_phase(torch, ops, decode_attention, cases=DECODE_CASES,
-                 path="serving"):
-    """K4 at every case of ``cases``: the edge ladder's caches written
-    half way (the ring's unwritten slots masked by the bias), Hymba's
-    full at its last position, the sliding ring wrapped. Returns the
-    kernels-line entry when ``cases`` hold the serving path's main shape,
-    else None."""
+                 path="serving", ptxas=None, f32=None):
+    """K4 at every case of ``cases``: caches of up to ``MAX_LEN`` slots
+    written half way (the ring's unwritten slots masked by the bias),
+    longer ones (Hymba's, Gemma3's and PaliGemma's) full at their last
+    position, the sliding rings wrapped; bf16 and float32 (at the cases
+    named in ``f32``, default all). Each line gives the registers and
+    spills of the partial kernel's instance that ran (``ptxas``: the
+    ``ptxas_summary`` of K4's build). Returns the kernels-line entry when
+    ``cases`` hold the serving path's main shape, else None."""
     g = torch.Generator(device="cuda").manual_seed(6)
     errs, main = [], None
     for name, b, sc, h, kv, hd, window in cases:
         idx = torch.arange(sc, device="cuda")[None].repeat(b, 1)
-        if window or sc == HYBRID_MAX_LEN:
+        if window or sc > MAX_LEN:
             cur = torch.full((b,), HYBRID_MAX_LEN - 1, device="cuda")
             kv_pos = cur[:, None] - (cur[:, None] - idx) % sc
         else:
@@ -704,6 +775,8 @@ def decode_phase(torch, ops, decode_attention, cases=DECODE_CASES,
             valid &= kv_pos > cur[:, None] - window
         bias = torch.where(valid, 0.0, -1e30)
         for dtype in ("bfloat16", "float32"):
+            if dtype == "float32" and f32 is not None and name not in f32:
+                continue
             dt = getattr(torch, dtype)
             q = torch.randn((b, h, hd), generator=g, device="cuda").to(dt)
             kc, vc = (torch.randn((b, sc, kv, hd), generator=g,
@@ -716,7 +789,12 @@ def decode_phase(torch, ops, decode_attention, cases=DECODE_CASES,
             check(err <= tol, f"decode_attention {name} Sc={sc} "
                   f"{dtype}: error {err} > {tol}")
             errs.append(err)
-            if dtype != "bfloat16":
+            regs = decode_regs(ptxas, dtype, hd, h // kv)
+            if dtype != "bfloat16":   # checked, not timed
+                emit(phase="kernel_parity", kernel="decode_attention",
+                     path=path, layout=name, shape=[b, sc, h, kv, hd],
+                     window=window, dtype=dtype, max_abs_err=err,
+                     tolerance=tol, registers_spills=regs)
                 continue
             ms, wall_ms, prof_ms = timed(
                 lambda: decode_attention.decode_attention_cuda(
@@ -730,10 +808,8 @@ def decode_phase(torch, ops, decode_attention, cases=DECODE_CASES,
             lib_ms, _, _ = timed(lib)
             # both caches read whole (bf16), q and o, the f32 bias row;
             # 2 * 2 * hd per (head, slot)
-            nbytes = 2 * 2 * b * sc * kv * hd + 2 * 2 * b * h * hd \
-                + 4 * b * sc
-            b_ms, b_by = bound(nbytes, 4 * hd * b * h * sc,
-                               BF16_TC_OPS_PER_S)
+            ops_, nbytes = decode_attention.cost(b, h, kv, hd, sc, 2)
+            b_ms, b_by = bound(nbytes, ops_, BF16_TC_OPS_PER_S)
             splits, _ = decode_attention.split_plan(b, kv, sc, h // kv)
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                        bound_by=b_by, library_ms=lib_ms,
@@ -746,7 +822,7 @@ def decode_phase(torch, ops, decode_attention, cases=DECODE_CASES,
                  path=path, layout=name, shape=[b, sc, h, kv, hd],
                  window=window, dtype=dtype, max_abs_err=err,
                  tolerance=tol, profiler_ms=prof_ms,
-                 wall_ms=wall_ms, **row)
+                 wall_ms=wall_ms, registers_spills=regs, **row)
             if name == "d0/d4" and sc == MAX_LEN:
                 main = row
             if name.startswith("hymba"):
@@ -1918,14 +1994,15 @@ class MoEAgreement:
 
 def model_cpu_agreement(torch, cfg, params, build_model, batch, prompt,
                         variant, steps=3, phase="ssm_cpu_agreement",
-                        moe=None):
+                        moe=None, img_tokens=0):
     """The card's model and the CPU's plain path on the same weights (a
     copy of the card's): prefill and ``steps`` decode steps fed the CPU's
     greedy tokens, logits within the bf16 tolerance (atol 0.125 + rtol
     1e-2), greedy tokens equal where the CPU's top-2 margin is > 0.25.
     With ``moe`` (the module ``models.moe``) every MoE block is held on
-    the CPU's input and the routers end to end (``MoEAgreement``).
-    Returns the phase's line."""
+    the CPU's input and the routers end to end (``MoEAgreement``); with
+    ``img_tokens`` a VLM's prompt runs behind that many seeded stub image
+    embeddings. Returns the phase's line."""
     import contextlib
     import numpy as np
     m = build_model(cfg)
@@ -1933,15 +2010,19 @@ def model_cpu_agreement(torch, cfg, params, build_model, batch, prompt,
     vocab = cfg.vocab_size
     toks = np.random.default_rng(2).integers(0, vocab, (batch, prompt)) \
         .astype(np.int32)
-    max_len = prompt + steps + 1
+    max_len = img_tokens + prompt + steps + 1
+    batch_cpu = {"tokens": torch.tensor(toks)}
+    if img_tokens:
+        batch_cpu["img_embeds"] = torch.tensor(
+            np.random.default_rng(3).standard_normal(
+                (batch, img_tokens, cfg.d_model)).astype(np.float32))
     errs, shares, clear_rows, equal = [], [], 0, True
     rec = MoEAgreement(torch, moe, _pairs(params, p_cpu)) \
         if moe is not None else None
     with torch.inference_mode(), (rec or contextlib.nullcontext()):
-        lg, cg = m.prefill(params, {"tokens": torch.tensor(
-            toks, device="cuda")}, max_len=max_len)
-        lc, cc = m.prefill(p_cpu, {"tokens": torch.tensor(toks)},
-                           max_len=max_len)
+        lg, cg = m.prefill(params, {k: v.cuda() for k, v in
+                                    batch_cpu.items()}, max_len=max_len)
+        lc, cc = m.prefill(p_cpu, batch_cpu, max_len=max_len)
         for step in range(steps + 1):
             if rec is not None:
                 rec.fold(batch)
@@ -1967,7 +2048,8 @@ def model_cpu_agreement(torch, cfg, params, build_model, batch, prompt,
                 layers=cfg.n_layers, d_model=cfg.d_model)
     if cfg.ssm is not None:
         line["d_inner"] = cfg.d_inner
-    line.update(batch=batch, prompt=prompt,
+    line.update(batch=batch, prompt=prompt, image_tokens=img_tokens,
+                peak_gb=peak_gb(torch),
                 decode_steps=steps, logits_max_abs_err=max(errs),
                 logits_tolerance=[0.125, 1e-2],
                 logits_limit_share=max(shares),
@@ -1997,6 +2079,16 @@ def _held(params):
         parts = [_held(p) for p in params]
         return sum(p[0] for p in parts), sum(p[1] for p in parts)
     return params.numel(), params.numel() * params.element_size()
+
+
+def _scales(params):
+    """Elements of a param tree's int8 scales (the ``s`` leaves)."""
+    if isinstance(params, list):
+        return sum(_scales(p) for p in params)
+    if isinstance(params, dict):
+        return sum(v.numel() if k == "s" else _scales(v)
+                   for k, v in params.items())
+    return 0
 
 
 def family_line(cfg, params, init_s):
@@ -2168,6 +2260,278 @@ def moe_serving(torch, engines, init_s, moe):
              prefill_dropped_frac_mean=sum(drops) / len(drops),
              prefill_dropped_frac_max=max(drops))
     return out
+
+
+# ------------------------------------------------ dense and VLM path ----
+#: the dense and VLM path: Gemma3-4B (batch 8 x 2,048, past its 1,024-token
+#: window; cache 2,064) and InternLM2-20B (batch 32 x 256, cache 512)
+#: served whole, d0 and d4; PaliGemma-3B whole (batch 16, 256 image + 256
+#: text tokens); Gemma-7B whole, Yi-34B cut to 8 layers and DBRX to 2 (batch
+#: 16 x 256, cache 512); the fleet routed into Gemma3's engines
+GEMMA3_ARCH, INTERN_ARCH = "gemma3-4b", "internlm2-20b"
+DENSE_ARCHS = (INTERN_ARCH, "yi-34b", "gemma-7b", GEMMA3_ARCH,
+               "paligemma-3b")
+DENSE_VARIANTS = ("d0", "d4")
+GEMMA3_BATCH, GEMMA3_PROMPT = 8, 2048
+GEMMA3_MAX_LEN = GEMMA3_PROMPT + NEW_TOKENS
+INTERN_BATCH = 32
+PALI_BATCH, PALI_IMG = 16, 256
+PALI_MAX_LEN = PALI_IMG + PROMPT + NEW_TOKENS
+CUT_BATCH, YI_LAYERS, DBRX_LAYERS = 16, 8, 2
+DENSE_ROUTE_SEED = 19
+#: K3 and K4 at the path's layouts (name, batch, sequence or cache slots,
+#: q heads, kv heads, head dim, window); float32 checked at one layout of
+#: each head dim (``DENSE_F32``)
+#: each of ``dense_serving`` and of ``vlm_and_cuts``
+DENSE_FLASH_CASES = (
+    ("internlm2", INTERN_BATCH, PROMPT, 48, 8, 128, 0),
+    ("gemma3 global", GEMMA3_BATCH, GEMMA3_PROMPT, 8, 4, 256, 0),
+    ("gemma3 sliding", GEMMA3_BATCH, GEMMA3_PROMPT, 8, 4, 256, 1024))
+DENSE_DECODE_CASES = (
+    ("internlm2", INTERN_BATCH, MAX_LEN, 48, 8, 128, 0),
+    ("gemma3 global", GEMMA3_BATCH, GEMMA3_MAX_LEN, 8, 4, 256, 0),
+    ("gemma3 sliding", GEMMA3_BATCH, 1024, 8, 4, 256, 1024))
+VLM_FLASH_CASES = (
+    ("yi", CUT_BATCH, PROMPT, 56, 8, 128, 0),
+    ("gemma-7b", CUT_BATCH, PROMPT, 16, 16, 256, 0),
+    ("paligemma", PALI_BATCH, PALI_IMG + PROMPT, 8, 1, 256, 0))
+VLM_DECODE_CASES = (
+    ("yi", CUT_BATCH, MAX_LEN, 56, 8, 128, 0),
+    ("gemma-7b", CUT_BATCH, MAX_LEN, 16, 16, 256, 0),
+    ("paligemma", PALI_BATCH, PALI_MAX_LEN, 8, 1, 256, 0))
+DENSE_F32 = ("internlm2", "paligemma")
+
+
+def free_card(torch):
+    """Release the allocator's cached blocks and start a new peak."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gb(torch):
+    """The card's peak allocated memory since the last reset, in GB."""
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def dense_cut(cfg, n_layers):
+    """``cfg`` at full width cut to its first ``n_layers`` layers; a
+    Gemma3-style interleave keeps a sliding and a global layer (the
+    global interval set to the cut's depth)."""
+    upd = dict(n_layers=n_layers)
+    if cfg.global_interval:
+        upd["global_interval"] = n_layers
+    return dataclasses.replace(cfg, **upd)
+
+
+def dense_cpu_agreement(torch, get_config, build_model, variant_seed):
+    """Each dense and VLM config at full width cut to 2 layers (Gemma3: a
+    sliding and a global one, its prompt 32 tokens past the 1,024-token
+    window; PaliGemma behind 16 image tokens), drawn on the card and run
+    on the card and on the CPU with the same weights
+    (``model_cpu_agreement``); InternLM2 also in d4."""
+    from repro_torch.models.variants import build_ladder
+    for arch in DENSE_ARCHS:
+        cfg = dense_cut(get_config(arch), 2)
+        prompt = cfg.sliding_window + 32 if cfg.global_interval else 32
+        for vid in ("d0", "d4") if arch == INTERN_ARCH else ("d0",):
+            vcfg = build_ladder(cfg)[vid].cfg
+            params = build_model(vcfg).init(variant_seed(0, vid),
+                                            device="cuda")
+            model_cpu_agreement(
+                torch, vcfg, params, build_model, 2, prompt, vid,
+                phase="dense_cpu_agreement",
+                img_tokens=16 if cfg.arch_type == "vlm" else 0)
+            del params
+            free_card(torch)
+
+
+def dense_engines_line(torch, eng, init_s, batch, prompt, max_len, cache):
+    """The checks and sizes of a served dense model: the K/V cache's
+    slots (a ring of ``sliding_window`` slots in a sliding segment, else
+    ``max_len``) and position, the weights held (an int8 variant's
+    scales aside) against ``param_count()``, its heads and the peak
+    memory so far."""
+    cfg = eng.model.cfg
+    slots = [(seg.is_global, tuple(c["k"].shape))
+             for seg, c in zip(eng.model.segments, cache["segments"])]
+    kv = (cfg.n_kv_heads, cfg.resolved_head_dim)
+    check(all(shape == (seg.length, batch, max_len if g else min(
+        cfg.sliding_window, max_len)) + kv for (g, shape), seg in
+        zip(slots, eng.model.segments))
+        and cache["pos"] == prompt + NEW_TOKENS,
+        f"{cfg.name}: unexpected K/V cache {slots} at {cache['pos']}")
+    line = family_line(cfg, eng.params, init_s)
+    # an int8 linear also holds its per-column scales ("s"), which
+    # param_count() leaves out
+    weights = line["params_held"] - _scales(eng.params)
+    check(weights == line["params_analytic"],
+          f"{cfg.name}: {weights} weights held, "
+          f"{line['params_analytic']} by param_count()")
+    line.update(heads=[cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+                d_ff=cfg.d_ff, mlp=cfg.mlp_act,
+                tied=cfg.tie_embeddings, batch=batch, prompt=prompt,
+                new_tokens=NEW_TOKENS, max_len=max_len,
+                kv_cache=[list(shape) for _, shape in slots],
+                peak_gb=peak_gb(torch))
+    if cfg.global_interval:
+        line.update(window=cfg.sliding_window,
+                    global_interval=cfg.global_interval,
+                    segments=len(eng.model.segments))
+    return line
+
+
+def serve_dense(torch, build_engines, cfg, batch, prompt, max_len):
+    """``build_engines`` over ``cfg`` (d0 and d4) at its full size, each
+    variant's ``generate`` at ``batch`` x ``prompt`` with 16 new tokens;
+    one ``dense_serving`` line a variant. Returns (engines, caches)."""
+    import numpy as np
+    engines, init_s = build_family(torch, build_engines, cfg,
+                                   DENSE_VARIANTS, max_len)
+    rng = np.random.default_rng(0)
+    caches = {}
+    for vid in DENSE_VARIANTS:
+        eng = engines["S"][vid]
+        toks = rng.integers(0, cfg.vocab_size, (batch, prompt)).astype(
+            np.int32)
+        caches[vid], prefill_ms, decode_ms, wall = timed_generate(
+            torch, eng, toks, max_len)
+        emit(phase="dense_serving", variant=vid,
+             **dense_engines_line(torch, eng, init_s[vid], batch, prompt,
+                                  max_len, caches[vid]),
+             prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
+             generate_ms=wall * 1e3,
+             tokens_per_s=batch * NEW_TOKENS / wall)
+    return engines, caches
+
+
+def dense_serving(torch, R, build_engines, get_config, kernels):
+    """Gemma3-4B and InternLM2-20B as published, d0 bf16 and d4 int8
+    (``serve_dense``); a 256-cell 3-user fleet routed into Gemma3's
+    engines (``route_dispatch_dense``); the decode and prefill profiles
+    of both. Returns the path's launches of ``kernels``, counted from
+    its start (the profiles outside)."""
+    for k in kernels:
+        k.launches = 0
+    free_card(torch)
+    engines, caches = serve_dense(torch, build_engines,
+                                  get_config(GEMMA3_ARCH), GEMMA3_BATCH,
+                                  GEMMA3_PROMPT, GEMMA3_MAX_LEN)
+    route_dispatch(torch, R, engines, cells=SSM_ROUTE_CELLS,
+                   phase="route_dispatch_dense", seed=DENSE_ROUTE_SEED)
+    launches = {k.name: k.launches for k in kernels}
+    decode_profile(torch, engines, caches, path="dense_serving",
+                   batch=GEMMA3_BATCH)
+    prefill_profile(torch, engines, GEMMA3_BATCH, GEMMA3_PROMPT,
+                    GEMMA3_MAX_LEN, "dense_serving", variants=DENSE_VARIANTS)
+    del engines, caches
+    free_card(torch)
+    before = {k.name: k.launches for k in kernels}
+    engines, caches = serve_dense(torch, build_engines,
+                                  get_config(INTERN_ARCH), INTERN_BATCH,
+                                  PROMPT, MAX_LEN)
+    for k in kernels:
+        launches[k.name] += k.launches - before[k.name]
+    decode_profile(torch, engines, caches, path="dense_serving",
+                   batch=INTERN_BATCH)
+    prefill_profile(torch, engines, INTERN_BATCH, PROMPT, MAX_LEN,
+                    "dense_serving", variants=DENSE_VARIANTS)
+    del engines, caches
+    free_card(torch)
+    return launches
+
+
+def serve_paligemma(torch, get_config, build_model, variant_seed):
+    """PaliGemma-3B as published (d0 bf16) through ``Model.prefill`` /
+    ``decode``: batch 16, 256 seeded stub image embeddings + 256 text
+    tokens, 16 greedy decode steps; the cache's position counts the
+    image prefix."""
+    import numpy as np
+    cfg = get_config("paligemma-3b")
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(variant_seed(0, "d0"), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(23)
+    batch = {"tokens": torch.tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (PALI_BATCH, PROMPT)).astype(np.int32),
+        device="cuda"),
+        "img_embeds": torch.randn((PALI_BATCH, PALI_IMG, cfg.d_model),
+                                  generator=g, device="cuda").to(
+                                      torch.bfloat16)}
+
+    def run():
+        logits, cache = model.prefill(params, batch, max_len=PALI_MAX_LEN)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(NEW_TOKENS):
+            cur = logits[:, -1:, :cfg.vocab_size].argmax(-1).int()
+            logits, cache = model.decode(params, cache, cur)
+        torch.cuda.synchronize()
+        return logits, cache, t1
+    with torch.inference_mode():
+        run()                                     # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache, t1 = run()
+        t2 = time.perf_counter()
+    check(bool(torch.isfinite(logits.float()).all()),
+          "paligemma: non-finite logits")
+    (seg,) = cache["segments"]
+    kv = (cfg.n_layers, PALI_BATCH, PALI_MAX_LEN, 1, 256)
+    check(cache["pos"] == PALI_MAX_LEN and tuple(seg["k"].shape) == kv,
+          f"paligemma: cache {tuple(seg['k'].shape)} at {cache['pos']}")
+    line = family_line(cfg, params, init_s)
+    # param_count() leaves out the image projection (d_model^2)
+    check(line["params_held"] == line["params_analytic"]
+          + cfg.d_model ** 2, "paligemma: parameters held "
+          f"{line['params_held']} != param_count() + d_model^2")
+    emit(phase="vlm_and_cuts", part="paligemma", variant="d0", **line,
+         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+         batch=PALI_BATCH, image_tokens=PALI_IMG, prompt=PROMPT,
+         new_tokens=NEW_TOKENS, kv_cache=list(kv),
+         prefill_ms=(t1 - t0) * 1e3,
+         decode_ms_per_token=(t2 - t1) * 1e3 / NEW_TOKENS,
+         tokens_per_s=PALI_BATCH * NEW_TOKENS / (t2 - t0),
+         peak_gb=peak_gb(torch))
+    del params, cache, logits
+
+
+def vlm_and_cuts(torch, build_engines, get_config, build_model,
+                 variant_seed, kernels):
+    """PaliGemma-3B whole (``serve_paligemma``); Gemma-7B whole, Yi-34B
+    at full width cut to 8 of its 60 layers and DBRX-132B to 2 of its 40
+    through ``build_engines`` d0 at batch 16 x 256; each freed before the
+    next. Returns the path's launches of ``kernels``."""
+    import numpy as np
+    for k in kernels:
+        k.launches = 0
+    free_card(torch)
+    serve_paligemma(torch, get_config, build_model, variant_seed)
+    free_card(torch)
+    rng = np.random.default_rng(6)
+    for arch, layers in (("gemma-7b", None), ("yi-34b", YI_LAYERS),
+                         ("dbrx-132b", DBRX_LAYERS)):
+        full = get_config(arch)
+        cfg = full if layers is None else dense_cut(full, layers)
+        engines, init_s = build_family(torch, build_engines, cfg, ("d0",),
+                                       MAX_LEN)
+        eng = engines["S"]["d0"]
+        toks = rng.integers(0, cfg.vocab_size, (CUT_BATCH, PROMPT)).astype(
+            np.int32)
+        cache, prefill_ms, decode_ms, wall = timed_generate(
+            torch, eng, toks, MAX_LEN)
+        line = dense_engines_line(torch, eng, init_s["d0"], CUT_BATCH,
+                                  PROMPT, MAX_LEN, cache)
+        emit(phase="vlm_and_cuts", part=arch, variant="d0",
+             layers_of=full.n_layers, **line, prefill_ms=prefill_ms,
+             decode_ms_per_token=decode_ms, generate_ms=wall * 1e3,
+             tokens_per_s=CUT_BATCH * NEW_TOKENS / wall)
+        del engines, eng, cache
+        free_card(torch)
+    return {k.name: k.launches for k in kernels}
 
 
 # ------------------------------------------------ the single-cell layer ----
@@ -3031,8 +3395,10 @@ def main():
     entries = [tabular_phase(torch, tabular_rl, ref),
                head_phase(torch, dqn_head, ref, dynamics, spaces,
                           ptxas[dqn_head.KERNEL.name]),
-               flash_phase(torch, flash_attention),
-               decode_phase(torch, ops, decode_attention),
+               flash_phase(torch, flash_attention,
+                           ptxas=ptxas[flash_attention.KERNEL.name]),
+               decode_phase(torch, ops, decode_attention,
+                            ptxas=ptxas[decode_attention.KERNEL.name]),
                int8_phase(torch, ref, int8_matmul),
                scan_phase(torch, selective_scan,
                           ptxas[selective_scan.KERNEL.name])]
@@ -3187,13 +3553,58 @@ def main():
                     HYBRID_MAX_LEN, "hybrid_serving")
     prefill_profile(torch, ssm_engines, SERVE_BATCH, PROMPT, MAX_LEN,
                     "ssm_serving")
+    del ssm_engines, hyb_engines, ssm_caches, hyb_caches
+
+    # the dense and VLM path: K3 and K4 at head_dim 128 and 256 against
+    # their plain versions at its layouts, the five configs' 2-layer cuts
+    # against the CPU, Gemma3-4B and InternLM2-20B served whole (their
+    # launches counted from here), then PaliGemma-3B and Gemma-7B whole
+    # and the Yi-34B and DBRX cuts (counted apart)
+    free_card(torch)
+    attn_kernels = [flash_attention.KERNEL, decode_attention.KERNEL]
+    for cases, dcases, path in ((DENSE_FLASH_CASES, DENSE_DECODE_CASES,
+                                 "dense_serving"),
+                                (VLM_FLASH_CASES, VLM_DECODE_CASES,
+                                 "vlm_and_cuts")):
+        flash_phase(torch, flash_attention, cases, path=path,
+                    ptxas=ptxas[flash_attention.KERNEL.name], f32=DENSE_F32)
+        decode_phase(torch, ops, decode_attention, dcases, path=path,
+                     ptxas=ptxas[decode_attention.KERNEL.name],
+                     f32=DENSE_F32)
+    dense_cpu_agreement(torch, get_config, build_model,
+                        serve_cli.variant_seed)
+    dense_launches = dense_serving(torch, R, build_engines, get_config,
+                                   serving_kernels)
+    vlm_launches = vlm_and_cuts(torch, build_engines, get_config,
+                                build_model, serve_cli.variant_seed,
+                                attn_kernels)
+    emit(phase="launches", dense_serving=dense_launches,
+         vlm_and_cuts=vlm_launches)
+    for path, counts in (("dense", dense_launches), ("VLM and cuts",
+                                                     vlm_launches)):
+        for name, n in counts.items():
+            check(n > 0, f"{name} was never launched on the {path} path")
+
+    by_path = {"fleet_loop": {k.name: launches[k.name]
+                              for k in fleet_kernels},
+               "serving": {k.name: launches[k.name]
+                           for k in serving_kernels},
+               "sim_to_real_loop": loop_launches,
+               "coupled_oracle": {"best_response":
+                                  launches["best_response"]},
+               "single_cell": cli_launches, "ssm_path": ssm_launches,
+               "moe_path": moe_launches, "dense_serving": dense_launches,
+               "vlm_and_cuts": vlm_launches}
     for e in entries:
         e["launches"] = launches[e["name"]]
         check(e["launches"] > 0,
               f"{e['name']} was never launched on its main path")
+        e["launches_by_path"] = {p: c[e["name"]] for p, c in by_path.items()
+                                 if c.get(e["name"])}
     emit(phase="elapsed", seconds=time.perf_counter() - t_start)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_by_path")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}
                                   for e in entries]}), flush=True)
     smi = subprocess.run(

@@ -5,11 +5,15 @@
 ``scale_width`` is the variant-ladder scaling and ``reduced`` the
 smoke-test cut of a family. ``get_config`` knows the configurations the
 port can build: ``edge-ladder`` (the paper's Table-4 ladder as a small
-decoder transformer), ``falcon-mamba-7b`` (pure Mamba-1 SSM),
-``hymba-1.5b`` (attention and Mamba heads in parallel), and the
-mixture-of-experts ``granite-moe-1b-a400m`` and ``dbrx-132b`` (whose
-head_dim of 128 the attention kernels do not have yet: it runs on the
-CPU, at ``reduced`` size).
+decoder transformer), the dense ``internlm2-20b`` and ``yi-34b`` (GQA,
+head_dim 128), ``gemma-7b`` and ``gemma3-4b`` (head_dim 256, Gemma3
+with 5:1 sliding:global layers), the VLM ``paligemma-3b`` (a
+Gemma-style decoder behind a stub image prefix), ``falcon-mamba-7b``
+(pure Mamba-1 SSM), ``hymba-1.5b`` (attention and Mamba heads in
+parallel), and the mixture-of-experts ``granite-moe-1b-a400m`` and
+``dbrx-132b``. Every one runs on the card; DBRX's 263 GB in bf16 and
+Yi's 69 GB do not fit one beside the rest, so the card runs them cut in
+depth.
 """
 from __future__ import annotations
 
@@ -168,6 +172,11 @@ class ModelConfig:
 
 #: arch id -> module of ``repro_torch.configs`` holding its ``CONFIG``
 _MODULE_FOR = {"edge-ladder": "edge_ladder",
+               "internlm2-20b": "internlm2_20b",
+               "yi-34b": "yi_34b",
+               "gemma-7b": "gemma_7b",
+               "gemma3-4b": "gemma3_4b",
+               "paligemma-3b": "paligemma_3b",
                "falcon-mamba-7b": "falcon_mamba_7b",
                "hymba-1.5b": "hymba_1_5b",
                "granite-moe-1b-a400m": "granite_moe_1b_a400m",

@@ -63,8 +63,9 @@ def model_params(params_np, cfg, device=None) -> dict:
     are cast back to ``cfg.dtype`` (exact again); an int8 linear
     ``{"w_q", "s"}`` keeps int8 weights, held K-major as
     ``layers.init_linear`` holds them (strides (1, in)), and float32
-    scales; norm gains stay float32. A Mamba block keeps the reference's
-    types: ``conv_w`` in ``cfg.dtype``, ``conv_b``, ``dt_w``, ``dt_b``,
+    scales; norm gains stay float32. A VLM's ``proj_img`` is a dense
+    linear like the others. A Mamba block keeps the reference's types:
+    ``conv_w`` in ``cfg.dtype``, ``conv_b``, ``dt_w``, ``dt_b``,
     ``A_log`` and ``D`` float32. A MoE block keeps its router's ``w``
     float32, and its experts' leaves ``w`` (E, in, out), ``w_q`` (K-major
     per expert) and ``s`` (E, 1, out) as a linear's. Weights stay ``(in,

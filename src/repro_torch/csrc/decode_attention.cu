@@ -26,7 +26,8 @@
 // lane keeps its chunk of every head's q in registers, and K and V rows
 // come straight from the cache into registers by 16-byte loads, kept
 // bf16 until the lane's own FMAs, the next rows in flight while the
-// current ones are used. Pass 1 scores every (head, slot) of the range
+// current ones are used (a lane takes two chunks of a row where the row
+// has more than 32: float32 at hd 256). Pass 1 scores every (head, slot) of the range
 // into shared memory (dot products reduced by shuffles over the row's
 // lanes, bias added before the max); each warp then turns its heads'
 // scores into probabilities with the range's max and sum, while the
@@ -40,8 +41,10 @@
 // weighs exp(-1e30 - m) = 0 beside any unmasked one; a row with every
 // slot masked stays the uniform average over its S slots, as in the
 // reference. The G query heads of a kv head take a compiled group of 1,
-// 2, 8 or 16 heads (GB), the heads past G skipped: 1 serves d7, 2 the
-// edge ladder's d0/d4, 8 Hymba's 5, 16 the limit kMaxG.
+// 2, 8 or 16 heads (GB), the heads past G skipped: 1 serves d7 and
+// Gemma-7B, 2 the edge ladder's d0/d4 and Gemma3-4B, 8 Hymba's 5,
+// InternLM2's and DBRX's 6, Yi's 7 and PaliGemma's 8, 16 the limit kMaxG
+// (G x hd at most kMaxGroupDims, so no 16 at hd 256).
 //
 // Binding: plain C entry point decode_attention_launch (ctypes), dtype 0
 // float32, 1 bfloat16; it launches both kernels and returns
@@ -57,7 +60,7 @@ constexpr int kTS = 64;          // cache slots per tile: spans are whole tiles
 constexpr int kThreads = 128;    // four warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 16;        // query heads per kv head
-constexpr int kMaxGroupDims = 1024;  // G * hd
+constexpr int kMaxGroupDims = 2048;  // G * hd
 constexpr float kNegInf = -1e30f;
 
 template <typename T>
@@ -71,21 +74,33 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// a 16-byte chunk (8 bf16 or 4 f32) widened to float, without taking
-// addresses (bf16 is the top half of a float32)
-__device__ __forceinline__ void widen(const uint4& w, float (&x)[8]) {
+// a 16-byte chunk (8 bf16 or 4 f32) widened to float into x[at ...],
+// without taking addresses (bf16 is the top half of a float32)
+template <int E>
+__device__ __forceinline__ void widen(const uint4& w, float (&x)[E], int at,
+                                      const __nv_bfloat16*) {
   const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    x[2 * i] = __uint_as_float(u[i] << 16);
-    x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    x[at + 2 * i] = __uint_as_float(u[i] << 16);
+    x[at + 2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
   }
 }
-__device__ __forceinline__ void widen(const uint4& w, float (&x)[4]) {
-  x[0] = __uint_as_float(w.x);
-  x[1] = __uint_as_float(w.y);
-  x[2] = __uint_as_float(w.z);
-  x[3] = __uint_as_float(w.w);
+template <int E>
+__device__ __forceinline__ void widen(const uint4& w, float (&x)[E], int at,
+                                      const float*) {
+  x[at] = __uint_as_float(w.x);
+  x[at + 1] = __uint_as_float(w.y);
+  x[at + 2] = __uint_as_float(w.z);
+  x[at + 3] = __uint_as_float(w.w);
+}
+// a lane's NCH chunks of one row widened to its E = NCH * VEC floats
+template <typename T, int NCH, int E>
+__device__ __forceinline__ void widen_row(const uint4 (&w)[NCH],
+                                          float (&x)[E]) {
+#pragma unroll
+  for (int ch = 0; ch < NCH; ++ch)
+    widen(w[ch], x, ch * (E / NCH), static_cast<const T*>(nullptr));
 }
 
 // shared memory of a block, in floats: the range's scores (G x span;
@@ -94,17 +109,20 @@ __host__ __device__ constexpr int smem_floats(int G, int span, int hd) {
   return (G * span > kWarps * G * hd ? G * span : kWarps * G * hd) + 2 * G;
 }
 
-// this lane's chunk of rows r, r + RB, ..., r + (U - 1) RB of the range
-// (ld elements apart; a range's offsets fit 32 bits), rows past n zero
-template <typename T, int U, int RB>
-__device__ __forceinline__ void load_rows(uint4 (&x)[U], const T* base,
+// this lane's NCH chunks of rows r, r + RB, ..., r + (U - 1) RB of the
+// range (ld elements apart; a range's offsets fit 32 bits), rows past n
+// zero
+template <typename T, int U, int RB, int NCH>
+__device__ __forceinline__ void load_rows(uint4 (&x)[U][NCH], const T* base,
                                           int ld, int r, int n) {
 #pragma unroll
   for (int u = 0; u < U; ++u)
-    x[u] = r + u * RB < n
-               ? __ldg(reinterpret_cast<const uint4*>(base +
-                                                      (r + u * RB) * ld))
-               : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch)
+      x[u][ch] = r + u * RB < n
+                     ? __ldg(reinterpret_cast<const uint4*>(
+                                 base + (r + u * RB) * ld) + ch)
+                     : make_uint4(0u, 0u, 0u, 0u);
 }
 
 // (the minimum of one block per SM keeps ptxas from spilling a few
@@ -118,10 +136,14 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                       T* __restrict__ o, int S, int H, int KV, int span,
                       float scale) {
   constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte chunk
-  constexpr int C = HD / VEC;           // lanes per slot row
+  // 16-byte chunks per lane: one, but two where a row has more than 32
+  // (float32 at hd 256)
+  constexpr int NCH = HD / VEC > 32 ? HD / VEC / 32 : 1;
+  constexpr int E = NCH * VEC;          // elements of a row per lane
+  constexpr int C = HD / E;             // lanes per slot row
   constexpr int R = 32 / C;             // rows per warp step
   constexpr int RB = kWarps * R;        // rows per block step
-  constexpr int U = GB * VEC >= 128 ? 2 : 4;   // rows per lane per step
+  constexpr int U = GB * E >= 128 ? 2 : 4;   // rows per lane per step
   constexpr int STEP = RB * U;
   extern __shared__ float sm[];
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
@@ -137,44 +159,47 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int r_first = warp * R + rsub;  // this lane's first row
 
   const int ld = KV * HD;               // elements per cache slot
-  const long long row0 = ((long long)b * S + s_lo) * ld + kvh * HD + c * VEC;
+  const long long row0 = ((long long)b * S + s_lo) * ld + kvh * HD + c * E;
   const T* kbase = kc + row0;
   const T* vbase = vc + row0;
   const float* brow = bias + (long long)b * S + s_lo;
 
   // the first K rows in flight while q comes in
-  uint4 kr[U];
-  load_rows<T, U, RB>(kr, kbase, ld, r_first, n);
-  // this lane's chunk of each head's q, pre-scaled, in registers
-  float qx[GB][VEC];
+  uint4 kr[U][NCH];
+  load_rows<T, U, RB, NCH>(kr, kbase, ld, r_first, n);
+  // this lane's chunks of each head's q, pre-scaled, in registers
+  float qx[GB][E];
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) qx[g][i] = 0.f;
+    for (int i = 0; i < E; ++i) qx[g][i] = 0.f;
     if (g >= G) continue;
-    widen(__ldg(reinterpret_cast<const uint4*>(
-              q + ((long long)b * H + h0 + g) * HD + c * VEC)),
-          qx[g]);
+    uint4 qw[NCH];
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) qx[g][i] *= scale;
+    for (int ch = 0; ch < NCH; ++ch)
+      qw[ch] = __ldg(reinterpret_cast<const uint4*>(
+                         q + ((long long)b * H + h0 + g) * HD + c * E) + ch);
+    widen_row<T>(qw, qx[g]);
+#pragma unroll
+    for (int i = 0; i < E; ++i) qx[g][i] *= scale;
   }
 
   // pass 1: scores of every (head, slot) of the range, the next rows
   // in flight while these are scored
   for (int rw = warp * R; rw < n; rw += STEP) {
-    uint4 kn[U];
-    load_rows<T, U, RB>(kn, kbase, ld, rw + STEP + rsub, n);
+    uint4 kn[U][NCH];
+    load_rows<T, U, RB, NCH>(kn, kbase, ld, rw + STEP + rsub, n);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int r = rw + rsub + u * RB;
-      float kx[VEC];
-      widen(kr[u], kx);
+      float kx[E];
+      widen_row<T>(kr[u], kx);
 #pragma unroll
       for (int g = 0; g < GB; ++g) {
         if (g >= G) continue;
         float dot = 0.f;
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) dot = fmaf(qx[g][i], kx[i], dot);
+        for (int i = 0; i < E; ++i) dot = fmaf(qx[g][i], kx[i], dot);
 #pragma unroll
         for (int off = 1; off < C; off <<= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
@@ -182,11 +207,13 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       }
     }
 #pragma unroll
-    for (int u = 0; u < U; ++u) kr[u] = kn[u];
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) kr[u][ch] = kn[u][ch];
   }
   // the first V rows in flight through the softmax
-  uint4 vr[U];
-  load_rows<T, U, RB>(vr, vbase, ld, r_first, n);
+  uint4 vr[U][NCH];
+  load_rows<T, U, RB, NCH>(vr, vbase, ld, r_first, n);
   __syncthreads();
 
   // the range's softmax per head: one warp per head
@@ -213,38 +240,40 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
   __syncthreads();
 
-  // pass 2: acc[g][chunk c] = sum over this lane's rows of p v
-  float acc[GB][VEC];
+  // pass 2: acc[g][chunks of lane c] = sum over this lane's rows of p v
+  float acc[GB][E];
 #pragma unroll
   for (int g = 0; g < GB; ++g)
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < E; ++i) acc[g][i] = 0.f;
   for (int rw = warp * R; rw < n; rw += STEP) {
-    uint4 vn[U];
-    load_rows<T, U, RB>(vn, vbase, ld, rw + STEP + rsub, n);
+    uint4 vn[U][NCH];
+    load_rows<T, U, RB, NCH>(vn, vbase, ld, rw + STEP + rsub, n);
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int r = rw + rsub + u * RB;
       if (r >= n) continue;
-      float vx[VEC];
-      widen(vr[u], vx);
+      float vx[E];
+      widen_row<T>(vr[u], vx);
 #pragma unroll
       for (int g = 0; g < GB; ++g) {
         if (g >= G) continue;
         const float p = sc[g * span + r];
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[g][i] = fmaf(p, vx[i], acc[g][i]);
+        for (int i = 0; i < E; ++i) acc[g][i] = fmaf(p, vx[i], acc[g][i]);
       }
     }
 #pragma unroll
-    for (int u = 0; u < U; ++u) vr[u] = vn[u];
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int ch = 0; ch < NCH; ++ch) vr[u][ch] = vn[u][ch];
   }
   // over the warp's rows (lanes of one chunk are C apart)
 #pragma unroll
   for (int g = 0; g < GB; ++g) {
     if (g >= G) continue;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i)
+    for (int i = 0; i < E; ++i)
 #pragma unroll
       for (int off = C; off < 32; off <<= 1)
         acc[g][i] += __shfl_xor_sync(0xffffffffu, acc[g][i], off);
@@ -256,8 +285,8 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int g = 0; g < GB; ++g) {
       if (g >= G) continue;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        red[(warp * G + g) * HD + c * VEC + i] = acc[g][i];
+      for (int i = 0; i < E; ++i)
+        red[(warp * G + g) * HD + c * E + i] = acc[g][i];
     }
   }
   __syncthreads();
@@ -348,8 +377,10 @@ cudaError_t launch_g(const void* q, const void* kc, const void* vc,
   if (G <= 8)
     return launch<T, HD, 8>(q, kc, vc, bias, ws, o, B, S, H, KV, span, scale,
                             stream);
-  return launch<T, HD, 16>(q, kc, vc, bias, ws, o, B, S, H, KV, span, scale,
-                           stream);
+  if constexpr (16 * HD <= kMaxGroupDims)
+    return launch<T, HD, 16>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
+                             scale, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -367,6 +398,12 @@ cudaError_t launch_hd(int hd, const void* q, const void* kc, const void* vc,
     case 64:
       return launch_g<T, 64>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
                              scale, stream);
+    case 128:
+      return launch_g<T, 128>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
+                              scale, stream);
+    case 256:
+      return launch_g<T, 256>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
+                              scale, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -21,22 +21,26 @@
 // kv tiles launched first. The q tile and a 2-stage ring of 64-row K and
 // V tiles come into shared memory by 16-byte cp.async straight from the
 // model's layout (rows past Sq or Skv zero-filled), stored in the
-// 128/64/32-byte swizzle of the hd*2-byte rows. S = Q K^T is wgmma
-// m64n64k16 with both operands K-major in shared memory (hd/16 k-steps);
+// 128/64/32-byte swizzle of the hd*2-byte rows at hd 64/32/16, and at hd
+// 128 and 256 as 64-column atoms in the 128-byte swizzle (81 and 161 KB
+// of shared memory a block, so one block a SM at hd 256). S = Q K^T is
+// wgmma m64n64k16 with both operands K-major in shared memory (hd/16
+// k-steps, atom by atom);
 // the online softmax runs on the f32 accumulator fragments in registers
 // (base-2 exponentials by ex2.approx on the special function unit, row
 // max and sum across the 4 lanes of a quad), and P, rounded to bf16
 // as the reference's model path rounds it, is the register A operand of
 // O += P V, a wgmma m64n{hd}k16 whose B operand is the V tile read
-// MN-major (the transpose bit), so V is never transposed. The per-element
+// MN-major (the transpose bit; its 64-column atoms the descriptor's
+// leading offset apart), so V is never transposed. The per-element
 // mask runs only on tiles that cross a mask boundary.
 //
 // float32 (no served config; the tensor cores take no full-precision
 // float32 and TF32 stays off): the CUDA cores, one 256-thread block per
-// (batch x head, 64-row q tile); four neighbouring lanes own a q row, each
-// with its q row in registers and every fourth kv column of a 64-row K/V
-// tile staged in shared memory as float32, and their partial states are
-// merged by warp shuffles at the end.
+// (batch x head, 32-row q tile); eight neighbouring lanes own a q row,
+// each with every eighth of its dims of q and of the accumulator in
+// registers (hd / 8: 2 to 32), so a q row fits at every head dim up to
+// 256. A 16-row K/V tile is staged in shared memory as float32.
 //
 // Binding: plain C entry point flash_attention_launch (ctypes), dtype 0
 // float32, 1 bfloat16; it returns cudaGetLastError() after the launch.
@@ -47,139 +51,124 @@
 
 namespace {
 
-constexpr int kBQ = 64;                  // q rows per block
-constexpr int kBK = 64;                  // kv rows per tile
-constexpr int kSplit = 4;                // threads per q row
-constexpr int kThreads = kBQ * kSplit;   // 256
-constexpr int kCols = kBK / kSplit;      // kv columns per thread per tile
+constexpr int kBQ = 64;                  // q rows per block (bf16)
+constexpr int kBK = 64;                  // kv rows per tile (bf16)
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
+constexpr int kMaxDevices = 64;          // devices a process grants
 
 // ------------------------------------------ float32: the CUDA cores ----
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Sq,
-                       int Skv, int H, int KV, int causal, int window,
-                       int q_offset, float scale) {
-  __shared__ float Ks[kBK][HD + 1];
-  __shared__ float Vs[kBK][HD + 1];
+// kFLanes neighbouring lanes own a q row, each with every kFLanes-th of
+// its dims of q and of the accumulator in registers (hd / 8), so a row
+// fits one lane's registers at every head dim; the dot products are
+// reduced over the row's lanes by shuffles, so each lane holds the whole
+// softmax state. A 16-row K/V tile is staged in shared memory as float32
+// (32 KB at hd 256), read conflict-free (a row's lanes take neighbouring
+// words, the warp's four rows the same ones).
+constexpr int kFBQ = 32;                 // q rows per block
+constexpr int kFLanes = 8;               // lanes per q row
+constexpr int kFThreads = kFBQ * kFLanes;  // 256
+constexpr int kFBK = 16;                 // kv rows per tile
+
+template <int HD>
+__global__ void __launch_bounds__(kFThreads)
+flash_attention_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           int Sq, int Skv, int H, int KV, int causal,
+                           int window, int q_offset, float scale) {
+  constexpr int kDims = HD / kFLanes;    // dims of a row per lane
+  __shared__ float Ks[kFBK][HD];
+  __shared__ float Vs[kFBK][HD];
   const int tid = threadIdx.x;
-  const int row = tid / kSplit, sub = tid % kSplit;
+  const int row = tid / kFLanes, sub = tid % kFLanes;
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int kvh = h / (H / KV);
-  const int q0 = blockIdx.y * kBQ;
+  const int q0 = blockIdx.y * kFBQ;
   const int qi = q0 + row;
   const bool q_valid = qi < Sq;
   const int q_pos = qi + q_offset;
-  const long long q_row = (long long)H * HD;     // elements per q token
-  const long long kv_row = (long long)KV * HD;   // elements per kv token
+  const long long q_row = (long long)H * HD;
+  const long long kv_row = (long long)KV * HD;
 
-  float qr[HD];
+  float qr[kDims], acc[kDims];
   {
-    const T* qp = q + ((long long)b * Sq + (q_valid ? qi : 0)) * q_row +
-                  (long long)h * HD;
+    const float* qp = q + ((long long)b * Sq + (q_valid ? qi : 0)) * q_row +
+                      (long long)h * HD;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = q_valid ? to_f(qp[d]) : 0.f;
+    for (int i = 0; i < kDims; ++i) {
+      qr[i] = q_valid ? qp[sub + kFLanes * i] : 0.f;
+      acc[i] = 0.f;
+    }
   }
 
-  // the kv range any row of this q tile can see (whole-tile skips)
-  const int last_q = min(q0 + kBQ, Sq) - 1;
+  const int last_q = min(q0 + kFBQ, Sq) - 1;
   int k_end = Skv;
   if (causal) k_end = min(k_end, last_q + q_offset + 1);
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q0 + q_offset - window + 1);
-  k_begin = (k_begin / kBK) * kBK;
+  k_begin = (k_begin / kFBK) * kFBK;
 
   float m = kNegInf, l = 0.f;
-  float acc[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = 0.f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += kFBK) {
     __syncthreads();  // the previous tile is consumed
-    for (int e = tid; e < kBK * HD; e += kThreads) {
+    for (int e = tid; e < kFBK * HD; e += kFThreads) {
       const int r = e / HD, d = e % HD;
       const int kj = k0 + r;
       float kk = 0.f, vv = 0.f;
       if (kj < Skv) {
         const long long off =
             ((long long)b * Skv + kj) * kv_row + (long long)kvh * HD + d;
-        kk = to_f(k[off]);
-        vv = to_f(v[off]);
+        kk = k[off];
+        vv = v[off];
       }
       Ks[r][d] = kk;
       Vs[r][d] = vv;
     }
     __syncthreads();
 
-    float s[kCols];
+    float s[kFBK];
     float m_t = kNegInf;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int j = sub + kSplit * c;
-      const int kj = k0 + j;
+    for (int j = 0; j < kFBK; ++j) {
       float dot = 0.f;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], Ks[j][d], dot);
+      for (int i = 0; i < kDims; ++i)
+        dot = fmaf(qr[i], Ks[j][sub + kFLanes * i], dot);
+#pragma unroll
+      for (int off = 1; off < kFLanes; off <<= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      const int kj = k0 + j;
       bool ok = kj < Skv;
       if (causal) ok = ok && kj <= q_pos;
       if (window > 0) ok = ok && kj > q_pos - window;
-      s[c] = ok ? dot * scale : kNegInf;
-      m_t = fmaxf(m_t, s[c]);
+      s[j] = ok ? dot * scale : kNegInf;
+      m_t = fmaxf(m_t, s[j]);
     }
     const float m_new = fmaxf(m, m_t);
     const float corr = expf(m - m_new);
     float psum = 0.f;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      s[c] = expf(s[c] - m_new);
-      psum += s[c];
+    for (int j = 0; j < kFBK; ++j) {
+      s[j] = expf(s[j] - m_new);
+      psum += s[j];
     }
     l = l * corr + psum;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] *= corr;
+    for (int i = 0; i < kDims; ++i) {
+      float a = acc[i] * corr;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int j = sub + kSplit * c;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] = fmaf(s[c], Vs[j][d], acc[d]);
+      for (int j = 0; j < kFBK; ++j)
+        a = fmaf(s[j], Vs[j][sub + kFLanes * i], a);
+      acc[i] = a;
     }
     m = m_new;
   }
-
-  // merge the kSplit partial states of the row (neighbouring lanes)
-  float m_all = m;
-#pragma unroll
-  for (int off = 1; off < kSplit; off <<= 1)
-    m_all = fmaxf(m_all, __shfl_xor_sync(0xffffffffu, m_all, off));
-  const float f = expf(m - m_all);
-  l *= f;
-#pragma unroll
-  for (int off = 1; off < kSplit; off <<= 1)
-    l += __shfl_xor_sync(0xffffffffu, l, off);
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    float a = acc[d] * f;
-#pragma unroll
-    for (int off = 1; off < kSplit; off <<= 1)
-      a += __shfl_xor_sync(0xffffffffu, a, off);
-    acc[d] = a;
-  }
   if (q_valid) {
     const float denom = fmaxf(l, 1e-30f);
-    T* op = o + ((long long)b * Sq + qi) * q_row + (long long)h * HD;
+    float* op = o + ((long long)b * Sq + qi) * q_row + (long long)h * HD;
 #pragma unroll
-    for (int d = 0; d < HD; ++d)
-      if (d % kSplit == sub) op[d] = from_f<T>(acc[d] / denom);
+    for (int i = 0; i < kDims; ++i) op[sub + kFLanes * i] = acc[i] / denom;
   }
 }
 
@@ -187,36 +176,52 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ------------------------------------------ bfloat16: the tensor cores ----
 constexpr int kTcThreads = 128;          // one warpgroup
 
-// A 64-row tile of hd bf16 per row in shared memory, in the swizzle whose
-// span is the row (128 B for hd 64, 64 B for 32, 32 B for 16): 16-byte
-// chunk c of row r sits at chunk c ^ (address bits 7..9), the layout the
-// wgmma descriptors below name. The ring is 1024-byte aligned, so the
+// A 64-row tile of hd bf16 per row in shared memory, stored as column
+// atoms of at most 64 columns: one atom whose span is the row for hd 16,
+// 32 and 64 (the 32/64/128-byte swizzle), hd / 64 atoms of 64 rows x 128
+// bytes in the 128-byte swizzle for hd 128 and 256 (no swizzle spans a
+// 256- or 512-byte row). 16-byte chunk c of row r sits in atom c / 8 (of
+// the row's first 8 chunks for narrower atoms) at chunk c ^ (address bits
+// 7..9), the layout the wgmma descriptors below name. The ring is
+// 1024-byte aligned and an atom is a multiple of 1024 bytes, so the
 // swizzle of an offset is that of the address.
 template <int HD>
 struct TcTile {
-  static constexpr int kRowBytes = HD * 2;
   static constexpr int kChunks = HD / 8;
-  static constexpr int kBytes = kBK * kRowBytes;
-  static constexpr uint64_t kLayout = HD == 64 ? 1 : (HD == 32 ? 2 : 3);
+  static constexpr int kAtomChunks = kChunks < 8 ? kChunks : 8;
+  static constexpr int kAtomRowBytes = kAtomChunks * 16;
+  static constexpr int kAtomBytes = kBK * kAtomRowBytes;
+  static constexpr int kBytes = kBK * HD * 2;
+  static constexpr uint64_t kLayout =
+      kAtomRowBytes == 128 ? 1 : (kAtomRowBytes == 64 ? 2 : 3);
   static __device__ __forceinline__ uint32_t offset(int r, int c) {
-    return r * kRowBytes +
-           ((c ^ ((r * kRowBytes >> 7) & (kChunks - 1))) << 4);
+    const int a = c / kAtomChunks, cc = c % kAtomChunks;
+    return a * kAtomBytes + r * kAtomRowBytes +
+           ((cc ^ ((r * kAtomRowBytes >> 7) & (kAtomChunks - 1))) << 4);
+  }
+  // byte offset of k-step kk (16 columns, 32 bytes) in a K-major tile:
+  // the atom, then 32 bytes along its row
+  static __device__ __forceinline__ uint32_t kstep(int kk) {
+    return (kk * 32 / kAtomRowBytes) * kAtomBytes + (kk * 32) % kAtomRowBytes;
   }
   // wgmma shared-memory descriptor: start, leading and stride byte
-  // offsets (16-byte units), swizzle mode. The stride offset steps 8 rows.
+  // offsets (16-byte units), swizzle mode. The stride offset steps 8 rows
+  // of an atom.
   static __device__ __forceinline__ uint64_t desc(uint32_t addr,
                                                   uint32_t lbo) {
     return (uint64_t)((addr & 0x3FFFF) >> 4) |
            ((uint64_t)(lbo >> 4) << 16) |
-           ((uint64_t)((8 * kRowBytes) >> 4) << 32) | (kLayout << 62);
+           ((uint64_t)((8 * kAtomRowBytes) >> 4) << 32) | (kLayout << 62);
   }
-  // K-major operand (Q, K): the k-step moves 32 bytes along the row
+  // K-major operand (Q, K): a k-step stays inside one atom's row, so the
+  // leading offset is unused
   static __device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
     return desc(addr, 16);
   }
-  // MN-major operand (V read as K x hd): 8-row groups along K
+  // MN-major operand (V read as K x hd): 8-row groups along K (the stride
+  // offset), and along N the next 64-column atom (the leading offset)
   static __device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
-    return desc(addr, 8 * kRowBytes);
+    return desc(addr, kAtomBytes);
   }
 };
 
@@ -330,6 +335,62 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
 // Load rows [row0, row0 + 64) of one head (row stride ld elements) into a
 // swizzled tile; rows at or past n_rows are zero-filled.
 template <int HD>
@@ -424,8 +485,8 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss<64>(s, Tile::desc_k(sQ + kk * 32),
-                   Tile::desc_k(sK + stage + kk * 32), kk > 0);
+      wgmma_ss<64>(s, Tile::desc_k(sQ + Tile::kstep(kk)),
+                   Tile::desc_k(sK + stage + Tile::kstep(kk)), kk > 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -484,7 +545,7 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kt = 0; kt < 4; ++kt)
       wgmma_rs<HD>(acc, pa[kt],
-                   Tile::desc_mn(sV + stage + kt * 16 * Tile::kRowBytes));
+                   Tile::desc_mn(sV + stage + kt * 16 * Tile::kAtomRowBytes));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
@@ -519,8 +580,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        int B, int Sq, int Skv, int H, int KV, int causal,
                        int window, int q_offset, float scale,
                        cudaStream_t stream) {
-  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  flash_attention_kernel<float, HD><<<grid, kThreads, 0, stream>>>(
+  const dim3 grid(B * H, (Sq + kFBQ - 1) / kFBQ);
+  flash_attention_f32_kernel<HD><<<grid, kFThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KV,
       causal, window, q_offset, scale);
@@ -533,8 +594,23 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       int window, int q_offset, float scale,
                       cudaStream_t stream) {
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  // the q tile and two stages of K and V, plus the alignment slack
-  const size_t smem = 5 * TcTile<HD>::kBytes + 1024;
+  // the q tile and two stages of K and V, plus the alignment slack: 41 KB
+  // at hd 64, 81 KB at 128, 161 KB at 256, so above the 48 KB default the
+  // instance is allowed its size on each device it runs on (an attribute
+  // of the device's context; a refused launch never runs, and
+  // cudaGetLastError reports it). Only a grant that succeeded is kept.
+  constexpr int smem = 5 * TcTile<HD>::kBytes + 1024;
+  static bool granted[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices || !granted[dev]) {
+    err = cudaFuncSetAttribute(flash_attention_tc_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) granted[dev] = true;
+  }
   flash_attention_tc_kernel<HD><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
@@ -583,6 +659,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 64:
       err = launch<64>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, window,
                        q_offset, scale, st);
+      break;
+    case 128:
+      err = launch<128>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, window,
+                        q_offset, scale, st);
+      break;
+    case 256:
+      err = launch<256>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, window,
+                        q_offset, scale, st);
       break;
     default:
       err = cudaErrorInvalidValue;

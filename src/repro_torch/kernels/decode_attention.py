@@ -32,11 +32,11 @@ from repro_torch.kernels._build import (F, I, P, CudaKernel, check_aligned,
 KERNEL = CudaKernel("decode_attention", [P] * 6 + [I] * 6 + [F, I])
 
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 #: kernel dtype codes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel's limits on query heads per kv head and on G * head_dim
-MAX_GROUP, MAX_GROUP_DIMS = 16, 1024
+MAX_GROUP, MAX_GROUP_DIMS = 16, 2048
 #: cache slots per tile: a split spans a whole number of tiles
 TILE = 64
 #: streaming multiprocessors of the H100 SXM; the plan aims for two

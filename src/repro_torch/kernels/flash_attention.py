@@ -10,10 +10,12 @@ kv sequence, float32 softmax state and accumulator.
 Bound on the H100: operations from ~128 tokens up, bytes below. The
 bfloat16 instance (every served config) runs both products on the
 tensor cores: one warpgroup per 64-row q tile, K/V tiles in a 2-stage
-``cp.async`` ring in swizzled shared memory, S = Q K^T and O += P V as
+``cp.async`` ring in swizzled shared memory (at head_dim 128 and 256 as
+64-column atoms, 81 and 161 KB a block), S = Q K^T and O += P V as
 ``wgmma`` with P in registers and V read MN-major. The float32
 instance stays on the CUDA cores (no full-precision float32 on the
-tensor cores, and TF32 stays off); the launcher picks by dtype. See the
+tensor cores, and TF32 stays off; eight lanes split a q row's dims at
+every head_dim); the launcher picks by dtype. See the
 source note in the ``.cu`` file. The wrapper takes the model's own
 ``(B, S, H, hd)`` layout, so nothing is transposed or padded around the
 launch; it binds the plain C entry point ``flash_attention_launch``
@@ -32,7 +34,7 @@ from repro_torch.kernels._build import (F, I, P, CudaKernel, check_aligned,
 KERNEL = CudaKernel("flash_attention", [P] * 4 + [I] * 9 + [F, I])
 
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 #: kernel dtype codes
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

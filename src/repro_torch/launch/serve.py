@@ -7,12 +7,21 @@ Fig. 4 runtime (``main``): train the single-cell orchestration agent
 user's decided (tier, variant) on its engine.
 
     python -m repro_torch.launch.serve --arch edge-ladder --requests 4
+    python -m repro_torch.launch.serve --arch gemma3-4b --device cpu
     python -m repro_torch.launch.serve --device cpu --train-steps 2000
 
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import build_engines
     engines = build_engines(get_config("edge-ladder"))
     mamba = build_engines(get_config("falcon-mamba-7b"), variants=("d0", "d4"))
+    gemma3 = build_engines(get_config("gemma3-4b"), variants=("d0", "d4"),
+                           max_len=2064)
+
+An engine's requests carry tokens only, as the reference's do, so a
+``vlm`` config (PaliGemma, whose prefill also takes image embeddings) is
+served through ``Model.prefill`` / ``decode`` and ``build_engines``
+refuses it. ``--arch`` takes every other config, cut by ``reduced`` but
+the edge ladder.
 """
 from __future__ import annotations
 
@@ -53,6 +62,10 @@ def build_engines(cfg, variants=("d0", "d4", "d7"), max_len: int = 64,
     from ``variant_seed(seed, vid)``, drawn on ``device`` (see
     ``Model.init``): one seed serves the same models on every card, but
     other models on the CPU than on a card."""
+    if cfg.arch_type == "vlm":
+        raise ValueError(f"{cfg.name!r} is a VLM: its prefill takes image "
+                         "embeddings, which an engine's tokens-only requests "
+                         "lack; serve it through Model.prefill / decode")
     dev = resolve_device(device)
     ladder = build_ladder(cfg)
     engines = {"S": {}, "E": {}, "C": {}}

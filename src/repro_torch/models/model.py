@@ -1,15 +1,24 @@
 """Model facade — the port of ``repro/models/model.py`` for the dense,
-state-space, hybrid and mixture-of-experts decoder families:
+state-space, hybrid, mixture-of-experts and vision-language decoder
+families:
 
     model = build_model(cfg)
     params = model.init(seed, device="cuda")
     logits, cache = model.prefill(params, {"tokens": tokens}, max_len=...)
     logits, cache = model.decode(params, cache, tokens)   # (B, 1) tokens
 
+A ``vlm`` model's prefill also takes ``batch["img_embeds"]`` (B,
+n_img_tokens, d_model), the stub frontend's patch embeddings, as the
+reference's does; they go through ``proj_img`` and are prepended to the
+token embeddings, so positions and the cache's ``pos`` count them.
+Decode takes tokens only.
+
 Params are a plain dict: ``{"embed": {"w"}, "final_norm": {"g"},
-"segments": [[layer dict, ...], ...]}`` (``convert.model_params``
-carries the reference's stacked params across). The training loss comes
-with the training slice (ROADMAP queue 1).
+"segments": [[layer dict, ...], ...]}``, with ``lm_head`` where the
+embeddings are untied and ``proj_img`` in a ``vlm`` model
+(``convert.model_params`` carries the reference's stacked params
+across). The training loss comes with the training slice (ROADMAP queue
+1).
 """
 from __future__ import annotations
 
@@ -57,6 +66,9 @@ class Model:
             params["lm_head"] = L.init_linear(gen, cfg.d_model,
                                               cfg.padded_vocab,
                                               L.dt(cfg.dtype))
+        if cfg.arch_type == "vlm":
+            params["proj_img"] = L.init_linear(gen, cfg.d_model, cfg.d_model,
+                                               L.dt(cfg.dtype))
         return params
 
     # ---------------- shared pieces ----------------
@@ -67,6 +79,16 @@ class Model:
         return x.to(dtype) * torch.tensor(math.sqrt(cfg.d_model),
                                           dtype=dtype)
 
+    def _inputs_full(self, params, batch):
+        """Token embeddings, behind the projected image embeddings in a
+        ``vlm`` model."""
+        x = self._embed(params, batch["tokens"])
+        if self.cfg.arch_type == "vlm":
+            img = L.linear(params["proj_img"],
+                           batch["img_embeds"].to(x.dtype))
+            x = torch.cat([img, x], dim=1)
+        return x
+
     def _logits(self, params, x):
         x = L.rmsnorm(params["final_norm"], x, self.cfg.rms_norm_eps)
         if self.cfg.tie_embeddings:
@@ -75,9 +97,9 @@ class Model:
 
     # ---------------- prefill ----------------
     def prefill(self, params, batch, *, max_len: Optional[int] = None):
-        """Run the full prompt; return (last-token logits (B, 1, Vp),
-        decode cache)."""
-        x = self._embed(params, batch["tokens"])
+        """Run the full prompt (behind its image prefix in a ``vlm``
+        model); return (last-token logits (B, 1, Vp), decode cache)."""
+        x = self._inputs_full(params, batch)
         s_total = x.shape[1]
         max_len = max_len or s_total
         positions = torch.arange(s_total, device=x.device)[None, :]

@@ -1,7 +1,8 @@
 """The decoder stack — the port of ``repro/models/transformer.py`` for the
-dense, state-space (``ssm``), hybrid and mixture-of-experts (``moe``)
-families (the served edge-ladder, Falcon-Mamba, Hymba and Granite-MoE
-models).
+dense, state-space (``ssm``), hybrid, mixture-of-experts (``moe``) and
+vision-language (``vlm``, the decoder behind a stub image prefix)
+families: the served edge ladder, InternLM2, Yi, Gemma, Gemma3,
+PaliGemma, Falcon-Mamba, Hymba, Granite-MoE and DBRX models.
 
 Layers are grouped into homogeneous SEGMENTS (contiguous runs sharing
 one attention kind, global vs sliding) as in the reference; where the
@@ -23,10 +24,10 @@ updates its layer's slices IN PLACE (the K/V row at slot ``pos % Sc``,
 the conv window and the SSM state); the values equal the reference's
 functional update.
 
-The encoder-decoder, audio and vision families raise
-``NotImplementedError`` (ROADMAP queue 1, other architectures), as do
-the reference's int8 KV cache and logit soft-capping; so does a head_dim
-the attention kernels have no instance of, on the card
+The encoder-decoder (audio) family raises ``NotImplementedError``
+(ROADMAP queue 1, other architectures), as do the reference's int8 KV
+cache and logit soft-capping; so does a head_dim the attention kernels
+have no instance of (16, 32, 64, 128 and 256), on the card
 (``check_kernel_shapes``).
 """
 from __future__ import annotations
@@ -42,7 +43,7 @@ from repro_torch.models import moe as MOE
 
 _LATER = "(ROADMAP queue 1: other architectures of the served models)"
 #: the families the port serves
-FAMILIES = ("dense", "ssm", "hybrid", "moe")
+FAMILIES = ("dense", "ssm", "hybrid", "moe", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +72,8 @@ def seg_window(cfg, seg: Segment) -> int:
 
 
 def check_supported(cfg) -> None:
-    """The port runs the dense, ssm, hybrid and moe decoders (so far)."""
+    """The port runs the dense, ssm, hybrid, moe and vlm decoders (so
+    far); the encoder-decoder stack is still to port."""
     if cfg.arch_type not in FAMILIES or cfg.is_encdec:
         raise NotImplementedError(
             f"repro_torch serves the {'/'.join(FAMILIES)} decoder families "
@@ -87,8 +89,7 @@ def check_kernel_shapes(cfg) -> None:
                               or hd not in decode_attention.HEAD_DIMS):
         raise NotImplementedError(
             f"{cfg.name!r} has head_dim {hd}; the attention kernels have "
-            f"{flash_attention.HEAD_DIMS} (ROADMAP queue 1: K3/K4 at "
-            f"head_dim 128 and 256)")
+            f"{flash_attention.HEAD_DIMS}")
 
 
 # ---------------------------------------------------------------------------

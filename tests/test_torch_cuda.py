@@ -11,8 +11,10 @@ split over many slot ranges with wholly masked splits and rows; the int8
 product on the K-major weight at ragged M, N and K (K zero-padded to a
 multiple of 32), M = 1, in float32 and bfloat16, and a row-major weight
 refused, also batched over experts in one launch (Granite d4's shapes);
-the mixture-of-experts block card vs CPU, and DBRX refused on the card
-(head_dim 128); the
+the mixture-of-experts block card vs CPU; K3 and K4 at head_dim 128 and
+256 (bf16 and float32, every compiled group, the 161 KB launch, also
+on a second card where there is one), and
+DBRX's 2-layer full-width cut generating on the card; the
 selective scan at one step, 4,096 steps, state sizes 5, 8 and 16,
 channel counts that are no block multiple and both splits of a channel's
 states, over 2 and over 4 lanes; the banded sliding-window
@@ -316,6 +318,145 @@ def test_decode_attention_split_cases(cuda, dtype, b, h, kv, hd, s, masked):
     if masked == "row":               # the uniform average over all slots
         mean = vc[1].float().mean(0).repeat_interleave(h // kv, 0)
         torch.testing.assert_close(got[1].float(), mean, atol=tol, rtol=tol)
+
+
+#: (b, sq, skv, h, kv, hd, causal, window) of K3 at head_dim 128 and 256:
+#: partial q and kv tiles, GQA groups of 1-8, a window shorter than a
+#: tile (diagonal tiles masked both ways), a window that skips whole
+#: tiles, Sq < Skv without a mask, one tile
+WIDE_FLASH_CASES = (
+    (2, 100, 100, 6, 1, 128, True, 0),     # InternLM2's G = 6, partial tile
+    (2, 70, 200, 4, 2, 128, False, 0),     # Sq < Skv, not causal
+    (1, 300, 300, 14, 2, 128, True, 128),  # Yi's G = 7, tiles skipped
+    (1, 200, 200, 8, 4, 256, True, 48),    # window < one tile
+    (2, 130, 130, 8, 1, 256, True, 0),     # PaliGemma's MQA, partial tile
+    (1, 64, 64, 2, 2, 256, True, 0),       # one tile, MHA
+    (1, 333, 333, 4, 2, 256, True, 100),   # tiles skipped, ragged end
+)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd,causal,window", WIDE_FLASH_CASES)
+def test_flash_attention_wide_heads_match_plain(cuda, dtype, b, sq, skv, h,
+                                                kv, hd, causal, window):
+    """K3 at head_dim 128 and 256: the bf16 instance (64-column atoms,
+    81 / 161 KB of shared memory) and the float32 one (eight lanes a q
+    row) against the plain version, with masks that keep a whole tile,
+    part of one and none."""
+    g = torch.Generator(device=cuda).manual_seed(3 * sq + skv + hd)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, sq, h, hd), (b, skv, kv, hd),
+                             (b, skv, kv, hd)))
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                               window=window)
+    want = flash_attention.plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.KERNEL.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_hd256_launch_takes_161_kb(cuda):
+    """The bf16 instance at head_dim 256 asks for the q tile and two
+    stages of K and V (5 x 64 rows x 512 bytes + 1 KB of alignment
+    slack = 161 KB), above the 48 KB a launch gets without
+    ``cudaFuncSetAttribute``: the launch is accepted, runs, and agrees
+    with the plain version, twice (the grant is made once a device)."""
+    assert 5 * 64 * 256 * 2 + 1024 == 164_864 > 48 * 1024
+    g = torch.Generator(device=cuda).manual_seed(161)
+    q, k, v = (torch.randn((1, 128, 2, 256), generator=g, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    want = flash_attention.plain(q, k, v)
+    before = flash_attention.KERNEL.launches
+    for _ in range(2):
+        got = flash_attention.flash_attention_cuda(q, k, v)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+    assert flash_attention.KERNEL.launches == before + 2
+
+
+def test_flash_attention_hd256_launch_on_a_second_card(cuda):
+    """The 161 KB grant is an attribute of a device's context, so each
+    card gets its own: the bf16 instance at head_dim 256 launches and
+    agrees with the plain version on card 0, then card 1, then card 0
+    again. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    before = flash_attention.KERNEL.launches
+    for idx in (0, 1, 0):
+        dev = torch.device("cuda", idx)
+        with torch.cuda.device(dev):
+            g = torch.Generator(device=dev).manual_seed(256 + idx)
+            q, k, v = (torch.randn((2, 130, 4, 256), generator=g,
+                                   device=dev).to(torch.bfloat16)
+                       for _ in range(3))
+            got = flash_attention.flash_attention_cuda(q, k, v)
+            want = flash_attention.plain(q, k, v)
+            torch.cuda.synchronize(dev)
+        assert got.device == dev
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                                   rtol=2e-2)
+    assert flash_attention.KERNEL.launches == before + 3
+
+
+#: (b, h, kv, hd, s, window) of K4 at head_dim 128 and 256: every
+#: compiled group at its widths (G = 1, 2, 6, 7 and 8 in GB 1, 2 and 8,
+#: 16 at 128), rings written part way and wrapped, many splits
+WIDE_DECODE_CASES = (
+    (2, 56, 8, 128, 300, 0),               # Yi: G = 7, one head skipped
+    (3, 48, 8, 128, 1000, 100),            # InternLM2 / DBRX: G = 6, window
+    (1, 16, 1, 128, 200, 0),               # G = 16 x 128 = 2,048 dims
+    (2, 8, 1, 256, 528, 0),                # PaliGemma: G = 8 x 256
+    (2, 16, 16, 256, 97, 0),               # Gemma-7B: G = 1
+    (2, 8, 4, 256, 1024, 1024),            # Gemma3's sliding ring
+    (1, 8, 4, 256, 2064, 0),               # Gemma3's global cache, splits
+)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,kv,hd,s,window", WIDE_DECODE_CASES)
+def test_decode_attention_wide_heads_match_plain(cuda, dtype, b, h, kv, hd,
+                                                 s, window):
+    """K4 at head_dim 128 and 256 (a float32 lane takes two 16-byte
+    chunks of a 256-wide row) against the plain version; the cache's
+    slots hold positions of a ring that has wrapped where ``s`` is the
+    window, else of one written up to ``cur``."""
+    g = torch.Generator(device=cuda).manual_seed(s + h + hd)
+    q = torch.randn((b, h, hd), generator=g, device=cuda).to(dtype)
+    kc, vc = (torch.randn((b, s, kv, hd), generator=g, device=cuda)
+              .to(dtype) for _ in range(2))
+    idx = torch.arange(s, device=cuda)[None].repeat(b, 1)
+    if window == s:
+        cur = torch.full((b,), 3 * s + 5, device=cuda)
+        kv_pos = cur[:, None] - (cur[:, None] - idx) % s
+    else:
+        cur = torch.randint(s // 2, s, (b,), generator=g, device=cuda)
+        kv_pos = idx.masked_fill(idx > cur[:, None], -1)
+    before = decode_attention.KERNEL.launches
+    got = ops.decode_attention(q, kc, vc, kv_pos, cur, window=window)
+    valid = (kv_pos >= 0) & (kv_pos <= cur[:, None])
+    if window:
+        valid &= kv_pos > cur[:, None] - window
+    want = decode_attention.plain(q, kc, vc, torch.where(valid, 0.0, -1e30))
+    torch.cuda.synchronize()
+    assert decode_attention.KERNEL.launches == before + 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_decode_attention_refuses_16_heads_of_256(cuda):
+    """G x head_dim above 2,048 (16 q heads of 256 per kv head) has no
+    compiled group: the wrapper raises before a launch."""
+    q = torch.zeros((1, 16, 256), device=cuda, dtype=torch.bfloat16)
+    kc = torch.zeros((1, 64, 1, 256), device=cuda, dtype=torch.bfloat16)
+    bias = torch.zeros((1, 64), device=cuda)
+    before = decode_attention.KERNEL.launches
+    with pytest.raises(ValueError, match="G\\*hd"):
+        decode_attention.decode_attention_cuda(q, kc, kc, bias)
+    assert decode_attention.KERNEL.launches == before
 
 
 def _int8_args(cuda, m, k, n):
@@ -910,9 +1051,25 @@ def test_moe_block_on_the_card_matches_the_cpu(cuda, quant, s):
                                atol=0.125, rtol=1e-2)
 
 
-def test_dbrx_on_the_card_raises_before_a_weight_is_drawn(cuda):
+def test_dbrx_cut_to_two_layers_generates_on_the_card(cuda):
+    """DBRX at full width (48/8 heads of 128, 16 experts of d_ff 10,752,
+    vocab 100,352), cut to 2 of its 40 layers (~13 GB in bf16): built by
+    ``build_engines`` on the card, its K3 and K4 launched at head_dim 128,
+    greedy tokens in range."""
+    import dataclasses
     from repro_torch.configs.base import get_config
     from repro_torch.launch.serve import build_engines
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        build_engines(get_config("dbrx-132b"), variants=("d0",),
-                      device=cuda)
+    cfg = dataclasses.replace(get_config("dbrx-132b"), n_layers=2)
+    engines = build_engines(cfg, variants=("d0",), max_len=48, device=cuda)
+    eng = engines["S"]["d0"]
+    assert eng.model.cfg.resolved_head_dim == 128
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             (2, 32)).astype(np.int32)
+    k3, k4 = flash_attention.KERNEL.launches, decode_attention.KERNEL.launches
+    out, _ = eng.generate(toks, 4)
+    assert flash_attention.KERNEL.launches == k3 + 2
+    assert decode_attention.KERNEL.launches == k4 + 2 * 4
+    assert out.shape == (2, 4)
+    assert 0 <= int(out.min()) and int(out.max()) < cfg.vocab_size
+    del engines, eng
+    torch.cuda.empty_cache()

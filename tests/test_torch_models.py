@@ -166,4 +166,4 @@ def test_other_families_name_the_roadmap_item():
         build_model(dataclasses.replace(get_config("edge-ladder"),
                                         arch_type="audio"))
     with pytest.raises(KeyError, match="edge-ladder"):
-        get_config("gemma-7b")
+        get_config("whisper-medium")

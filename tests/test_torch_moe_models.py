@@ -7,8 +7,8 @@ prefill and three decode steps of Granite d0 (bf16 or float32) and d4
 (int8 attention and experts through K5's plain path) and of DBRX d0 on
 the reference's own weights (``convert.model_params``), decode after a
 prefill against the full prefill, the engines of ``build_engines`` with
-``route(dispatch=)``, and the head_dim check that keeps DBRX off the
-card.
+``route(dispatch=)``, and the card's head_dim check, which DBRX's 128
+now passes.
 
 Tolerances: those of ``tests/test_torch_models.py`` (``TOL``): float32
 within 1e-4 absolute / 1e-5 relative, bfloat16 within 0.125 absolute +
@@ -110,14 +110,18 @@ def test_a_layer_takes_the_moe_block_wherever_the_config_has_experts():
 
 
 def test_dbrx_head_dim_keeps_it_off_the_card():
-    """K3/K4 have head_dim 16, 32 and 64: DBRX's 128 raises, naming the
-    ROADMAP item, before a weight is drawn; Granite's 64 and the reduced
-    DBRX's 64 pass."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1: K3/K4 at head_dim 128"):
-        T.check_kernel_shapes(get_config("dbrx-132b"))
+    """K3/K4 have head_dim 16, 32, 64, 128 and 256: DBRX's 128 passes the
+    card's check (so does a head_dim of 256), a head_dim without an
+    instance (48, 512) raises before a weight is drawn; Granite's 64,
+    the reduced DBRX's 64 and a model without attention pass."""
+    dbrx = get_config("dbrx-132b")
+    T.check_kernel_shapes(dbrx)
+    T.check_kernel_shapes(dataclasses.replace(dbrx, head_dim=256))
+    for hd in (48, 512):
+        with pytest.raises(NotImplementedError, match=f"head_dim {hd}"):
+            T.check_kernel_shapes(dataclasses.replace(dbrx, head_dim=hd))
     T.check_kernel_shapes(get_config("granite-moe-1b-a400m"))
-    T.check_kernel_shapes(reduced(get_config("dbrx-132b")))
+    T.check_kernel_shapes(reduced(dbrx))
     T.check_kernel_shapes(get_config("falcon-mamba-7b"))   # no attention
 
 

@@ -246,7 +246,7 @@ def test_route_dispatch_serves_every_active_user_on_the_ssm_engines():
 # --------------------------------------------------------- unsupported ----
 @pytest.mark.parametrize("change", [
     dict(arch_type="audio", n_enc_layers=2, enc_seq=32),
-    dict(arch_type="vlm", n_img_tokens=8),
+    dict(arch_type="dense", n_enc_layers=2, enc_seq=32),
 ])
 def test_other_families_still_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
