@@ -73,6 +73,24 @@ paths through the entry points a user calls:
   DBRX-132B to 2 of its 40 through ``build_engines`` d0 at batch 16 x
   256 (``vlm_and_cuts``), each model freed before the next (kernels
   K3, K4, and K5 on the d4 variants);
+* the encoder-decoder path, after the dense and VLM path: K3 without a
+  mask over Whisper-medium's 16 x 1,500 frames and from its 64-token
+  prompt onto them, K4 over its 1,500-slot cross cache and its 448-slot
+  self cache, K3 and K4 with a logit soft-cap of 50 (at Gemma3-4B's
+  global and windowed layouts and at Whisper's cross layout; their
+  library time a compiled ``flex_attention``, the cap its score_mod;
+  each checked again at a cap of 2, which moves the plain version past
+  the tolerance), K5 at d4's encoder
+  rows (M = 24,000), each against its plain version; Whisper at full
+  width cut to 2 encoder and 2 decoder layers over its 1,500 frames on
+  the card against the CPU, d0 and d4 (``audio_cpu_agreement``); then
+  Whisper-medium whole (24 + 24 layers, d_model 1,024, 16/16 heads of
+  64; 0.81 B parameters) through ``Model.prefill`` / ``decode``, d0 then
+  d4: batch 16, 1,500 seeded stub frames, a 64-token prompt, 16 greedy
+  steps, a 448-slot self cache, its encoder's ms, its launches a prefill
+  (K3 72) and a decode step (K4 48), parameters held against
+  ``param_count()`` and a decode and a prefill profile
+  (``audio_serving``; kernels K3, K4, and K5 in d4);
 * the coupled fleet (phases ``coupled_oracle``, ``coupled_holdout``,
   ``cell_dqn``, ``prof``): ``topology_bruteforce`` through the
   best-response kernel on the reference benchmark's hot edge (64 cells of
@@ -106,10 +124,10 @@ paths through the entry points a user calls:
   versions at its shapes (batch 1 x 16 tokens, 64 slots, d5's and d6's
   projections at 16 rows and 1).
 
-(The dense and VLM path runs last in the script, after the state-space
-path's profiles.) The phase ``cpu_agreement`` also holds the float32
-fleet env step on
-the card bit-equal to the CPU on an isolated and a coupled fleet. Each
+(The dense and VLM path and then the encoder-decoder path run last in
+the script, after the state-space path's profiles.) The phase
+``cpu_agreement`` also holds the float32 fleet env step on the card
+bit-equal to the CPU on an isolated and a coupled fleet. Each
 path's kernel launch counts are set to 0 just before it and read just
 after; every route checks its identities (each active user served
 once, or shed once where a bridge is overloaded; batching + compute +
@@ -596,21 +614,25 @@ def head_phase(torch, dqn_head, ref, dynamics, spaces, ptxas):
 
 
 # ------------------------------------------------------------ K3-K5 ----
-#: (name, batch, sequence or cache slots, q heads, kv heads, head dim,
-#: window): the edge ladder's d0/d4 and d7 layouts at prompt buckets 32
-#: and 256 (caches of 64 and 512 slots), and Hymba's at its 2,048-token
-#: prompt, global and sliding (window 1,024; at decode the global cache's
-#: 2,064 slots and the sliding layers' 1,024-slot ring)
-FLASH_CASES = tuple((name, SERVE_BATCH, s, h, kv, 32, 0)
+#: A K3 case is (name, batch, Sq, Skv, q heads, kv heads, head dim,
+#: window, causal, softcap), a K4 case (name, batch, cache slots, q
+#: heads, kv heads, head dim, window, cross cache, softcap). Here the
+#: edge ladder's d0/d4 and d7 layouts at prompt buckets 32 and 256
+#: (caches of 64 and 512 slots), and Hymba's at its 2,048-token prompt,
+#: global and sliding (window 1,024; at decode the global cache's 2,064
+#: slots and the sliding layers' 1,024-slot ring)
+FLASH_CASES = tuple((name, SERVE_BATCH, s, s, h, kv, 32, 0, True, 0.0)
                     for name, h, kv in (("d0/d4", 8, 4), ("d7", 2, 2))
                     for s in (32, PROMPT)) + (
-    ("hymba global", HYBRID_BATCH, HYBRID_PROMPT, 25, 5, 64, 0),
-    ("hymba sliding", HYBRID_BATCH, HYBRID_PROMPT, 25, 5, 64, 1024))
-DECODE_CASES = tuple((name, SERVE_BATCH, sc, h, kv, 32, 0)
+    ("hymba global", HYBRID_BATCH, HYBRID_PROMPT, HYBRID_PROMPT, 25, 5, 64,
+     0, True, 0.0),
+    ("hymba sliding", HYBRID_BATCH, HYBRID_PROMPT, HYBRID_PROMPT, 25, 5, 64,
+     1024, True, 0.0))
+DECODE_CASES = tuple((name, SERVE_BATCH, sc, h, kv, 32, 0, False, 0.0)
                      for name, h, kv in (("d0/d4", 8, 4), ("d7", 2, 2))
                      for sc in (64, MAX_LEN)) + (
-    ("hymba global", HYBRID_BATCH, HYBRID_MAX_LEN, 25, 5, 64, 0),
-    ("hymba sliding", HYBRID_BATCH, 1024, 25, 5, 64, 1024))
+    ("hymba global", HYBRID_BATCH, HYBRID_MAX_LEN, 25, 5, 64, 0, False, 0.0),
+    ("hymba sliding", HYBRID_BATCH, 1024, 25, 5, 64, 1024, False, 0.0))
 #: (M, K, N) of K5: M = 64 x 256 tokens for every projection of the edge
 #: ladder's d4 (wq/wo, wk/wv, gate/up, down) and d7 (wq/wk/wv, wo,
 #: gate/up/down); Falcon-Mamba d4's in_proj and out_proj at its prefill
@@ -629,8 +651,10 @@ ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 #: decode rows; and K5 over its 32 int8 experts, (E, M, K, N): gate/up
 #: (1,024 -> 512) and down (512 -> 1,024) at the prefill's 64 rows x 80
 #: capacity slots and at decode's 64 x 1
-MOE_FLASH_CASES = (("granite", SERVE_BATCH, PROMPT, 16, 8, 64, 0),)
-MOE_DECODE_CASES = (("granite", SERVE_BATCH, MAX_LEN, 16, 8, 64, 0),)
+MOE_FLASH_CASES = (("granite", SERVE_BATCH, PROMPT, PROMPT, 16, 8, 64, 0,
+                    True, 0.0),)
+MOE_DECODE_CASES = (("granite", SERVE_BATCH, MAX_LEN, 16, 8, 64, 0, False,
+                     0.0),)
 MOE_INT8_SHAPES = tuple((m, 1024, n) for m in (SERVE_BATCH * PROMPT,
                                                 SERVE_BATCH)
                         for n in (1024, 512))
@@ -658,88 +682,167 @@ def instance_regs(ptxas, *parts):
     return hits[0] if len(hits) == 1 else None
 
 
-def flash_regs(ptxas, dtype, hd):
-    """The ptxas line of K3's instance for ``dtype`` at head dim ``hd``."""
-    if dtype == "bfloat16":
-        return instance_regs(ptxas, "flash_attention_tc_kernelILi%dE" % hd)
-    return instance_regs(ptxas, "flash_attention_f32_kernelILi%dE" % hd)
+def flash_regs(ptxas, dtype, hd, cap=False):
+    """The ptxas line of K3's instance for ``dtype`` at head dim ``hd``,
+    with or without the soft-cap."""
+    kind = "tc" if dtype == "bfloat16" else "f32"
+    return instance_regs(ptxas, "flash_attention_%s_kernelILi%dELb%dE"
+                         % (kind, hd, int(bool(cap))))
 
 
-def decode_regs(ptxas, dtype, hd, g):
+def decode_regs(ptxas, dtype, hd, g, cap=False):
     """The ptxas line of K4's partial kernel for ``dtype``, head dim
-    ``hd`` and the compiled group (1, 2, 8 or 16 heads) that takes ``g``
-    q heads a kv head."""
+    ``hd``, the compiled group (1, 2, 8 or 16 heads) that takes ``g`` q
+    heads a kv head, with or without the soft-cap."""
     gb = 1 if g <= 1 else 2 if g <= 2 else 8 if g <= 8 else 16
     t = "I13__nv_bfloat16" if dtype == "bfloat16" else "If"
-    return instance_regs(ptxas, "decode_partial_kernel%sLi%dELi%dE"
-                         % (t, hd, gb))
+    return instance_regs(ptxas, "decode_partial_kernel%sLi%dELi%dELb%dE"
+                         % (t, hd, gb, int(bool(cap))))
+
+
+#: the cap of each capped case's second check: it bends most of the
+#: unit-scale inputs' scaled scores (~N(0, 1)), where ``SOFTCAP`` moves
+#: only their tails, so a kernel that left the cap out fails there
+BENT_CAP = 2.0
+_FLEX = []
+
+
+def flex(torch):
+    """``flex_attention`` under ``torch.compile``, as it is meant to be
+    run: compiled once a process, recompiled for each new case."""
+    if not _FLEX:
+        from torch.nn.attention.flex_attention import flex_attention
+        _FLEX.append(torch.compile(flex_attention, dynamic=False))
+    return _FLEX[0]
+
+
+def capped_library(torch, q, k, v, cap, *, causal=False, window=0,
+                   bias=None):
+    """The one PyTorch call that computes a capped K3 or K4 case:
+    ``flex_attention`` with the cap as its ``score_mod`` (``tanh(s /
+    cap) * cap`` on the scaled score, then ``+ bias[b, kv]``) and the
+    case's mask (q right-aligned, causal, ``window``) as its block mask.
+    q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), passed as transposed
+    views as ``sdpa`` passes them. Returns the call, which gives (B, Sq,
+    H, hd); timed beside the kernel, never on the path."""
+    from torch.nn.attention.flex_attention import create_block_mask
+    sq, h, skv, kv = q.shape[1], q.shape[2], k.shape[1], k.shape[2]
+    off = skv - sq
+
+    def score_mod(s, b, hh, qi, ki):
+        s = torch.tanh(s / cap) * cap
+        return s if bias is None else s + bias[b, ki]
+
+    def band(b, hh, qi, ki):
+        keep = ki <= qi + off if causal else ki >= 0
+        return keep & (ki > qi + off - window) if window else keep
+    mask = create_block_mask(band, None, None, sq, skv, device=q.device) \
+        if causal or window else None
+    fn = flex(torch)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: fn(qt, kt, vt, score_mod=score_mod, block_mask=mask,
+                      enable_gqa=h != kv).transpose(1, 2)
+
+
+def cap_checks(call, plain, args, kw, want, tol, what):
+    """A capped case's proof that its check sees the cap: how far the
+    plain version at the case's cap sits from the uncapped one
+    (``cap_effect``, ``want`` the capped plain output); then the kernel
+    (``call``) against the plain version at ``BENT_CAP``, within ``tol``,
+    where that distance (``bent_cap_effect``) must pass ``tol``."""
+    base = plain(*args, **dict(kw, softcap=0.0)).float()
+    bent = dict(kw, softcap=BENT_CAP)
+    ref_ = plain(*args, **bent).float()
+    err = float((call(*args, **bent).float() - ref_).abs().max())
+    effect = float((ref_ - base).abs().max())
+    check(err <= tol, f"{what} at cap {BENT_CAP}: error {err} > {tol}")
+    check(effect > tol, f"{what}: a cap of {BENT_CAP} moves the plain "
+          f"version by {effect}, within the tolerance {tol}")
+    return dict(cap_effect=float((want.float() - base).abs().max()),
+                bent_cap=BENT_CAP, bent_max_abs_err=err,
+                bent_cap_effect=effect)
 
 
 def flash_phase(torch, flash_attention, cases=FLASH_CASES, path="serving",
                 ptxas=None, f32=None):
-    """K3, causal, at every case of ``cases``; bf16 (the path's type) and
-    float32 (at the cases named in ``f32``, default all). Each line gives
-    the registers and spills of the instance that ran (``ptxas``: the
-    ``ptxas_summary`` of K3's build). Returns the kernels-line entry when
-    ``cases`` hold the serving path's main shape, else None."""
+    """K3 at every case of ``cases`` (``FLASH_CASES``: causal or not, Sq
+    against Skv, a soft-cap); bf16 (the path's type; timed, beside the
+    library: SDPA with the same mask, or ``capped_library`` where the
+    case has a soft-cap) and float32 (at the cases named in ``f32``,
+    default all; checked, not timed). A capped case adds ``cap_checks``.
+    Each line gives the registers and spills of the instance that ran
+    (``ptxas``: the ``ptxas_summary`` of K3's build). Returns the
+    kernels-line entry when ``cases`` hold the serving path's main
+    shape, else None."""
     g = torch.Generator(device="cuda").manual_seed(5)
     errs, main = [], None
-    for name, b, s, h, kv, hd, window in cases:
+    for name, b, sq, skv, h, kv, hd, window, causal, cap in cases:
+        kw = dict(causal=causal, window=window, softcap=cap)
         for dtype in ("bfloat16", "float32"):
             if dtype == "float32" and f32 is not None and name not in f32:
                 continue
             dt = getattr(torch, dtype)
             q, k, v = (torch.randn(shape, generator=g, device="cuda")
-                       .to(dt) for shape in ((b, s, h, hd), (b, s, kv, hd),
-                                             (b, s, kv, hd)))
-            got = flash_attention.flash_attention_cuda(q, k, v,
-                                                       window=window)
-            want = flash_attention.plain(q, k, v, window=window)
+                       .to(dt) for shape in ((b, sq, h, hd),
+                                             (b, skv, kv, hd),
+                                             (b, skv, kv, hd)))
+            got = flash_attention.flash_attention_cuda(q, k, v, **kw)
+            want = flash_attention.plain(q, k, v, **kw)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             tol = ATTN_TOL[dtype]
-            check(err <= tol, f"flash_attention {name} S={s} {dtype}: "
-                  f"error {err} > {tol}")
+            what = f"flash_attention {name} Sq={sq} Skv={skv} {dtype}"
+            check(err <= tol, f"{what}: error {err} > {tol}")
             errs.append(err)
+            line = dict(phase="kernel_parity", kernel="flash_attention",
+                        path=path, layout=name, shape=[b, sq, h, kv, hd],
+                        window=window, dtype=dtype, max_abs_err=err,
+                        tolerance=tol,
+                        registers_spills=flash_regs(ptxas, dtype, hd, cap))
+            if sq != skv:
+                line["kv_len"] = skv
+            if not causal or cap:
+                line.update(causal=causal, softcap=cap)
+            if cap:
+                line.update(cap_checks(flash_attention.flash_attention_cuda,
+                                       flash_attention.plain, (q, k, v), kw,
+                                       want, tol, what))
             if dtype != "bfloat16":   # checked, not timed
-                emit(phase="kernel_parity", kernel="flash_attention",
-                     path=path, layout=name, shape=[b, s, h, kv, hd],
-                     window=window, dtype=dtype, max_abs_err=err,
-                     tolerance=tol,
-                     registers_spills=flash_regs(ptxas, dtype, hd))
+                emit(**line)
                 continue
             ms, wall_ms, prof_ms = timed(
-                lambda: flash_attention.flash_attention_cuda(
-                    q, k, v, window=window), profile=True)
-            plain_ms, _, _ = timed(lambda: flash_attention.plain(
-                q, k, v, window=window))
-            qp = torch.arange(s, device="cuda")[:, None]
-            kp = torch.arange(s, device="cuda")[None, :]
-            band = (kp <= qp) & ((kp > qp - window) if window else True)
+                lambda: flash_attention.flash_attention_cuda(q, k, v, **kw),
+                profile=True)
+            plain_ms, _, _ = timed(lambda: flash_attention.plain(q, k, v,
+                                                                 **kw))
+            if cap:
+                lib = capped_library(torch, q, k, v, cap, causal=causal,
+                                     window=window)
+                line.update(library="flex_attention", library_max_abs_err=(
+                    float((lib().float() - want.float()).abs().max())))
+            else:
+                qp = torch.arange(sq, device="cuda")[:, None] + (skv - sq)
+                kp = torch.arange(skv, device="cuda")[None, :]
+                band = (kp <= qp) & ((kp > qp - window) if window else True)
 
-            def lib():
-                return sdpa(torch, q, k, v, **(
-                    {"attn_mask": band} if window else {"is_causal": True}))
-            lib_ms, _, _ = timed(lib)
+                def lib():
+                    return sdpa(torch, q, k, v, **(
+                        {"attn_mask": band} if window else
+                        {"is_causal": causal}))
             # q, k, v read once, o written once (bf16); the products the
-            # data needs: 2 * 2 * hd per (q, k) pair the mask keeps
-            ops_, nbytes = flash_attention.cost(b, s, s, h, kv, hd, 2,
-                                                window=window)
+            # data needs: 2 * 2 * hd per (q, k) pair the mask keeps (the
+            # cap's one tanh a pair is not counted)
+            ops_, nbytes = flash_attention.cost(b, sq, skv, h, kv, hd, 2,
+                                                causal=causal, window=window)
             b_ms, b_by = bound(nbytes, ops_, BF16_TC_OPS_PER_S)
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=lib_ms,
+                       bound_by=b_by, library_ms=timed(lib)[0],
                        cold_ms=cold_ms(lambda: flash_attention
-                                       .flash_attention_cuda(
-                                           q, k, v, window=window)),
+                                       .flash_attention_cuda(q, k, v, **kw)),
                        library_cold_ms=cold_ms(lib),
                        bound_share=b_ms / ms)
-            emit(phase="kernel_parity", kernel="flash_attention", path=path,
-                 layout=name, shape=[b, s, h, kv, hd], window=window,
-                 dtype=dtype, max_abs_err=err, tolerance=tol,
-                 profiler_ms=prof_ms,
-                 wall_ms=wall_ms,
-                 registers_spills=flash_regs(ptxas, dtype, hd), **row)
-            if name == "d0/d4" and s == PROMPT:
+            emit(**line, profiler_ms=prof_ms, wall_ms=wall_ms, **row)
+            if name == "d0/d4" and sq == PROMPT:
                 main = row
     if main is None:
         return None
@@ -751,19 +854,26 @@ def flash_phase(torch, flash_attention, cases=FLASH_CASES, path="serving",
 
 def decode_phase(torch, ops, decode_attention, cases=DECODE_CASES,
                  path="serving", ptxas=None, f32=None):
-    """K4 at every case of ``cases``: caches of up to ``MAX_LEN`` slots
-    written half way (the ring's unwritten slots masked by the bias),
-    longer ones (Hymba's, Gemma3's and PaliGemma's) full at their last
-    position, the sliding rings wrapped; bf16 and float32 (at the cases
-    named in ``f32``, default all). Each line gives the registers and
-    spills of the partial kernel's instance that ran (``ptxas``: the
-    ``ptxas_summary`` of K4's build). Returns the kernels-line entry when
-    ``cases`` hold the serving path's main shape, else None."""
+    """K4 at every case of ``cases`` (``DECODE_CASES``): caches of up to
+    ``MAX_LEN`` slots written half way (the ring's unwritten slots
+    masked by the bias), longer ones (Hymba's, Gemma3's and PaliGemma's)
+    full at their last position, the sliding rings wrapped, a cross
+    cache (an encoder's frames) every slot valid; bf16 (timed, beside
+    the library: SDPA with the bias as its mask, or ``capped_library``
+    where the case has a soft-cap) and float32 (at the cases named in
+    ``f32``, default all). A capped case adds ``cap_checks``. Each line
+    gives the registers and spills of the partial kernel's instance that
+    ran (``ptxas``: the ``ptxas_summary`` of K4's build). Returns the
+    kernels-line entry when ``cases`` hold the serving path's main
+    shape, else None."""
     g = torch.Generator(device="cuda").manual_seed(6)
     errs, main = [], None
-    for name, b, sc, h, kv, hd, window in cases:
+    for name, b, sc, h, kv, hd, window, cross, cap in cases:
         idx = torch.arange(sc, device="cuda")[None].repeat(b, 1)
-        if window or sc > MAX_LEN:
+        if cross:
+            cur = torch.full((b,), sc, device="cuda")
+            kv_pos = idx
+        elif window or sc > MAX_LEN:
             cur = torch.full((b,), HYBRID_MAX_LEN - 1, device="cuda")
             kv_pos = cur[:, None] - (cur[:, None] - idx) % sc
         else:
@@ -781,48 +891,58 @@ def decode_phase(torch, ops, decode_attention, cases=DECODE_CASES,
             q = torch.randn((b, h, hd), generator=g, device="cuda").to(dt)
             kc, vc = (torch.randn((b, sc, kv, hd), generator=g,
                                   device="cuda").to(dt) for _ in range(2))
-            got = ops.decode_attention(q, kc, vc, kv_pos, cur, window=window)
-            want = decode_attention.plain(q, kc, vc, bias)
+            got = ops.decode_attention(q, kc, vc, kv_pos, cur, window=window,
+                                       softcap=cap)
+            want = decode_attention.plain(q, kc, vc, bias, cap)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             tol = ATTN_TOL[dtype]
-            check(err <= tol, f"decode_attention {name} Sc={sc} "
-                  f"{dtype}: error {err} > {tol}")
+            what = f"decode_attention {name} Sc={sc} {dtype}"
+            check(err <= tol, f"{what}: error {err} > {tol}")
             errs.append(err)
-            regs = decode_regs(ptxas, dtype, hd, h // kv)
+            regs = decode_regs(ptxas, dtype, hd, h // kv, cap)
+            line = dict(phase="kernel_parity", kernel="decode_attention",
+                        path=path, layout=name, shape=[b, sc, h, kv, hd],
+                        window=window, dtype=dtype, max_abs_err=err,
+                        tolerance=tol, registers_spills=regs)
+            if cross or cap:
+                line.update(cross_cache=cross, softcap=cap)
+            if cap:
+                line.update(cap_checks(decode_attention.decode_attention_cuda,
+                                       decode_attention.plain,
+                                       (q, kc, vc, bias), {"softcap": cap},
+                                       want, tol, what))
             if dtype != "bfloat16":   # checked, not timed
-                emit(phase="kernel_parity", kernel="decode_attention",
-                     path=path, layout=name, shape=[b, sc, h, kv, hd],
-                     window=window, dtype=dtype, max_abs_err=err,
-                     tolerance=tol, registers_spills=regs)
+                emit(**line)
                 continue
             ms, wall_ms, prof_ms = timed(
                 lambda: decode_attention.decode_attention_cuda(
-                    q, kc, vc, bias), profile=True)
+                    q, kc, vc, bias, cap), profile=True)
             plain_ms, _, _ = timed(
-                lambda: decode_attention.plain(q, kc, vc, bias))
-            mask = bias.to(dt)[:, None, None, :]
+                lambda: decode_attention.plain(q, kc, vc, bias, cap))
+            if cap:
+                lib = capped_library(torch, q[:, None], kc, vc, cap,
+                                     bias=bias)
+                line.update(library="flex_attention", library_max_abs_err=(
+                    float((lib()[:, 0].float() - want.float()).abs().max())))
+            else:
+                mask = bias.to(dt)[:, None, None, :]
 
-            def lib():
-                return sdpa(torch, q[:, None], kc, vc, attn_mask=mask)
-            lib_ms, _, _ = timed(lib)
+                def lib():
+                    return sdpa(torch, q[:, None], kc, vc, attn_mask=mask)
             # both caches read whole (bf16), q and o, the f32 bias row;
             # 2 * 2 * hd per (head, slot)
             ops_, nbytes = decode_attention.cost(b, h, kv, hd, sc, 2)
             b_ms, b_by = bound(nbytes, ops_, BF16_TC_OPS_PER_S)
             splits, _ = decode_attention.split_plan(b, kv, sc, h // kv)
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=lib_ms,
+                       bound_by=b_by, library_ms=timed(lib)[0],
                        cold_ms=cold_ms(lambda: decode_attention
                                        .decode_attention_cuda(
-                                           q, kc, vc, bias)),
+                                           q, kc, vc, bias, cap)),
                        library_cold_ms=cold_ms(lib),
                        bound_share=b_ms / ms, blocks=b * kv * splits)
-            emit(phase="kernel_parity", kernel="decode_attention",
-                 path=path, layout=name, shape=[b, sc, h, kv, hd],
-                 window=window, dtype=dtype, max_abs_err=err,
-                 tolerance=tol, profiler_ms=prof_ms,
-                 wall_ms=wall_ms, registers_spills=regs, **row)
+            emit(**line, profiler_ms=prof_ms, wall_ms=wall_ms, **row)
             if name == "d0/d4" and sc == MAX_LEN:
                 main = row
             if name.startswith("hymba"):
@@ -1994,7 +2114,7 @@ class MoEAgreement:
 
 def model_cpu_agreement(torch, cfg, params, build_model, batch, prompt,
                         variant, steps=3, phase="ssm_cpu_agreement",
-                        moe=None, img_tokens=0):
+                        moe=None, img_tokens=0, frames=0):
     """The card's model and the CPU's plain path on the same weights (a
     copy of the card's): prefill and ``steps`` decode steps fed the CPU's
     greedy tokens, logits within the bf16 tolerance (atol 0.125 + rtol
@@ -2002,7 +2122,9 @@ def model_cpu_agreement(torch, cfg, params, build_model, batch, prompt,
     With ``moe`` (the module ``models.moe``) every MoE block is held on
     the CPU's input and the routers end to end (``MoEAgreement``); with
     ``img_tokens`` a VLM's prompt runs behind that many seeded stub image
-    embeddings. Returns the phase's line."""
+    embeddings; with ``frames`` an encoder-decoder's prompt cross-attends
+    that many seeded stub frames through the encoder. Returns the phase's
+    line."""
     import contextlib
     import numpy as np
     m = build_model(cfg)
@@ -2016,6 +2138,10 @@ def model_cpu_agreement(torch, cfg, params, build_model, batch, prompt,
         batch_cpu["img_embeds"] = torch.tensor(
             np.random.default_rng(3).standard_normal(
                 (batch, img_tokens, cfg.d_model)).astype(np.float32))
+    if frames:
+        batch_cpu["frames"] = torch.tensor(
+            np.random.default_rng(3).standard_normal(
+                (batch, frames, cfg.d_model)).astype(np.float32))
     errs, shares, clear_rows, equal = [], [], 0, True
     rec = MoEAgreement(torch, moe, _pairs(params, p_cpu)) \
         if moe is not None else None
@@ -2048,6 +2174,8 @@ def model_cpu_agreement(torch, cfg, params, build_model, batch, prompt,
                 layers=cfg.n_layers, d_model=cfg.d_model)
     if cfg.ssm is not None:
         line["d_inner"] = cfg.d_inner
+    if cfg.is_encdec:
+        line.update(enc_layers=cfg.n_enc_layers, frames=frames)
     line.update(batch=batch, prompt=prompt, image_tokens=img_tokens,
                 peak_gb=peak_gb(torch),
                 decode_steps=steps, logits_max_abs_err=max(errs),
@@ -2279,26 +2407,29 @@ PALI_BATCH, PALI_IMG = 16, 256
 PALI_MAX_LEN = PALI_IMG + PROMPT + NEW_TOKENS
 CUT_BATCH, YI_LAYERS, DBRX_LAYERS = 16, 8, 2
 DENSE_ROUTE_SEED = 19
-#: K3 and K4 at the path's layouts (name, batch, sequence or cache slots,
-#: q heads, kv heads, head dim, window); float32 checked at one layout of
-#: each head dim (``DENSE_F32``)
-#: each of ``dense_serving`` and of ``vlm_and_cuts``
+#: K3 and K4 cases (``FLASH_CASES``, ``DECODE_CASES``) at the layouts of
+#: each of ``dense_serving`` and of ``vlm_and_cuts``; float32 checked at
+#: one layout of each head dim (``DENSE_F32``)
 DENSE_FLASH_CASES = (
-    ("internlm2", INTERN_BATCH, PROMPT, 48, 8, 128, 0),
-    ("gemma3 global", GEMMA3_BATCH, GEMMA3_PROMPT, 8, 4, 256, 0),
-    ("gemma3 sliding", GEMMA3_BATCH, GEMMA3_PROMPT, 8, 4, 256, 1024))
+    ("internlm2", INTERN_BATCH, PROMPT, PROMPT, 48, 8, 128, 0, True, 0.0),
+    ("gemma3 global", GEMMA3_BATCH, GEMMA3_PROMPT, GEMMA3_PROMPT, 8, 4, 256,
+     0, True, 0.0),
+    ("gemma3 sliding", GEMMA3_BATCH, GEMMA3_PROMPT, GEMMA3_PROMPT, 8, 4,
+     256, 1024, True, 0.0))
 DENSE_DECODE_CASES = (
-    ("internlm2", INTERN_BATCH, MAX_LEN, 48, 8, 128, 0),
-    ("gemma3 global", GEMMA3_BATCH, GEMMA3_MAX_LEN, 8, 4, 256, 0),
-    ("gemma3 sliding", GEMMA3_BATCH, 1024, 8, 4, 256, 1024))
+    ("internlm2", INTERN_BATCH, MAX_LEN, 48, 8, 128, 0, False, 0.0),
+    ("gemma3 global", GEMMA3_BATCH, GEMMA3_MAX_LEN, 8, 4, 256, 0, False,
+     0.0),
+    ("gemma3 sliding", GEMMA3_BATCH, 1024, 8, 4, 256, 1024, False, 0.0))
 VLM_FLASH_CASES = (
-    ("yi", CUT_BATCH, PROMPT, 56, 8, 128, 0),
-    ("gemma-7b", CUT_BATCH, PROMPT, 16, 16, 256, 0),
-    ("paligemma", PALI_BATCH, PALI_IMG + PROMPT, 8, 1, 256, 0))
+    ("yi", CUT_BATCH, PROMPT, PROMPT, 56, 8, 128, 0, True, 0.0),
+    ("gemma-7b", CUT_BATCH, PROMPT, PROMPT, 16, 16, 256, 0, True, 0.0),
+    ("paligemma", PALI_BATCH, PALI_IMG + PROMPT, PALI_IMG + PROMPT, 8, 1,
+     256, 0, True, 0.0))
 VLM_DECODE_CASES = (
-    ("yi", CUT_BATCH, MAX_LEN, 56, 8, 128, 0),
-    ("gemma-7b", CUT_BATCH, MAX_LEN, 16, 16, 256, 0),
-    ("paligemma", PALI_BATCH, PALI_MAX_LEN, 8, 1, 256, 0))
+    ("yi", CUT_BATCH, MAX_LEN, 56, 8, 128, 0, False, 0.0),
+    ("gemma-7b", CUT_BATCH, MAX_LEN, 16, 16, 256, 0, False, 0.0),
+    ("paligemma", PALI_BATCH, PALI_MAX_LEN, 8, 1, 256, 0, False, 0.0))
 DENSE_F32 = ("internlm2", "paligemma")
 
 
@@ -2534,6 +2665,196 @@ def vlm_and_cuts(torch, build_engines, get_config, build_model,
     return {k.name: k.launches for k in kernels}
 
 
+# ------------------------------------------------ encoder-decoder path ----
+#: the encoder-decoder path: Whisper-medium served whole through
+#: ``Model.prefill`` / ``decode`` (an engine's requests carry tokens only,
+#: so ``build_engines`` refuses it, as the reference's engine would fail
+#: on it): batch 16, its 1,500 seeded stub frames, a 64-token prompt, 16
+#: new tokens, a 448-slot self cache (Whisper's text context); d0 and d4
+AUDIO_ARCH, AUDIO_VARIANTS = "whisper-medium", ("d0", "d4")
+AUDIO_BATCH, AUDIO_PROMPT, AUDIO_MAX_LEN = 16, 64, 448
+#: the soft-cap of the capped K3/K4 lines (Gemma-2's attention cap)
+SOFTCAP = 50.0
+#: K3 on the path (``FLASH_CASES``): the encoder's self-attention over
+#: 16 x 1,500 frames and the cross-attention of the 64-token prompt onto
+#: them (no mask, the last kv tile 28 rows), its decoder's causal
+#: self-attention, float32 checked at the two uncapped Whisper layouts
+#: (``AUDIO_F32``); then the soft-cap at Gemma3-4B's causal (global) and
+#: windowed layouts and at the cross layout, float32 checked at the
+#: cross layout (``SOFTCAP_F32``)
+AUDIO_FLASH_CASES = (
+    ("whisper encoder", AUDIO_BATCH, 1500, 1500, 16, 16, 64, 0, False, 0.0),
+    ("whisper cross", AUDIO_BATCH, AUDIO_PROMPT, 1500, 16, 16, 64, 0, False,
+     0.0),
+    ("whisper decoder", AUDIO_BATCH, AUDIO_PROMPT, AUDIO_PROMPT, 16, 16, 64,
+     0, True, 0.0))
+SOFTCAP_FLASH_CASES = (
+    ("gemma3 global capped", GEMMA3_BATCH, GEMMA3_PROMPT, GEMMA3_PROMPT, 8,
+     4, 256, 0, True, SOFTCAP),
+    ("gemma3 sliding capped", GEMMA3_BATCH, GEMMA3_PROMPT, GEMMA3_PROMPT, 8,
+     4, 256, 1024, True, SOFTCAP),
+    ("whisper cross capped", AUDIO_BATCH, AUDIO_PROMPT, 1500, 16, 16, 64, 0,
+     False, SOFTCAP))
+AUDIO_F32 = ("whisper encoder", "whisper cross")
+SOFTCAP_F32 = ("whisper cross capped",)
+#: K4 on the path (``DECODE_CASES``): the 1,500-slot cross cache (every
+#: slot valid), the 448-slot self cache, and the cross cache capped,
+#: float32 checked at both cross caches
+AUDIO_DECODE_CASES = (
+    ("whisper cross", AUDIO_BATCH, 1500, 16, 16, 64, 0, True, 0.0),
+    ("whisper self", AUDIO_BATCH, AUDIO_MAX_LEN, 16, 16, 64, 0, False, 0.0),
+    ("whisper cross capped", AUDIO_BATCH, 1500, 16, 16, 64, 0, True,
+     SOFTCAP))
+AUDIO_DECODE_F32 = ("whisper cross", "whisper cross capped")
+#: K5 at d4's encoder: M = 16 x 1,500 rows (no multiple of the tile) for
+#: wq/wk/wv/wo (1,024 -> 1,024), the MLP's up (1,024 -> 4,096) and down
+#: (4,096 -> 1,024)
+AUDIO_INT8_SHAPES = tuple((AUDIO_BATCH * 1500, k, n) for k, n in (
+    (1024, 1024), (1024, 4096), (4096, 1024)))
+
+
+def audio_cpu_agreement(torch, get_config, build_model, variant_seed):
+    """Whisper at full width cut to 2 encoder and 2 decoder layers over
+    its 1,500 frames, d0 and d4, drawn on the card and run on the card
+    and on the CPU with the same weights (``model_cpu_agreement``)."""
+    from repro_torch.models.variants import build_ladder
+    cfg = dataclasses.replace(get_config(AUDIO_ARCH), n_layers=2,
+                              n_enc_layers=2)
+    for vid in AUDIO_VARIANTS:
+        vcfg = build_ladder(cfg)[vid].cfg
+        params = build_model(vcfg).init(variant_seed(0, vid), device="cuda")
+        model_cpu_agreement(torch, vcfg, params, build_model, 2, 32, vid,
+                            phase="audio_cpu_agreement",
+                            frames=vcfg.enc_seq)
+        del params
+        free_card(torch)
+
+
+def audio_serve_one(torch, cfg, vid, build_model, variant_seed, kernels):
+    """One variant of Whisper-medium whole: the encoder alone, then the
+    prefill (encoder included) and 16 greedy decode steps, each timed by
+    the host clock around synchronised calls after a warm-up run; the
+    caches' shapes, the weights held against ``param_count()``, the
+    peak memory, the launches of ``kernels`` in the timed prefill and one
+    decode step; then one decode and one prefill ``step_profile``."""
+    import numpy as np
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(variant_seed(0, vid), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(29)
+    batch = {"tokens": torch.tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (AUDIO_BATCH, AUDIO_PROMPT)).astype(np.int32),
+        device="cuda"),
+        "frames": torch.randn((AUDIO_BATCH, cfg.enc_seq, cfg.d_model),
+                              generator=g, device="cuda")}
+
+    def prefill():
+        return model.prefill(params, batch, max_len=AUDIO_MAX_LEN)
+
+    def run():
+        logits, cache = prefill()
+        for _ in range(NEW_TOKENS):
+            cur = logits[:, -1:, :cfg.vocab_size].argmax(-1).int()
+            logits, cache = model.decode(params, cache, cur)
+        return logits, cache
+    with torch.inference_mode():
+        run()                                     # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model._encode(params, batch["frames"])
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        before = {k.name: k.launches for k in kernels}
+        t0 = time.perf_counter()
+        logits, cache = prefill()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        per_prefill = {k.name: k.launches - before[k.name] for k in kernels}
+        for step in range(NEW_TOKENS):
+            if step == 1:
+                before = {k.name: k.launches for k in kernels}
+            cur = logits[:, -1:, :cfg.vocab_size].argmax(-1).int()
+            logits, cache = model.decode(params, cache, cur)
+            if step == 1:
+                per_step = {k.name: k.launches - before[k.name]
+                            for k in kernels}
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{cfg.name} {vid}: non-finite logits")
+    n, hd = cfg.n_layers, cfg.resolved_head_dim
+    check(per_prefill["flash_attention"] == cfg.n_enc_layers + 2 * n
+          and per_step["decode_attention"] == 2 * n,
+          f"{cfg.name} {vid}: {per_prefill} launches a prefill, "
+          f"{per_step} a decode step")
+    (seg,) = cache["segments"]
+    kv = (n, AUDIO_BATCH, AUDIO_MAX_LEN, cfg.n_kv_heads, hd)
+    cross = (n, AUDIO_BATCH, cfg.enc_seq, cfg.n_kv_heads, hd)
+    check(cache["pos"] == AUDIO_PROMPT + NEW_TOKENS
+          and tuple(seg["k"].shape) == kv and tuple(seg["ck"].shape) == cross,
+          f"{cfg.name}: cache {tuple(seg['k'].shape)} / "
+          f"{tuple(seg['ck'].shape)} at {cache['pos']}")
+    line = family_line(cfg, params, init_s)
+    # param_count() leaves out the encoder's final norm (d_model), and an
+    # int8 linear also holds its per-column scales ("s")
+    weights = line["params_held"] - _scales(params)
+    check(weights == line["params_analytic"] + cfg.d_model,
+          f"{cfg.name} {vid}: {weights} weights held, param_count() "
+          f"{line['params_analytic']} + the encoder's final norm "
+          f"{cfg.d_model}")
+    emit(phase="audio_serving", variant=vid, **line,
+         enc_layers=cfg.n_enc_layers,
+         params_held_vs_analytic=[weights, line["params_analytic"]],
+         params_gap_reason="param_count() leaves out the encoder's final "
+                           "norm (d_model)",
+         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+         d_ff=cfg.d_ff, mlp=cfg.mlp_act, batch=AUDIO_BATCH,
+         frames=cfg.enc_seq, prompt=AUDIO_PROMPT, new_tokens=NEW_TOKENS,
+         max_len=AUDIO_MAX_LEN, kv_cache=list(kv), cross_cache=list(cross),
+         encoder_ms=enc_ms, prefill_ms=(t1 - t0) * 1e3,
+         decode_ms_per_token=(t2 - t1) * 1e3 / NEW_TOKENS,
+         tokens_per_s=AUDIO_BATCH * NEW_TOKENS / (t2 - t0),
+         launches_per_prefill=per_prefill, launches_per_decode_step=per_step,
+         peak_gb=peak_gb(torch))
+    cur = torch.zeros((AUDIO_BATCH, 1), dtype=torch.int32, device="cuda")
+
+    def decode_steps(steps=5):
+        nonlocal cache
+        with torch.inference_mode():
+            for _ in range(steps):
+                _, cache = model.decode(params, cache, cur)
+    step_profile(torch, decode_steps, 5, path="audio_serving", variant=vid,
+                 arch=cfg.name, what="decode step")
+
+    def one_prefill():
+        with torch.inference_mode():
+            prefill()
+    step_profile(torch, one_prefill, 1, top=8, path="audio_serving",
+                 variant=vid, arch=cfg.name, what="prefill",
+                 batch=AUDIO_BATCH, prompt=AUDIO_PROMPT, frames=cfg.enc_seq)
+    del params, cache, logits
+
+
+def audio_serving(torch, get_config, build_model, variant_seed, kernels):
+    """Whisper-medium as published, d0 bf16 then d4 int8, whole
+    (``audio_serve_one``), each freed before the next. Returns the path's
+    launches of ``kernels``, counted from its start (the profiles
+    included)."""
+    from repro_torch.models.variants import build_ladder
+    for k in kernels:
+        k.launches = 0
+    ladder = build_ladder(get_config(AUDIO_ARCH))
+    for vid in AUDIO_VARIANTS:
+        free_card(torch)
+        audio_serve_one(torch, ladder[vid].cfg, vid, build_model,
+                        variant_seed, kernels)
+    free_card(torch)
+    return {k.name: k.launches for k in kernels}
+
+
 # ------------------------------------------------ the single-cell layer ----
 #: the serving launcher's shapes: one request a call, a 16-token prompt,
 #: a cache of 64 slots (``build_engines``' default ``max_len``)
@@ -2742,8 +3063,9 @@ def cli_shapes(get_config, build_ladder):
     flash, dec = [], []
     for (h, kv, hd), vids in sorted(layouts.items(), reverse=True):
         name = "/".join(vids)
-        flash.append((name, 1, CLI_PROMPT, h, kv, hd, 0))
-        dec.append((name, 1, CLI_MAX_LEN, h, kv, hd, 0))
+        flash.append((name, 1, CLI_PROMPT, CLI_PROMPT, h, kv, hd, 0, True,
+                      0.0))
+        dec.append((name, 1, CLI_MAX_LEN, h, kv, hd, 0, False, 0.0))
     ladder = build_ladder(get_config("edge-ladder"))
     kn = []
     for vid in ("d5", "d6"):
@@ -3585,6 +3907,34 @@ def main():
         for name, n in counts.items():
             check(n > 0, f"{name} was never launched on the {path} path")
 
+    # the encoder-decoder path: K3 without a mask over Whisper's 1,500
+    # frames (and onto them from its prompt), K4 over its cross cache, K3
+    # and K4 with a logit soft-cap, K5 at d4's encoder rows; Whisper's
+    # 2-layer cut against the CPU; Whisper-medium whole, d0 and d4, its
+    # launches counted from there
+    free_card(torch)
+    flash_phase(torch, flash_attention, AUDIO_FLASH_CASES,
+                path="audio_serving",
+                ptxas=ptxas[flash_attention.KERNEL.name], f32=AUDIO_F32)
+    flash_phase(torch, flash_attention, SOFTCAP_FLASH_CASES,
+                path="softcap", ptxas=ptxas[flash_attention.KERNEL.name],
+                f32=SOFTCAP_F32)
+    decode_phase(torch, ops, decode_attention, AUDIO_DECODE_CASES,
+                 path="audio_serving",
+                 ptxas=ptxas[decode_attention.KERNEL.name],
+                 f32=AUDIO_DECODE_F32)
+    int8_phase(torch, ref, int8_matmul, AUDIO_INT8_SHAPES,
+               path="audio_serving")
+    free_card(torch)
+    audio_cpu_agreement(torch, get_config, build_model,
+                        serve_cli.variant_seed)
+    audio_launches = audio_serving(torch, get_config, build_model,
+                                   serve_cli.variant_seed, serving_kernels)
+    emit(phase="launches", audio_serving=audio_launches)
+    for name, n in audio_launches.items():
+        check(n > 0, f"{name} was never launched on the encoder-decoder "
+              "path")
+
     by_path = {"fleet_loop": {k.name: launches[k.name]
                               for k in fleet_kernels},
                "serving": {k.name: launches[k.name]
@@ -3594,7 +3944,8 @@ def main():
                                   launches["best_response"]},
                "single_cell": cli_launches, "ssm_path": ssm_launches,
                "moe_path": moe_launches, "dense_serving": dense_launches,
-               "vlm_and_cuts": vlm_launches}
+               "vlm_and_cuts": vlm_launches,
+               "audio_serving": audio_launches}
     for e in entries:
         e["launches"] = launches[e["name"]]
         check(e["launches"] > 0,

@@ -10,10 +10,12 @@ head_dim 128), ``gemma-7b`` and ``gemma3-4b`` (head_dim 256, Gemma3
 with 5:1 sliding:global layers), the VLM ``paligemma-3b`` (a
 Gemma-style decoder behind a stub image prefix), ``falcon-mamba-7b``
 (pure Mamba-1 SSM), ``hymba-1.5b`` (attention and Mamba heads in
-parallel), and the mixture-of-experts ``granite-moe-1b-a400m`` and
-``dbrx-132b``. Every one runs on the card; DBRX's 263 GB in bf16 and
-Yi's 69 GB do not fit one beside the rest, so the card runs them cut in
-depth.
+parallel), the mixture-of-experts ``granite-moe-1b-a400m`` and
+``dbrx-132b``, and the encoder-decoder ``whisper-medium`` (a stub audio
+frontend's 1,500 frames through 24 encoder layers, cross-attended by
+24 decoder layers): every configuration of the reference. Every one
+runs on the card; DBRX's 263 GB in bf16 and Yi's 69 GB do not fit one
+beside the rest, so the card runs them cut in depth.
 """
 from __future__ import annotations
 
@@ -180,13 +182,14 @@ _MODULE_FOR = {"edge-ladder": "edge_ladder",
                "falcon-mamba-7b": "falcon_mamba_7b",
                "hymba-1.5b": "hymba_1_5b",
                "granite-moe-1b-a400m": "granite_moe_1b_a400m",
-               "dbrx-132b": "dbrx_132b"}
+               "dbrx-132b": "dbrx_132b",
+               "whisper-medium": "whisper_medium"}
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in _MODULE_FOR:
-        raise KeyError(f"repro_torch has no config {arch_id!r} yet; it "
-                       f"knows {sorted(_MODULE_FOR)} (ROADMAP queue 1)")
+        raise KeyError(f"repro_torch has no config {arch_id!r}; it knows "
+                       f"{sorted(_MODULE_FOR)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[arch_id]}")
     return mod.CONFIG
 

@@ -68,8 +68,11 @@ def model_params(params_np, cfg, device=None) -> dict:
     ``conv_w`` in ``cfg.dtype``, ``conv_b``, ``dt_w``, ``dt_b``,
     ``A_log`` and ``D`` float32. A MoE block keeps its router's ``w``
     float32, and its experts' leaves ``w`` (E, in, out), ``w_q`` (K-major
-    per expert) and ``s`` (E, 1, out) as a linear's. Weights stay ``(in,
-    out)``."""
+    per expert) and ``s`` (E, 1, out) as a linear's. An encoder-decoder's
+    ``encoder`` subtree comes across the same way: its stacked
+    ``segments`` become per-layer lists, its ``final_norm`` a norm; the
+    decoder layers' ``cross`` and ``ln_cross`` are linears and a norm
+    like the others. Weights stay ``(in, out)``."""
     from repro_torch.models.layers import dt
     dev = resolve_device(device)
     wdtype = dt(cfg.dtype)
@@ -90,12 +93,18 @@ def model_params(params_np, cfg, device=None) -> dict:
             return {k: layer(v, i) for k, v in tree.items()}
         return np.asarray(tree)[i]
 
-    out = {k: leaves(v) for k, v in params_np.items() if k != "segments"}
-    out["segments"] = []
-    for seg in params_np["segments"]:
-        n = len(np.asarray(seg["ln1"]["g"]))
-        out["segments"].append([leaves(layer(seg, i)) for i in range(n)])
-    return out
+    def stack(tree):
+        out = {k: leaves(v) for k, v in tree.items()
+               if k not in ("segments", "encoder")}
+        out["segments"] = []
+        for seg in tree["segments"]:
+            n = len(np.asarray(seg["ln1"]["g"]))
+            out["segments"].append([leaves(layer(seg, i)) for i in range(n)])
+        if "encoder" in tree:
+            out["encoder"] = stack(tree["encoder"])
+        return out
+
+    return stack(params_np)
 
 
 def opt_state(state, device=None) -> dict:

@@ -6,10 +6,15 @@
 // validity of each slot (0 valid, -1e30 empty or out of window -- the
 // caller derives it from the slots' absolute positions, so ring and linear
 // cache layouts are the same to the kernel):
-//   s[h, j] = (q[h] . k[j, h / G]) * scale + bias[j]
+//   s[h, j] = cap(q[h] . k[j, h / G] * scale) + bias[j]
 //   o[h]    = sum_j softmax_j(s[h, :]) v[j, h / G]          (G = H / KV)
 // with the softmax state and the accumulator in float32 and the output
-// in q's type.
+// in q's type. cap(x) is x, or with a logit soft-cap (cap > 0, the
+// reference model layer's logit_softcap) tanh(x / cap) * cap by an
+// accurate tanhf, once per finished (head, slot) score. The cap is a
+// template flag (kCap), so the instances without one are the kernels
+// they were. A cross-attention cache (an encoder's frames, every slot
+// valid) comes with a zero bias.
 //
 // Bound: bytes. Every decode step reads the whole cache of the layer
 // (2 B S KV hd elements) for ~4 B H S hd FLOP: one or two operations per
@@ -128,13 +133,13 @@ __device__ __forceinline__ void load_rows(uint4 (&x)[U][NCH], const T* base,
 // (the minimum of one block per SM keeps ptxas from spilling a few
 // registers to reach a higher occupancy that these bytes-bound blocks do
 // not need)
-template <typename T, int HD, int GB>
+template <typename T, int HD, int GB, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                       const T* __restrict__ vc,
                       const float* __restrict__ bias, float* __restrict__ ws,
                       T* __restrict__ o, int S, int H, int KV, int span,
-                      float scale) {
+                      float scale, float cap) {
   constexpr int VEC = 16 / sizeof(T);   // elements per 16-byte chunk
   // 16-byte chunks per lane: one, but two where a row has more than 32
   // (float32 at hd 256)
@@ -203,7 +208,10 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
         for (int off = 1; off < C; off <<= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        if (c == 0 && r < n) sc[g * span + r] = dot + brow[r];
+        if (c == 0 && r < n) {
+          if constexpr (kCap) dot = tanhf(dot / cap) * cap;
+          sc[g * span + r] = dot + brow[r];
+        }
       }
     }
 #pragma unroll
@@ -345,15 +353,24 @@ decode_merge_kernel(const float* __restrict__ ws, T* __restrict__ o, int BH,
 template <typename T, int HD, int GB>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
                    const void* bias, void* ws, void* o, int B, int S, int H,
-                   int KV, int span, float scale, cudaStream_t stream) {
+                   int KV, int span, float scale, float cap,
+                   cudaStream_t stream) {
   const int G = H / KV;
   const int splits = (S + span - 1) / span;
   const size_t smem = sizeof(float) * smem_floats(G, span, HD);
   const dim3 grid(splits, KV, B);
-  decode_partial_kernel<T, HD, GB><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<const float*>(bias),
-      static_cast<float*>(ws), static_cast<T*>(o), S, H, KV, span, scale);
+  if (cap > 0.f)
+    decode_partial_kernel<T, HD, GB, true><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(kc),
+        static_cast<const T*>(vc), static_cast<const float*>(bias),
+        static_cast<float*>(ws), static_cast<T*>(o), S, H, KV, span, scale,
+        cap);
+  else
+    decode_partial_kernel<T, HD, GB, false><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(kc),
+        static_cast<const T*>(vc), static_cast<const float*>(bias),
+        static_cast<float*>(ws), static_cast<T*>(o), S, H, KV, span, scale,
+        cap);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const int bh = B * H;
@@ -366,44 +383,45 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
 template <typename T, int HD>
 cudaError_t launch_g(const void* q, const void* kc, const void* vc,
                      const void* bias, void* ws, void* o, int B, int S, int H,
-                     int KV, int span, float scale, cudaStream_t stream) {
+                     int KV, int span, float scale, float cap,
+                     cudaStream_t stream) {
   const int G = H / KV;
   if (G <= 1)
     return launch<T, HD, 1>(q, kc, vc, bias, ws, o, B, S, H, KV, span, scale,
-                            stream);
+                            cap, stream);
   if (G <= 2)
     return launch<T, HD, 2>(q, kc, vc, bias, ws, o, B, S, H, KV, span, scale,
-                            stream);
+                            cap, stream);
   if (G <= 8)
     return launch<T, HD, 8>(q, kc, vc, bias, ws, o, B, S, H, KV, span, scale,
-                            stream);
+                            cap, stream);
   if constexpr (16 * HD <= kMaxGroupDims)
     return launch<T, HD, 16>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
-                             scale, stream);
+                             scale, cap, stream);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t launch_hd(int hd, const void* q, const void* kc, const void* vc,
                       const void* bias, void* ws, void* o, int B, int S,
-                      int H, int KV, int span, float scale,
+                      int H, int KV, int span, float scale, float cap,
                       cudaStream_t stream) {
   switch (hd) {
     case 16:
       return launch_g<T, 16>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
-                             scale, stream);
+                             scale, cap, stream);
     case 32:
       return launch_g<T, 32>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
-                             scale, stream);
+                             scale, cap, stream);
     case 64:
       return launch_g<T, 64>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
-                             scale, stream);
+                             scale, cap, stream);
     case 128:
       return launch_g<T, 128>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
-                              scale, stream);
+                              scale, cap, stream);
     case 256:
       return launch_g<T, 256>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
-                              scale, stream);
+                              scale, cap, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -413,25 +431,27 @@ cudaError_t launch_hd(int hd, const void* q, const void* kc, const void* vc,
 
 // dtype: 0 float32, 1 bfloat16 (q, caches and o share it; bias and the
 // workspace are float32). span: slots per split, a multiple of 64; ws:
-// (B, H, ceil(S / span), hd + 2) float32, unused with one split.
+// (B, H, ceil(S / span), hd + 2) float32, unused with one split. cap: the
+// logit soft-cap, 0 for none.
 extern "C" int decode_attention_launch(const void* q, const void* kc,
                                        const void* vc, const void* bias,
                                        void* ws, void* o, int B, int S, int H,
                                        int KV, int hd, int span, float scale,
-                                       int dtype, void* stream) {
+                                       float cap, int dtype, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || S <= 0 || H / KV > kMaxG ||
       (H / KV) * hd > kMaxGroupDims || span <= 0 || span % kTS != 0 ||
-      sizeof(float) * smem_floats(H / KV, span, hd) > 48 * 1024)
+      sizeof(float) * smem_floats(H / KV, span, hd) > 48 * 1024 ||
+      !(cap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
     err = launch_hd<float>(hd, q, kc, vc, bias, ws, o, B, S, H, KV, span,
-                           scale, st);
+                           scale, cap, st);
   else if (dtype == 1)
     err = launch_hd<__nv_bfloat16>(hd, q, kc, vc, bias, ws, o, B, S, H, KV,
-                                   span, scale, st);
+                                   span, scale, cap, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

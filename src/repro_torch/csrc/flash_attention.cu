@@ -10,7 +10,15 @@
 // a masked score is -1e30, as in the Pallas kernel. Softmax state and the
 // accumulator are float32; the output is written in q's type. Tiles that
 // the causal mask or the window rule out for a whole q tile are skipped,
-// as the Pallas kernel's pl.when does.
+// as the Pallas kernel's pl.when does. Without causal mask or window (an
+// encoder's self-attention, a decoder's cross-attention onto the encoder's
+// frames) every kv row is kept, and only the last kv tile, where Skv is no
+// multiple of 64, is masked row by row.
+//
+// Logit soft-capping (cap > 0, the reference model layer's logit_softcap):
+// each scaled score s = (q . k) * scale becomes tanh(s / cap) * cap before
+// the mask, by an accurate tanhf in both instances. It is a template flag
+// (kCap), so the instances without a cap are the kernels they were.
 //
 // Bound: ~4 hd FLOP per kept (q, k) pair against ~2 (2 H + 2 KV) hd bytes
 // per token in and out, so by the card's peaks operations bind from ~128
@@ -69,13 +77,13 @@ constexpr int kFLanes = 8;               // lanes per q row
 constexpr int kFThreads = kFBQ * kFLanes;  // 256
 constexpr int kFBK = 16;                 // kv rows per tile
 
-template <int HD>
+template <int HD, bool kCap>
 __global__ void __launch_bounds__(kFThreads)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
                            int Sq, int Skv, int H, int KV, int causal,
-                           int window, int q_offset, float scale) {
+                           int window, int q_offset, float scale, float cap) {
   constexpr int kDims = HD / kFLanes;    // dims of a row per lane
   __shared__ float Ks[kFBK][HD];
   __shared__ float Vs[kFBK][HD];
@@ -142,7 +150,9 @@ flash_attention_f32_kernel(const float* __restrict__ q,
       bool ok = kj < Skv;
       if (causal) ok = ok && kj <= q_pos;
       if (window > 0) ok = ok && kj > q_pos - window;
-      s[j] = ok ? dot * scale : kNegInf;
+      float x = dot * scale;
+      if constexpr (kCap) x = tanhf(x / cap) * cap;
+      s[j] = ok ? x : kNegInf;
       m_t = fmaxf(m_t, s[j]);
     }
     const float m_new = fmaxf(m, m_t);
@@ -413,14 +423,17 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
 // holds row 16 warp + lane / 4 + 8 (e >> 1), column 8 j + 2 (lane % 4) +
 // (e & 1). Columns 16 t .. 16 t + 15 of S, rounded to bf16 in that order,
 // are exactly the A fragment of the t-th k-step of P V.
-template <int HD>
+// score_mul: scale * log2(e), or with kCap scale / cap, and then
+// cap_log2 = cap * log2(e) multiplies the tanh: the base-2 rescale moves
+// after the cap.
+template <int HD, bool kCap>
 __global__ void __launch_bounds__(kTcThreads)
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           __nv_bfloat16* __restrict__ o, int Sq, int Skv,
                           int H, int KV, int causal, int window,
-                          int q_offset, float scale_log2) {
+                          int q_offset, float score_mul, float cap_log2) {
   using Tile = TcTile<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -491,13 +504,15 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_wait_all();
     fence_regs(s);
 
-    // scale to base 2; the mask only where the tile crosses a boundary
+    // scale to base 2 (capped first with kCap); the mask only where the
+    // tile crosses a boundary
     const bool edge = k0 + kBK > Skv ||
                       (causal && k0 + kBK - 1 > q0 + q_offset) ||
                       (window > 0 && k0 <= q0 + kBQ - 1 + q_offset - window);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      float x = s[i] * scale_log2;
+      float x = s[i] * score_mul;
+      if constexpr (kCap) x = tanhf(x) * cap_log2;
       if (edge) {
         const int kj = k0 + 8 * (i >> 2) + c0 + (i & 1);
         const int qp = q_pos[(i >> 1) & 1];
@@ -575,23 +590,23 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ------------------------------------------------------------ launch ----
-template <int HD>
+template <int HD, bool kCap>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        int B, int Sq, int Skv, int H, int KV, int causal,
-                       int window, int q_offset, float scale,
+                       int window, int q_offset, float scale, float cap,
                        cudaStream_t stream) {
   const dim3 grid(B * H, (Sq + kFBQ - 1) / kFBQ);
-  flash_attention_f32_kernel<HD><<<grid, kFThreads, 0, stream>>>(
+  flash_attention_f32_kernel<HD, kCap><<<grid, kFThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KV,
-      causal, window, q_offset, scale);
+      causal, window, q_offset, scale, cap);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool kCap>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       int B, int Sq, int Skv, int H, int KV, int causal,
-                      int window, int q_offset, float scale,
+                      int window, int q_offset, float scale, float cap,
                       cudaStream_t stream) {
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   // the q tile and two stages of K and V, plus the alignment slack: 41 KB
@@ -605,68 +620,83 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices || !granted[dev]) {
-    err = cudaFuncSetAttribute(flash_attention_tc_kernel<HD>,
+    err = cudaFuncSetAttribute(flash_attention_tc_kernel<HD, kCap>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return err;
     if (dev < kMaxDevices) granted[dev] = true;
   }
-  flash_attention_tc_kernel<HD><<<grid, kTcThreads, smem, stream>>>(
+  constexpr float kLog2e = 1.4426950408889634f;
+  flash_attention_tc_kernel<HD, kCap><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       Sq, Skv, H, KV, causal, window, q_offset,
-      scale * 1.4426950408889634f);
+      kCap ? scale / cap : scale * kLog2e, cap * kLog2e);
   return cudaGetLastError();
+}
+
+template <int HD, bool kCap>
+cudaError_t launch_cap(int dtype, const void* q, const void* k, const void* v,
+                       void* o, int B, int Sq, int Skv, int H, int KV,
+                       int causal, int window, int q_offset, float scale,
+                       float cap, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_f32<HD, kCap>(q, k, v, o, B, Sq, Skv, H, KV, causal,
+                                window, q_offset, scale, cap, stream);
+  if (dtype == 1)
+    return launch_tc<HD, kCap>(q, k, v, o, B, Sq, Skv, H, KV, causal, window,
+                               q_offset, scale, cap, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <int HD>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
                    void* o, int B, int Sq, int Skv, int H, int KV, int causal,
-                   int window, int q_offset, float scale,
+                   int window, int q_offset, float scale, float cap,
                    cudaStream_t stream) {
-  if (dtype == 0)
-    return launch_f32<HD>(q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                          q_offset, scale, stream);
-  if (dtype == 1)
-    return launch_tc<HD>(q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                         q_offset, scale, stream);
-  return cudaErrorInvalidValue;
+  if (cap > 0.f)
+    return launch_cap<HD, true>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal,
+                                window, q_offset, scale, cap, stream);
+  return launch_cap<HD, false>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal,
+                               window, q_offset, scale, cap, stream);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and o share it)
+// dtype: 0 float32, 1 bfloat16 (q, k, v and o share it); cap: the logit
+// soft-cap, 0 for none
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Skv, int H, int KV, int hd,
                                       int causal, int window, int q_offset,
-                                      float scale, int dtype, void* stream) {
+                                      float scale, float cap, int dtype,
+                                      void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
-  if (KV <= 0 || H % KV != 0 || Skv <= 0)
+  if (KV <= 0 || H % KV != 0 || Skv <= 0 || !(cap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (hd) {
     case 16:
       err = launch<16>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                       q_offset, scale, st);
+                       q_offset, scale, cap, st);
       break;
     case 32:
       err = launch<32>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                       q_offset, scale, st);
+                       q_offset, scale, cap, st);
       break;
     case 64:
       err = launch<64>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                       q_offset, scale, st);
+                       q_offset, scale, cap, st);
       break;
     case 128:
       err = launch<128>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                        q_offset, scale, st);
+                        q_offset, scale, cap, st);
       break;
     case 256:
       err = launch<256>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                        q_offset, scale, st);
+                        q_offset, scale, cap, st);
       break;
     default:
       err = cudaErrorInvalidValue;

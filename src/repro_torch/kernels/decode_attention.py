@@ -6,7 +6,12 @@ Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py``
 sequence against the whole cache, an additive bias row for invalid or
 out-of-window slots added before the max, GQA per kv head, float32
 softmax state. The ring layout of the cache stays outside: the caller's
-slot positions decide validity through the bias (``ops.decode_attention``).
+slot positions decide validity through the bias (``ops.decode_attention``);
+a cross-attention cache (an encoder's 1,500 frames, every slot valid)
+is the same call with a zero bias. A logit soft-cap (``softcap > 0``,
+the reference model layer's, which the Pallas kernel lacks) caps each
+finished score ``s = q . k * scale`` as ``tanh(s / softcap) * softcap``
+before the bias is added.
 
 Bound on the H100: bytes — each step reads the layer's whole cache for
 one or two operations per byte. The kernel splits the cache into ranges
@@ -29,7 +34,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import (F, I, P, CudaKernel, check_aligned,
                                         check_cuda)
 
-KERNEL = CudaKernel("decode_attention", [P] * 6 + [I] * 6 + [F, I])
+KERNEL = CudaKernel("decode_attention", [P] * 6 + [I] * 6 + [F, F, I])
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -64,10 +69,11 @@ def split_plan(b: int, n_kv: int, s: int, g: int) -> tuple[int, int]:
     return -(-tiles // span_tiles), span_tiles * TILE
 
 
-def decode_attention_cuda(q, k_cache, v_cache, bias):
+def decode_attention_cuda(q, k_cache, v_cache, bias, softcap: float = 0.0):
     """Launch the CUDA kernel. ``q``: (B, H, hd); caches: (B, S, KV, hd)
     in q's dtype (float32 or bfloat16); ``bias``: (B, S) float32; all
-    contiguous. Returns (B, H, hd) in q's dtype."""
+    contiguous; ``softcap`` >= 0 (0: none). Returns (B, H, hd) in q's
+    dtype."""
     b, h, hd = q.shape
     s, n_kv = k_cache.shape[1], k_cache.shape[2]
     if q.dtype not in DTYPES:
@@ -78,6 +84,8 @@ def decode_attention_cuda(q, k_cache, v_cache, bias):
                          f"{HEAD_DIMS}, got {hd}")
     if n_kv < 1 or h % n_kv:
         raise ValueError(f"{h} q heads are not a multiple of {n_kv} kv heads")
+    if not softcap >= 0:
+        raise ValueError(f"softcap must be >= 0, got {softcap}")
     g = h // n_kv
     if g > MAX_GROUP or g * hd > MAX_GROUP_DIMS:
         raise ValueError(f"decode_attention kernel takes at most "
@@ -94,7 +102,8 @@ def decode_attention_cuda(q, k_cache, v_cache, bias):
                       device=q.device) if splits > 1 else o)
     KERNEL.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                   bias.data_ptr(), ws.data_ptr(), o.data_ptr(), b, s, h,
-                  n_kv, hd, span, 1.0 / math.sqrt(hd), DTYPES[q.dtype])
+                  n_kv, hd, span, 1.0 / math.sqrt(hd), float(softcap),
+                  DTYPES[q.dtype])
     return o
 
 

@@ -5,7 +5,13 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention_kernel``, body ``_kernel``): causal and sliding-window
 masks with whole-tile skips, GQA by mapping q head ``h`` to kv head ``h
 // G`` (no K/V repeated in device memory), q right-aligned against the
-kv sequence, float32 softmax state and accumulator.
+kv sequence, float32 softmax state and accumulator. Without a mask
+(``causal=False``, no window: an encoder's self-attention, a decoder's
+cross-attention onto its encoder's frames) Sq and Skv are free. A
+logit soft-cap (``softcap > 0``, which the Pallas kernel lacks and the
+reference's model layer applies in jnp) caps each scaled score as
+``tanh(s / softcap) * softcap`` before the mask, in instances of their
+own, so the instances without a cap are unchanged.
 
 Bound on the H100: operations from ~128 tokens up, bytes below. The
 bfloat16 instance (every served config) runs both products on the
@@ -31,7 +37,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._build import (F, I, P, CudaKernel, check_aligned,
                                         check_cuda)
 
-KERNEL = CudaKernel("flash_attention", [P] * 4 + [I] * 9 + [F, I])
+KERNEL = CudaKernel("flash_attention", [P] * 4 + [I] * 9 + [F, F, I])
 
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -39,17 +45,20 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def plain(q, k, v, *, causal: bool = True, window: int = 0):
+def plain(q, k, v, *, causal: bool = True, window: int = 0,
+          softcap: float = 0.0):
     """The plain version (a CPU tensor takes it): exact attention,
     ``ref.attention_ref``."""
-    return ref.attention_ref(q, k, v, causal=causal, window=window)
+    return ref.attention_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                         softcap: float = 0.0):
     """Launch the CUDA kernel. ``q``: (B, Sq, H, hd); ``k``/``v``: (B,
     Skv, KV, hd), one dtype (float32 or bfloat16), contiguous, H a
-    multiple of KV, hd in ``HEAD_DIMS``. Returns (B, Sq, H, hd) in q's
-    dtype."""
+    multiple of KV, hd in ``HEAD_DIMS``; ``softcap`` >= 0 (0: none).
+    Returns (B, Sq, H, hd) in q's dtype."""
     b, sq, h, hd = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     if q.dtype not in DTYPES:
@@ -60,6 +69,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
                          f" got {hd}")
     if n_kv < 1 or h % n_kv:
         raise ValueError(f"{h} q heads are not a multiple of {n_kv} kv heads")
+    if not softcap >= 0:
+        raise ValueError(f"softcap must be >= 0, got {softcap}")
     check_cuda("q", q, q.dtype)
     check_cuda("k", k, q.dtype, (b, skv, n_kv, hd))
     check_cuda("v", v, q.dtype, (b, skv, n_kv, hd))
@@ -67,7 +78,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     o = torch.empty_like(q)
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b,
                   sq, skv, h, n_kv, hd, int(bool(causal)), int(window),
-                  skv - sq, 1.0 / math.sqrt(hd), DTYPES[q.dtype])
+                  skv - sq, 1.0 / math.sqrt(hd), float(softcap),
+                  DTYPES[q.dtype])
     return o
 
 

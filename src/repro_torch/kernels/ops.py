@@ -69,10 +69,12 @@ def dqn_head(active, member, end_b, agg, params, allowed, acc_table, *,
               acc_table, threshold=threshold, topk=topk)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
     """Prefill attention. q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) ->
-    (B, Sq, H, hd), q right-aligned against the kv sequence; see
-    ``ref.attention_ref``."""
+    (B, Sq, H, hd), q right-aligned against the kv sequence, each scaled
+    score capped as ``tanh(s / softcap) * softcap`` where ``softcap >
+    0``; see ``ref.attention_ref``."""
     if is_fake(q):
         b, sq, h, hd = q.shape
         record_cost("flash_attention", *_flash_attention.cost(
@@ -81,16 +83,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         return torch.empty_like(q)
     fn = _flash_attention.plain if _route(q) == "cpu" else \
         _flash_attention.flash_attention_cuda
-    return fn(q, k, v, causal=causal, window=window)
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap)
 
 
 def decode_attention(q, k_cache, v_cache, kv_pos, cur_pos, *,
-                     window: int = 0):
+                     window: int = 0, softcap: float = 0.0):
     """One query token against a cache. q: (B, H, hd); caches: (B, S,
     KV, hd); kv_pos: (B, S) absolute position of each slot (-1 empty);
     cur_pos: (B,). A slot attends iff ``0 <= kv_pos <= cur_pos`` (and
     ``kv_pos > cur_pos - window`` with a window), carried into the
-    kernel as an additive float32 bias row."""
+    kernel as an additive float32 bias row; ``softcap > 0`` caps each
+    scaled score before the bias."""
     if is_fake(q):
         b, h, hd = q.shape
         record_cost("decode_attention", *_decode_attention.cost(
@@ -102,7 +105,7 @@ def decode_attention(q, k_cache, v_cache, kv_pos, cur_pos, *,
     bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
     fn = _decode_attention.plain if _route(q) == "cpu" else \
         _decode_attention.decode_attention_cuda
-    return fn(q, k_cache, v_cache, bias)
+    return fn(q, k_cache, v_cache, bias, softcap)
 
 
 def int8_matmul(x_q, sx, w_q, sw, *, out_dtype=torch.float32):

@@ -16,18 +16,22 @@ NEG_INF = -1e30
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                  bias=None):
+                  bias=None, softcap: float = 0.0):
     """Naive exact attention in float32. q: (B, Sq, H, hd); k, v: (B,
     Skv, KV, hd) with H = KV * G (q head h reads kv head h // G). q is
     right-aligned against the kv sequence; ``window > 0`` keeps kv_pos in
     (q_pos - window, q_pos]; ``bias``: (B, Skv) additive (invalid cache
-    slots). Returns q's dtype."""
+    slots); ``softcap > 0`` caps each scaled score as ``tanh(s / softcap)
+    * softcap`` before the mask and the bias, as the reference's model
+    layer does. Returns q's dtype."""
     b, sq, h, hd = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     g = h // n_kv
     qg = q.reshape(b, sq, n_kv, g, hd).float()
     s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
     s = s * (1.0 / math.sqrt(hd))
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
     q_pos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
     kv_pos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
@@ -43,10 +47,11 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return o.reshape(b, sq, h, hd).to(q.dtype)
 
 
-def decode_attention_ref(q, k_cache, v_cache, bias):
-    """q: (B, H, hd); caches: (B, S, KV, hd); bias: (B, S) additive."""
+def decode_attention_ref(q, k_cache, v_cache, bias, softcap: float = 0.0):
+    """q: (B, H, hd); caches: (B, S, KV, hd); bias: (B, S) additive;
+    ``softcap`` as in ``attention_ref``."""
     return attention_ref(q[:, None], k_cache, v_cache, causal=False,
-                         bias=bias)[:, 0]
+                         bias=bias, softcap=softcap)[:, 0]
 
 
 def int8_matmul_ref(x_q, sx, w_q, sw):

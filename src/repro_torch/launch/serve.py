@@ -66,6 +66,12 @@ def build_engines(cfg, variants=("d0", "d4", "d7"), max_len: int = 64,
         raise ValueError(f"{cfg.name!r} is a VLM: its prefill takes image "
                          "embeddings, which an engine's tokens-only requests "
                          "lack; serve it through Model.prefill / decode")
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.name!r} is an encoder-decoder: its prefill "
+                         "takes the encoder's frames, which an engine's "
+                         "tokens-only requests lack (the reference's engine "
+                         "passes tokens only too); serve it through "
+                         "Model.prefill / decode")
     dev = resolve_device(device)
     ladder = build_ladder(cfg)
     engines = {"S": {}, "E": {}, "C": {}}

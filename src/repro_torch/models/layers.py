@@ -119,17 +119,18 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
                       softcap: float = 0.0):
     """Online-softmax attention over the full sequence through
     ``ops.flash_attention`` (K3), q right-aligned against the kv
-    sequence. ``window > 0`` keeps kv_pos in (q_pos - window, q_pos].
+    sequence. ``window > 0`` keeps kv_pos in (q_pos - window, q_pos];
+    ``causal=False`` keeps every kv position (an encoder's
+    self-attention, a decoder's cross-attention, Sq and Skv free);
+    ``softcap > 0`` caps each scaled score as ``tanh(s / softcap) *
+    softcap`` before the mask.
 
     The reference's jnp mirror rounds the probabilities to the value
     dtype before the PV product, and so does the bf16 kernel (its PV
     product runs on the tensor cores); the float32 kernel and the plain
     version keep them in float32 (equal in float32 models)."""
-    if softcap:
-        raise NotImplementedError(
-            "logit soft-capping needs a kernel variant the port does not "
-            "have yet (ROADMAP queue 1, other architectures)")
-    return ops.flash_attention(q, k, v, causal=causal, window=window)
+    return ops.flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
 
 
 def local_banded_attention(q, k, v, *, window: int, softcap: float = 0.0):
@@ -138,11 +139,8 @@ def local_banded_attention(q, k, v, *, window: int, softcap: float = 0.0):
     block-locally in jnp (each window-long block against itself and the
     block before); here it is the same function of K3 with its window,
     whose whole-tile skips give the banded cost."""
-    if softcap:
-        raise NotImplementedError(
-            "logit soft-capping needs a kernel variant the port does not "
-            "have yet (ROADMAP queue 1, other architectures)")
-    return ops.flash_attention(q, k, v, causal=True, window=window)
+    return ops.flash_attention(q, k, v, causal=True, window=window,
+                               softcap=softcap)
 
 
 def decode_attention(q, k_cache, v_cache, kv_pos, cur_pos, *,
@@ -152,13 +150,9 @@ def decode_attention(q, k_cache, v_cache, kv_pos, cur_pos, *,
 
     q: (B, 1, H, hd); caches: (B, Sc, KV, hd); kv_pos: (B, Sc) absolute
     position of each slot (-1 = empty); cur_pos: (B,) position of the
-    new token."""
-    if softcap:
-        raise NotImplementedError(
-            "logit soft-capping needs a kernel variant the port does not "
-            "have yet (ROADMAP queue 1, other architectures)")
+    new token; ``softcap`` as in ``chunked_attention``."""
     o = ops.decode_attention(q[:, 0], k_cache, v_cache, kv_pos, cur_pos,
-                             window=window)
+                             window=window, softcap=softcap)
     return o[:, None]
 
 

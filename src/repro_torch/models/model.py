@@ -1,6 +1,6 @@
-"""Model facade — the port of ``repro/models/model.py`` for the dense,
-state-space, hybrid, mixture-of-experts and vision-language decoder
-families:
+"""Model facade — the port of ``repro/models/model.py`` for every family
+of the reference (dense, state-space, hybrid, mixture-of-experts,
+vision-language and encoder-decoder):
 
     model = build_model(cfg)
     params = model.init(seed, device="cuda")
@@ -10,18 +10,25 @@ families:
 A ``vlm`` model's prefill also takes ``batch["img_embeds"]`` (B,
 n_img_tokens, d_model), the stub frontend's patch embeddings, as the
 reference's does; they go through ``proj_img`` and are prepended to the
-token embeddings, so positions and the cache's ``pos`` count them.
-Decode takes tokens only.
+token embeddings, so positions and the cache's ``pos`` count them. An
+``audio`` (encoder-decoder) model's prefill also takes
+``batch["frames"]`` (B, enc_seq, d_model), the stub frontend's frame
+embeddings: cast to ``cfg.dtype``, they run through the encoder (a
+dense stack of ``n_enc_layers`` layers, every position kept, and its
+final norm), whose output each decoder layer projects to its own cross
+K/V, kept in the cache as ``ck``/``cv``. Decode takes tokens only.
 
 Params are a plain dict: ``{"embed": {"w"}, "final_norm": {"g"},
 "segments": [[layer dict, ...], ...]}``, with ``lm_head`` where the
-embeddings are untied and ``proj_img`` in a ``vlm`` model
-(``convert.model_params`` carries the reference's stacked params
-across). The training loss comes with the training slice (ROADMAP queue
-1).
+embeddings are untied, ``proj_img`` in a ``vlm`` model and ``encoder``
+(``{"segments", "final_norm"}``) in an encoder-decoder, whose decoder
+layers also hold ``cross`` and ``ln_cross`` (``convert.model_params``
+carries the reference's stacked params across). The training loss is
+still to port (ROADMAP queue 1).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -37,6 +44,13 @@ class Model:
         T.check_supported(cfg)
         self.cfg = cfg
         self.segments = T.segments_of(cfg)
+        self.enc_cfg, self.enc_segments = None, ()
+        if cfg.is_encdec:     # the encoder: dense, every layer global
+            self.enc_cfg = dataclasses.replace(
+                cfg, n_layers=cfg.n_enc_layers, attn_pattern="full",
+                global_layers=(), global_interval=0, moe=None, ssm=None,
+                arch_type="dense")
+            self.enc_segments = T.segments_of(self.enc_cfg)
 
     # ---------------- init ----------------
     def init(self, seed: int = 0, device=None):
@@ -59,7 +73,7 @@ class Model:
                                         generator=gen, device=dev)
                             * cfg.d_model ** -0.5).to(L.dt(cfg.dtype))},
             "final_norm": L.init_rmsnorm(cfg.d_model, dev),
-            "segments": [T.init_segment(gen, cfg, seg)
+            "segments": [T.init_segment(gen, cfg, seg, cross=cfg.is_encdec)
                          for seg in self.segments],
         }
         if not cfg.tie_embeddings:
@@ -69,6 +83,11 @@ class Model:
         if cfg.arch_type == "vlm":
             params["proj_img"] = L.init_linear(gen, cfg.d_model, cfg.d_model,
                                                L.dt(cfg.dtype))
+        if cfg.is_encdec:
+            params["encoder"] = {
+                "segments": [T.init_segment(gen, self.enc_cfg, seg)
+                             for seg in self.enc_segments],
+                "final_norm": L.init_rmsnorm(cfg.d_model, dev)}
         return params
 
     # ---------------- shared pieces ----------------
@@ -89,6 +108,17 @@ class Model:
             x = torch.cat([img, x], dim=1)
         return x
 
+    def _encode(self, params, frames):
+        """The encoder over ``frames`` (B, enc_seq, d_model), cast to
+        ``cfg.dtype``: every position kept, RoPE at ``arange(enc_seq)``,
+        then the encoder's final norm. Returns (B, enc_seq, d_model)."""
+        x = frames.to(L.dt(self.cfg.dtype))
+        x, _ = T.run_stack_full(self.enc_segments,
+                                params["encoder"]["segments"], x,
+                                self.enc_cfg, None, causal=False)
+        return L.rmsnorm(params["encoder"]["final_norm"], x,
+                         self.cfg.rms_norm_eps)
+
     def _logits(self, params, x):
         x = L.rmsnorm(params["final_norm"], x, self.cfg.rms_norm_eps)
         if self.cfg.tie_embeddings:
@@ -98,21 +128,27 @@ class Model:
     # ---------------- prefill ----------------
     def prefill(self, params, batch, *, max_len: Optional[int] = None):
         """Run the full prompt (behind its image prefix in a ``vlm``
-        model); return (last-token logits (B, 1, Vp), decode cache)."""
+        model, cross-attending the encoded ``batch["frames"]`` in an
+        encoder-decoder); return (last-token logits (B, 1, Vp), decode
+        cache)."""
         x = self._inputs_full(params, batch)
         s_total = x.shape[1]
         max_len = max_len or s_total
         positions = torch.arange(s_total, device=x.device)[None, :]
+        cross_src = self._encode(params, batch["frames"]) \
+            if self.cfg.is_encdec else None
         x, seg_ys = T.run_stack_full(self.segments, params["segments"], x,
-                                     self.cfg, positions, want_cache=True)
+                                     self.cfg, positions,
+                                     cross_src=cross_src, want_cache=True)
         logits = self._logits(params, x[:, -1:])
         return logits, self._cache_from_prefill(seg_ys, s_total, max_len)
 
     def _cache_from_prefill(self, seg_ys, s: int, max_len: int):
         """The last ``min(s, Sc)`` positions of each layer's K/V go to
         ring slots ``arange(s - n_keep, s) % Sc``; the rest stays zero.
-        A Mamba layer's ``conv`` window and ``h`` state carry over as
-        they are; a pure-SSM segment has no K/V."""
+        A Mamba layer's ``conv`` window and ``h`` state and an
+        encoder-decoder's cross K/V (``ck``/``cv``) carry over as they
+        are; a pure-SSM segment has no K/V."""
         segs = []
         for seg, ys in zip(self.segments, seg_ys):
             c = {}
@@ -126,6 +162,8 @@ class Model:
                                          device=kv.device) % sc
                     buf[:, :, slots] = kv[:, :, s - n_keep:]
                     c[name] = buf
+            if "ck" in ys:
+                c["ck"], c["cv"] = ys["ck"], ys["cv"]
             if "conv" in ys:
                 c["conv"], c["h"] = ys["conv"], ys["h"]
             segs.append(c)

@@ -13,7 +13,10 @@ multiple of 32), M = 1, in float32 and bfloat16, and a row-major weight
 refused, also batched over experts in one launch (Granite d4's shapes);
 the mixture-of-experts block card vs CPU; K3 and K4 at head_dim 128 and
 256 (bf16 and float32, every compiled group, the 161 KB launch, also
-on a second card where there is one), and
+on a second card where there is one); K3 without a mask over Whisper's
+1,500 frames (the float32 instance also at 3x scale against float64),
+K4 over its 1,500-slot cross cache, both with a logit soft-cap, and
+Whisper's 2-layer full-width cut card vs CPU; and
 DBRX's 2-layer full-width cut generating on the card; the
 selective scan at one step, 4,096 steps, state sizes 5, 8 and 16,
 channel counts that are no block multiple and both splits of a channel's
@@ -457,6 +460,173 @@ def test_decode_attention_refuses_16_heads_of_256(cuda):
     with pytest.raises(ValueError, match="G\\*hd"):
         decode_attention.decode_attention_cuda(q, kc, kc, bias)
     assert decode_attention.KERNEL.launches == before
+
+
+#: (b, sq, skv, h, kv, hd, causal, window, softcap) of K3 on the
+#: encoder-decoder path and with a logit soft-cap: Whisper's encoder
+#: (1,500 frames, the last kv tile 28 rows) and its cross-attention (a
+#: 64-token prompt onto the 1,500 frames), no mask; soft-capped causal,
+#: windowed (Gemma3's 8/4 heads of 256 past a window that skips whole
+#: tiles), non-causal with Sq < Skv, and head dims 16-128
+ENCDEC_FLASH_CASES = (
+    (2, 1500, 1500, 16, 16, 64, False, 0, 0.0),   # Whisper's encoder
+    (2, 64, 1500, 16, 16, 64, False, 0, 0.0),     # its cross-attention
+    (1, 37, 1500, 4, 4, 64, False, 0, 0.0),       # a ragged prompt
+    (2, 100, 100, 4, 2, 64, True, 0, 50.0),       # capped, causal
+    (1, 300, 300, 8, 4, 256, True, 128, 50.0),    # capped, a window
+    (2, 70, 200, 4, 2, 128, False, 0, 5.0),       # capped, Sq < Skv
+    (3, 33, 33, 5, 5, 16, True, 0, 2.0),          # capped, head dim 16
+    (2, 64, 150, 8, 8, 32, False, 0, 2.0),        # capped, head dim 32
+)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd,causal,window,softcap",
+                         ENCDEC_FLASH_CASES)
+def test_flash_attention_encdec_and_softcap_match_plain(
+        cuda, dtype, b, sq, skv, h, kv, hd, causal, window, softcap):
+    """K3 without a mask over Whisper's 1,500 frames (Sq = Skv and Sq <
+    Skv) and with a soft-cap (its own instances: tanhf before the mask)
+    against the plain version. Unit-scale inputs, as every K3 card test
+    draws (the float32 tolerance holds for them; scaled-up inputs scale
+    the float32 rounding with them): scaled scores ~N(0, 1), so a cap
+    of 2 bends most of them and one of 50 the tails."""
+    g = torch.Generator(device=cuda).manual_seed(sq + skv + hd)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, sq, h, hd), (b, skv, kv, hd),
+                             (b, skv, kv, hd)))
+    before = flash_attention.KERNEL.launches
+    got = flash_attention.flash_attention_cuda(
+        q, k, v, causal=causal, window=window, softcap=softcap)
+    want = flash_attention.plain(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+    torch.cuda.synchronize()
+    assert flash_attention.KERNEL.launches == before + 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("sq", [1500, 64])
+def test_flash_attention_f32_long_kv_at_3x_scale_against_float64(cuda, sq):
+    """The float32 K3 over Whisper's 1,500 frames (its encoder, Sq =
+    1,500, and its cross-attention, Sq = 64; no mask, 24 kv tiles, the
+    last of 28 rows) on inputs drawn at 3x scale (scaled scores ~N(0,
+    81)), where the float32 rounding of the scores grows with them: the
+    kernel and the plain version are both held against exact attention
+    taken in float64 from the same float32 inputs, and the kernel's
+    error may be no more than 4 times the plain version's, so that its
+    online softmax over the long kv loses no accuracy of its own."""
+    g = torch.Generator(device=cuda).manual_seed(sq)
+    b, h, hd, skv = 2, 16, 64, 1500
+    q, k, v = (3 * torch.randn(shape, generator=g, device=cuda)
+               for shape in ((b, sq, h, hd), (b, skv, h, hd),
+                             (b, skv, h, hd)))
+    s = torch.einsum("bqhd,bshd->bhqs", q.double(), k.double()) / hd ** 0.5
+    exact = torch.einsum("bhqs,bshd->bqhd", torch.softmax(s, -1),
+                         v.double())
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=False)
+    want = flash_attention.plain(q, k, v, causal=False)
+    kernel_err = float((got.double() - exact).abs().max())
+    plain_err = float((want.double() - exact).abs().max())
+    print(f"K3 float32 3x, Sq={sq} Skv={skv}: kernel {kernel_err:.3e}, "
+          f"plain {plain_err:.3e} from float64")
+    assert kernel_err <= 4 * plain_err
+
+
+#: (b, h, kv, hd, s, softcap) of K4 over Whisper's cross cache (1,500
+#: frames, every slot valid: 24 tiles, the last partial) and with a
+#: soft-cap over a half-written cache, at every compiled group
+ENCDEC_DECODE_CASES = (
+    (16, 16, 16, 64, 1500, 0.0),                  # Whisper's cross cache
+    (2, 16, 16, 64, 1500, 0.0),                   # ... at batch 2: splits
+    (4, 8, 2, 64, 300, 50.0),                     # capped, G = 2
+    (2, 16, 16, 64, 1500, 5.0),                   # capped cross cache
+    (2, 48, 8, 128, 1000, 2.0),                   # capped, G = 6
+    (1, 16, 1, 128, 200, 2.0),                    # capped, G = 16
+    (2, 8, 4, 256, 528, 50.0),                    # capped, head dim 256
+)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,kv,hd,s,softcap", ENCDEC_DECODE_CASES)
+def test_decode_attention_cross_cache_and_softcap_match_plain(
+        cuda, dtype, b, h, kv, hd, s, softcap):
+    """K4 over a cross cache (every slot valid, ``cur_pos`` = S, as the
+    decoder reads its encoder's frames) and with a soft-cap (after the
+    scaled dot product, before the bias) against the plain version, on
+    unit-scale inputs as every K4 card test."""
+    g = torch.Generator(device=cuda).manual_seed(s + h + hd)
+    q = torch.randn((b, h, hd), generator=g, device=cuda).to(dtype)
+    kc, vc = (torch.randn((b, s, kv, hd), generator=g, device=cuda)
+              .to(dtype) for _ in range(2))
+    idx = torch.arange(s, device=cuda)[None].repeat(b, 1)
+    if h == kv:                                   # the cross cache
+        cur = torch.full((b,), s, device=cuda)
+        kv_pos = idx
+    else:
+        cur = torch.randint(s // 2, s, (b,), generator=g, device=cuda)
+        kv_pos = idx.masked_fill(idx > cur[:, None], -1)
+    before = decode_attention.KERNEL.launches
+    got = ops.decode_attention(q, kc, vc, kv_pos, cur, softcap=softcap)
+    valid = (kv_pos >= 0) & (kv_pos <= cur[:, None])
+    want = decode_attention.plain(q, kc, vc, torch.where(valid, 0.0, -1e30),
+                                  softcap)
+    torch.cuda.synchronize()
+    assert decode_attention.KERNEL.launches == before + 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("vid", ["d0", "d4"])
+def test_whisper_cut_on_the_card_matches_the_cpu(cuda, vid):
+    """Whisper at full width (16/16 heads of 64, d_model 1,024) cut to 2
+    encoder and 2 decoder layers over 300 frames: the card's prefill
+    (K3 non-causal in the encoder and the cross blocks, causal in the
+    decoder; K5 in d4) and two decode steps (K4 over the self and the
+    cross cache) against the CPU's plain path on the same weights,
+    within the bf16 tolerance of the smoke's agreement phases."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.variants import build_ladder
+    cfg = build_ladder(dataclasses.replace(
+        get_config("whisper-medium"), n_layers=2, n_enc_layers=2,
+        enc_seq=300))[vid].cfg
+    m = build_model(cfg)
+    p = m.init(0, device=cuda)
+    p_cpu = _tree_cpu(p)
+    rng = np.random.default_rng(1)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 24)).astype(
+        np.int32))
+    frames = torch.tensor(rng.standard_normal(
+        (2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    k3, k4 = flash_attention.KERNEL.launches, decode_attention.KERNEL.launches
+    with torch.inference_mode():
+        lg, cg = m.prefill(p, {"tokens": toks.to(cuda),
+                               "frames": frames.to(cuda)}, max_len=32)
+        lc, cc = m.prefill(p_cpu, {"tokens": toks, "frames": frames},
+                           max_len=32)
+        assert flash_attention.KERNEL.launches == k3 + 2 + 2 * 2
+        for _ in range(2):
+            torch.testing.assert_close(lg.float().cpu(), lc.float(),
+                                       atol=0.125, rtol=1e-2)
+            cur = lc[:, -1:, :cfg.vocab_size].float().argmax(-1).int()
+            lg, cg = m.decode(p, cg, cur.to(cuda))
+            lc, cc = m.decode(p_cpu, cc, cur)
+    torch.testing.assert_close(lg.float().cpu(), lc.float(), atol=0.125,
+                               rtol=1e-2)
+    assert decode_attention.KERNEL.launches == k4 + 2 * 2 * 2
+    torch.testing.assert_close(cg["segments"][0]["ck"].float().cpu(),
+                               cc["segments"][0]["ck"].float(), atol=0.125,
+                               rtol=1e-2)
+
+
+def _tree_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_cpu(v) for v in tree]
+    return tree.cpu()
 
 
 def _int8_args(cuda, m, k, n):

@@ -188,6 +188,11 @@ def test_local_banded_attention_matches_reference(dtype, b, s, h, kv, hd,
                                             for a in arrs), window=window)
     tol = {"float32": 2e-5, "bfloat16": 2e-2}[dtype]
     _close(got, want, dict(atol=tol, rtol=tol))
-    with pytest.raises(NotImplementedError, match="soft-capping"):
-        layers.local_banded_attention(*(torch.tensor(a) for a in arrs),
-                                      window=window, softcap=30.0)
+    # with a logit soft-cap (the reference's jnp band at the same cap)
+    got = layers.local_banded_attention(*(torch.tensor(a).to(tdt)
+                                          for a in arrs), window=window,
+                                        softcap=30.0)
+    want = jlayers.local_banded_attention(*(jnp.asarray(a).astype(jdt)
+                                            for a in arrs), window=window,
+                                          softcap=30.0)
+    _close(got, want, dict(atol=tol, rtol=tol))

@@ -14,8 +14,11 @@ parent compare within one call as parent, change, change, parent:
 
 For every bf16 case of ``chip_smoke.py``'s ``FLASH_CASES`` (causal, with
 its window) and ``DECODE_CASES`` (a random 30% of slots masked by the
-bias), one JSON line per tree: ``{"src": ..., "<kernel> <layout> <S>":
-[warm ms, cold ms, max abs error against the plain version]}``; warm and
+bias), and of its dense, VLM and encoder-decoder paths' cases without a
+soft-cap (``DENSE_*``, ``VLM_*``, ``AUDIO_*``: head_dim 64-256, Sq and
+Skv apart, no causal mask), one JSON line per tree: ``{"src": ...,
+"<kernel> <layout> <S>": [warm ms, cold ms, max abs error against the
+plain version]}``; warm and
 cold as ``chip_smoke.timed`` and ``chip_smoke.cold_ms`` take them (CUDA
 events with the launch hidden, ``hidden_ms``; cold with the L2 flushed
 before each call).
@@ -67,14 +70,19 @@ def run_tree(src):
         ms, _, _ = cs.timed(f)
         return [ms, cs.cold_ms(f), err]
     out = {"src": src}
-    for name, b, s, h, kv, hd, w in cs.FLASH_CASES:
+    for case in (cs.FLASH_CASES + cs.DENSE_FLASH_CASES + cs.VLM_FLASH_CASES
+                 + cs.AUDIO_FLASH_CASES):
+        name, b, s, skv, h, kv, hd, w, causal, _ = case
         q, k, v = (torch.randn(shape, generator=g, device="cuda").bfloat16()
-                   for shape in ((b, s, h, hd), (b, s, kv, hd),
-                                 (b, s, kv, hd)))
+                   for shape in ((b, s, h, hd), (b, skv, kv, hd),
+                                 (b, skv, kv, hd)))
         out[f"flash_attention {name} {s}"] = reading(
-            lambda: fa.flash_attention_cuda(q, k, v, window=w),
-            fa.plain(q, k, v, window=w))
-    for name, b, sc, h, kv, hd, _ in cs.DECODE_CASES:
+            lambda: fa.flash_attention_cuda(q, k, v, causal=causal,
+                                            window=w),
+            fa.plain(q, k, v, causal=causal, window=w))
+    for name, b, sc, h, kv, hd, *_ in (
+            cs.DECODE_CASES + cs.DENSE_DECODE_CASES + cs.VLM_DECODE_CASES
+            + tuple(c for c in cs.AUDIO_DECODE_CASES if not c[-1])):
         q = torch.randn((b, h, hd), generator=g, device="cuda").bfloat16()
         kc, vc = (torch.randn((b, sc, kv, hd), generator=g, device="cuda")
                   .bfloat16() for _ in range(2))

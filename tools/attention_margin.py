@@ -32,7 +32,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def flash_errors(torch, cs, fa, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
     out = {}
-    for name, b, s, h, kv, hd, window in cs.FLASH_CASES:
+    for name, b, s, _, h, kv, hd, window, _, _ in cs.FLASH_CASES:
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
             q, k, v = (torch.randn(shape, generator=g, device="cuda")
