@@ -208,7 +208,8 @@ OUR_KERNELS = ("tabular_rl_kernel", "dqn_head_kernel",
                "flash_attention_f32_kernel",
                "decode_partial_kernel",
                "decode_merge_kernel", "int8_matmul_kernel",
-               "selective_scan_kernel")
+               "selective_scan_kernel", "flash_bwd_dot_kernel",
+               "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 
 
 #: the script's start; every line gives its seconds since (``t_s``)
@@ -682,12 +683,13 @@ def instance_regs(ptxas, *parts):
     return hits[0] if len(hits) == 1 else None
 
 
-def flash_regs(ptxas, dtype, hd, cap=False):
+def flash_regs(ptxas, dtype, hd, cap=False, lse=False):
     """The ptxas line of K3's instance for ``dtype`` at head dim ``hd``,
-    with or without the soft-cap."""
+    with or without the soft-cap, serving or writing the row log-sum-exp
+    (``lse``, training)."""
     kind = "tc" if dtype == "bfloat16" else "f32"
-    return instance_regs(ptxas, "flash_attention_%s_kernelILi%dELb%dE"
-                         % (kind, hd, int(bool(cap))))
+    return instance_regs(ptxas, "flash_attention_%s_kernelILi%dELb%dELb%dE"
+                         % (kind, hd, int(bool(cap)), int(bool(lse))))
 
 
 def decode_regs(ptxas, dtype, hd, g, cap=False):
@@ -3674,6 +3676,347 @@ def fleet_sharded(torch, R, kernels):
         f"rank{r}": b["launches"] for r, b in enumerate(blocks)})
 
 
+# --------------------------------------------------------- training ----
+#: K3's forward with the row log-sum-exp and its backward P2 at the
+#: training shapes: (name, batch, Sq, Skv, heads, kv heads, head_dim,
+#: window, causal, cap). Granite-3.0-1B-A400M at the lm_training phase's 8
+#: x 2,048; the edge ladder at 8 x 256; Whisper's encoder over 1,500
+#: frames and its decoder's cross-attention from 64 tokens onto them (no
+#: mask); InternLM2-20B at 4 x 2,048 (48/8 heads of 128); Gemma3-4B's
+#: sliding layers, window 1,024 over 2,048 at head_dim 256, with and
+#: without a cap of 50
+BWD_CASES = (
+    ("granite", 8, 2048, 2048, 16, 8, 64, 0, True, 0.0),
+    ("edge ladder", 8, 256, 256, 8, 4, 32, 0, True, 0.0),
+    ("whisper encoder", 8, 1500, 1500, 16, 16, 64, 0, False, 0.0),
+    ("whisper cross", 8, 64, 1500, 16, 16, 64, 0, False, 0.0),
+    ("internlm2", 4, 2048, 2048, 48, 8, 128, 0, True, 0.0),
+    ("gemma3 window", 8, 2048, 2048, 8, 4, 256, 1024, True, 0.0),
+    ("gemma3 window capped", 8, 2048, 2048, 8, 4, 256, 1024, True,
+     SOFTCAP),
+)
+#: (atol, rtol) of the backward against ``plain_backward`` on the same
+#: forward output and lse: bf16, one rounding of each output (2^-8
+#: relative) over sums of up to 2,048 terms taken in another order;
+#: float32, the sums' order alone
+BWD_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}
+#: the rows' log-sum-exp against ``plain_with_lse``: float32 sums of up
+#: to 2,048 exponentials (``ex2.approx`` in the bf16 instance)
+LSE_TOL = 1e-3
+#: the training steps of ``training_cpu_agreement``: (what, batch, seq)
+TRAIN_AGREE = (("edge ladder", 8, 256), ("granite 2 layers", 4, 256),
+               ("whisper 2+2 layers", 2, 64))
+#: (atol, rtol) of the card's step against the CPU's, both bf16 from the
+#: same params and batch: the loss (~ln V, a mean over every token), the
+#: aux loss (a Switch balance term: one token whose top expert flips on a
+#: bf16 tie moves its load share by 1 / (B S)), the gradients' global norm
+#: (bf16 gradients summed in another order on each device)
+TRAIN_TOL = {"loss": (0.0, 2e-3), "aux_loss": (0.0, 2e-2),
+             "grad_norm": (0.0, 5e-2)}
+LM_STEPS, LM_BATCH, LM_SEQ = 20, 8, 2048
+
+
+def bwd_regs(ptxas, dtype, hd, cap=False):
+    """[[registers, spill store, spill load bytes] of P2's dK/dV kernel,
+    the same of its dQ kernel] for ``dtype`` at head dim ``hd``."""
+    t = "I13__nv_bfloat16" if dtype == "bfloat16" else "If"
+    return [instance_regs(ptxas, "flash_bwd_%s_kernel%sLi%dELb%dE"
+                          % (kind, t, hd, int(bool(cap))))
+            for kind in ("dkdv", "dq")]
+
+
+def sdpa_backward(torch, q, k, v, do, causal, window):
+    """SDPA's backward alone, timed as P2's library counterpart: one
+    forward on leaf copies of q, k, v (the model's layout as transposed
+    views, GQA enabled, the case's mask), its graph retained, and a call
+    that runs ``torch.autograd.grad`` through it. Never on the path."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    sq, skv = q.shape[1], k.shape[1]
+    if window:
+        qp = torch.arange(sq, device="cuda")[:, None] + (skv - sq)
+        kp = torch.arange(skv, device="cuda")[None, :]
+        kw = {"attn_mask": (kp <= qp) & (kp > qp - window)}
+    else:
+        kw = {"is_causal": causal}
+    out = sdpa(torch, *leaves, **kw).transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def flex_backward(torch, q, k, v, do, cap, causal, window):
+    """Compiled ``flex_attention``'s backward alone (the cap as its
+    ``score_mod``, the mask as its block mask), timed as a capped case's
+    library counterpart; never on the path."""
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = capped_library(torch, *leaves, cap, causal=causal,
+                         window=window)()
+    return lambda: torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+
+def attention_backward(torch, flash_attention, ptxas):
+    """K3's ``kLse`` instances and P2 at every case of ``BWD_CASES``, bf16
+    and float32: the output bit-equal to the serving instance's, the rows'
+    log-sum-exp against ``plain_with_lse``, dq / dk / dv against
+    ``plain_backward`` on the same output and lse (``BWD_TOL``, reported
+    as the limit share). bf16 timed: P2 warm and cold, its bound
+    (``cost_backward`` at the bf16 tensor cores' peak), the plain
+    version, and the library's backward alone (SDPA's; a capped case
+    compiled ``flex_attention``'s); each line with the registers and
+    spills of P2's two kernels. Returns the kernels-line entry
+    (Granite's bf16 case)."""
+    g = torch.Generator(device="cuda").manual_seed(25)
+    errs, main = [], None
+    for name, b, sq, skv, h, kv, hd, window, causal, cap in BWD_CASES:
+        kw = dict(causal=causal, window=window, softcap=cap)
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
+                           .to(dt) for shape in ((b, sq, h, hd),
+                                                 (b, skv, kv, hd),
+                                                 (b, skv, kv, hd),
+                                                 (b, sq, h, hd)))
+            o, lse = flash_attention.flash_attention_cuda(q, k, v, lse=True,
+                                                          **kw)
+            serving = flash_attention.flash_attention_cuda(q, k, v, **kw)
+            _, want_lse = flash_attention.plain_with_lse(q, k, v, **kw)
+            got = flash_attention.flash_attention_backward_cuda(
+                q, k, v, o, lse, do, **kw)
+            want = flash_attention.plain_backward(q, k, v, o, lse, do, **kw)
+            torch.cuda.synchronize()
+            what = f"attention backward {name} {dtype}"
+            check(torch.equal(o, serving),
+                  f"{what}: the lse instance's output is not the serving "
+                  "instance's")
+            lse_err = float((lse - want_lse).abs().max())
+            check(lse_err <= LSE_TOL, f"{what}: lse error {lse_err}")
+            atol, rtol = BWD_TOL[dtype]
+            shares = {n: limit_share(x.float(), y.float(), atol, rtol)
+                      for n, x, y in zip(("dq", "dk", "dv"), got, want)}
+            grad_err = max(float((x.float() - y.float()).abs().max())
+                           for x, y in zip(got, want))
+            check(max(shares.values()) <= 1.0,
+                  f"{what}: limit shares {shares}")
+            errs.append(grad_err)
+            del want
+            line = dict(phase="attention_backward", layout=name,
+                        shape=[b, sq, h, kv, hd], kv_len=skv, causal=causal,
+                        window=window, softcap=cap, dtype=dtype,
+                        o_equal_serving=True, lse_max_abs_err=lse_err,
+                        lse_tolerance=LSE_TOL, max_abs_err=grad_err,
+                        tolerance=[atol, rtol], limit_shares=shares,
+                        registers_spills=bwd_regs(ptxas, dtype, hd, cap))
+            if dtype != "bfloat16":         # checked, not timed
+                emit(**line)
+                continue
+
+            def call():
+                return flash_attention.flash_attention_backward_cuda(
+                    q, k, v, o, lse, do, **kw)
+            lib = (flex_backward(torch, q, k, v, do, cap, causal, window)
+                   if cap else sdpa_backward(torch, q, k, v, do, causal,
+                                             window))
+            ops_, nbytes = flash_attention.cost_backward(
+                b, sq, skv, h, kv, hd, 2, causal=causal, window=window)
+            b_ms, b_by = bound(nbytes, ops_, BF16_TC_OPS_PER_S)
+            ms = hidden_ms(call, reps=10)
+            row = dict(ms=ms, plain_ms=hidden_ms(
+                lambda: flash_attention.plain_backward(q, k, v, o, lse, do,
+                                                       **kw), reps=3),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=hidden_ms(lib, reps=10),
+                cold_ms=cold_ms(call, reps=5), library_cold_ms=cold_ms(
+                    lib, reps=5), bound_share=b_ms / ms,
+                forward_lse_ms=hidden_ms(
+                    lambda: flash_attention.flash_attention_cuda(
+                        q, k, v, lse=True, **kw), reps=10),
+                forward_ms=hidden_ms(
+                    lambda: flash_attention.flash_attention_cuda(
+                        q, k, v, **kw), reps=10))
+            emit(**line, library="flex_attention" if cap else "sdpa", **row)
+            if name == "granite":
+                main = row
+            del lib
+        del q, k, v, do, o, lse, serving, got
+        free_card(torch)
+    return dict(name="flash_attention_backward", route="cuda",
+                source="src/repro_torch/csrc/flash_attention_backward.cu",
+                replaces="none: port-only (the reference differentiates "
+                "its jnp mirrors with jax.grad, src/repro/models/"
+                "layers.py:107 chunked_attention, :164 "
+                "local_banded_attention)",
+                max_abs_err=max(errs), **{k: main[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")})
+
+
+def training_cuts(get_config):
+    """(what, config, batch, seq) of ``TRAIN_AGREE``: the edge ladder
+    whole, Granite at full width cut to 2 layers, Whisper at full width
+    cut to 2 encoder and 2 decoder layers over its 1,500 frames."""
+    edge = get_config("edge-ladder")
+    granite = dataclasses.replace(get_config(MOE_ARCH), n_layers=2)
+    whisper = dataclasses.replace(get_config(AUDIO_ARCH), n_layers=2,
+                                  n_enc_layers=2)
+    return [(what, cfg, b, s) for (what, b, s), cfg in
+            zip(TRAIN_AGREE, (edge, granite, whisper))]
+
+
+def training_cpu_agreement(torch, get_config, build_model, training,
+                           flash_attention):
+    """One ``make_train_step`` step on the card and on the CPU from the
+    same params (drawn on the card, copied) and batch, bf16 on both, for
+    each of ``training_cuts``: the loss, aux loss and gradient norm
+    within ``TRAIN_TOL`` (with their limit shares), and the K3 forward
+    and P2 launches of the card's step (the forward's include the
+    rematerialised layers' second run)."""
+    import numpy as np
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    opt = training.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=20)
+    for what, cfg, b, s in training_cuts(get_config):
+        model = build_model(cfg)
+        params = model.init(3, device="cuda")
+        p_cpu = tree_map(lambda t: t.to("cpu", copy=True), params)
+        for tree in (params, p_cpu):
+            for p in tree_leaves(tree):
+                p.requires_grad_(p.is_floating_point())
+        rng = np.random.default_rng(4)
+        batch = {"tokens": torch.tensor(rng.integers(
+            0, cfg.vocab_size, (b, s)).astype(np.int32))}
+        if cfg.is_encdec:
+            batch["frames"] = torch.tensor(rng.standard_normal(
+                (b, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+        step = training.make_train_step(model, opt)
+        f0 = flash_attention.KERNEL.launches
+        b0 = flash_attention.BACKWARD.launches
+        t0 = time.perf_counter()
+        _, card = step({"params": params,
+                        "opt": training.init_opt_state(params)},
+                       {k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = {"flash_attention": flash_attention.KERNEL.launches - f0,
+                    "flash_attention_backward":
+                        flash_attention.BACKWARD.launches - b0}
+        t0 = time.perf_counter()
+        _, cpu = step({"params": p_cpu, "opt": training.init_opt_state(
+            p_cpu)}, batch)
+        cpu_s = time.perf_counter() - t0
+        line = dict(phase="training_cpu_agreement", what=what,
+                    arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                    batch=b, seq=s, card_step_s=card_s, cpu_step_s=cpu_s,
+                    launches_a_step=launches, peak_gb=peak_gb(torch))
+        if cfg.is_encdec:
+            line.update(enc_layers=cfg.n_enc_layers, frames=cfg.enc_seq)
+        for key, (atol, rtol) in TRAIN_TOL.items():
+            a, c = float(card[key]), float(cpu[key])
+            share = abs(a - c) / (atol + rtol * abs(c)) if (atol or c) \
+                else 0.0
+            line[key] = [a, c]
+            line[key + "_limit_share"] = share
+            check(np.isfinite(a) and share <= 1.0,
+                  f"training {what}: card {key} {a} vs CPU {c}")
+        line["tolerance"] = {k: list(v) for k, v in TRAIN_TOL.items()}
+        check(launches["flash_attention"] > 0
+              and launches["flash_attention_backward"] > 0,
+              f"training {what}: K3 or P2 never launched: {launches}")
+        emit(**line)
+        del params, p_cpu, card, cpu
+        free_card(torch)
+
+
+def lm_training(torch, train_cli, load_pytree, tuning, kernels):
+    """``launch.train.main`` on Granite-3.0-1B-A400M at full size, 20 steps
+    at 8 x 2,048 with ``--save``: its loss lines (the last loss below the
+    first, every gradient norm finite), tokens/s, the card's peak memory
+    and the host's peak RSS, the saved params read back bit-equal; then,
+    on the trained state, a step's wall and device ms, its profile (top
+    kernels, the K3 forward's and P2's share, busy), and one step under
+    ``remat_policy="dots"`` (ms, peak). Returns the launches of
+    ``kernels`` in ``main`` alone: their counts are set to 0 just before
+    it and read just after."""
+    import contextlib
+    import io
+    import math
+    import re
+    import resource
+    import shutil
+    out_dir = os.path.join(ROOT, "build", "lm_training")
+    path = os.path.join(out_dir, "params")
+    free_card(torch)
+    buf = io.StringIO()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        run = train_cli.main(["--arch", MOE_ARCH, "--steps", str(LM_STEPS),
+                              "--batch", str(LM_BATCH), "--seq",
+                              str(LM_SEQ), "--save", path])
+    main_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    train_peak = peak_gb(torch)
+    lines = buf.getvalue().strip().splitlines()
+    steps = [re.match(r"step +(\d+) loss +(\S+) gnorm +(\S+) lr (\S+)", ln)
+             for ln in lines]
+    steps = [(int(m.group(1)), float(m.group(2)), float(m.group(3)),
+              float(m.group(4))) for m in steps if m]
+    check(len(steps) >= 2, f"lm_training printed no loss lines: {lines}")
+    check(all(math.isfinite(x[1]) and math.isfinite(x[2]) for x in steps),
+          f"lm_training: a loss or gradient norm is not finite: {steps}")
+    check(steps[-1][1] < steps[0][1],
+          f"lm_training: the last loss {steps[-1][1]} is not below the "
+          f"first {steps[0][1]}")
+    state, step_fn, batch = run["state"], run["step_fn"], run["batch"]
+    params = state["params"]
+    back = load_pytree(path, params)
+    from repro_torch.training.optimizer import tree_leaves_with_path
+    same = all(x.dtype == y.dtype and torch.equal(x, y.detach())
+               for (_, x), (_, y) in zip(tree_leaves_with_path(back),
+                                         tree_leaves_with_path(params)))
+    check(same, "lm_training: the saved params do not read back equal")
+    saved_gb = sum(os.path.getsize(path + ext) for ext in (".npz", ".json")) \
+        / 1e9
+    del back
+    shutil.rmtree(out_dir, ignore_errors=True)
+    n_params = sum(p.numel() for _, p in tree_leaves_with_path(params))
+    tokens = LM_STEPS * LM_BATCH * LM_SEQ
+    emit(phase="lm_training", arch=MOE_ARCH, steps=LM_STEPS,
+         batch=LM_BATCH, seq=LM_SEQ, params=n_params, lines=lines,
+         first_loss=steps[0][1], last_loss=steps[-1][1],
+         loop_s=run["seconds"], tokens_per_s=tokens / run["seconds"],
+         main_s=main_s, peak_gb=train_peak,
+         host_peak_rss_gb=resource.getrusage(
+             resource.RUSAGE_SELF).ru_maxrss / 1e6,
+         saved_gb=saved_gb, saved_reads_back_equal=same)
+
+    def one_step():
+        step_fn(state, batch)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    step_profile(torch, one_step, steps=1, top=8, path="lm_training",
+                 what="train step")
+    tuning.FLAGS["remat_policy"] = "dots"
+    try:
+        free_card(torch)
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        dots_ms = (time.perf_counter() - t0) * 1e3
+        dots_peak = peak_gb(torch)
+    finally:
+        tuning.FLAGS["remat_policy"] = "full"
+    emit(phase="lm_training_step", arch=MOE_ARCH, batch=LM_BATCH,
+         seq=LM_SEQ, wall_ms=walls, tokens_per_s_step=LM_BATCH * LM_SEQ
+         / (min(walls) / 1e3), remat_full_peak_gb=train_peak,
+         remat_dots_ms=dots_ms, remat_dots_peak_gb=dots_peak)
+    del run, state, step_fn, batch, params
+    free_card(torch)
+    return launches
+
+
 def main():
     import torch
     t_start = time.perf_counter()
@@ -3699,12 +4042,16 @@ def main():
     from repro_torch.models import build_model, moe
     from repro_torch.models.variants import build_ladder
     from repro_torch.serving import Request, RequestBatcher, ServingEngine
+    from repro_torch import training, tuning
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.launch import train as train_cli
     R = fleet_namespace()
     fleet_kernels = [tabular_rl.KERNEL, dqn_head.KERNEL]
     serving_kernels = [flash_attention.KERNEL, decode_attention.KERNEL,
                        int8_matmul.KERNEL]
     ssm_kernels = serving_kernels + [selective_scan.KERNEL]
-    kernels = fleet_kernels + ssm_kernels + [best_response.KERNEL]
+    kernels = fleet_kernels + ssm_kernels + [best_response.KERNEL,
+                                             flash_attention.BACKWARD]
 
     emit(phase="env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
@@ -3935,6 +4282,25 @@ def main():
         check(n > 0, f"{name} was never launched on the encoder-decoder "
               "path")
 
+    # the training path: K3's lse instances and P2 against their plain
+    # versions at the training shapes; one step card vs CPU on three
+    # cuts; then launch.train's main on Granite-3.0-1B-A400M at full
+    # size, its launches counted from here
+    free_card(torch)
+    entries.append(attention_backward(
+        torch, flash_attention, ptxas[flash_attention.BACKWARD.name]))
+    training_cpu_agreement(torch, get_config, build_model, training,
+                           flash_attention)
+    train_kernels = [flash_attention.KERNEL, flash_attention.BACKWARD]
+    train_launches = lm_training(torch, train_cli, load_pytree, tuning,
+                                 kernels)
+    emit(phase="launches", lm_training=train_launches)
+    for k in train_kernels:
+        check(train_launches.get(k.name, 0) > 0,
+              f"{k.name} was never launched on the training path")
+    launches[flash_attention.BACKWARD.name] = \
+        train_launches[flash_attention.BACKWARD.name]
+
     by_path = {"fleet_loop": {k.name: launches[k.name]
                               for k in fleet_kernels},
                "serving": {k.name: launches[k.name]
@@ -3945,7 +4311,8 @@ def main():
                "single_cell": cli_launches, "ssm_path": ssm_launches,
                "moe_path": moe_launches, "dense_serving": dense_launches,
                "vlm_and_cuts": vlm_launches,
-               "audio_serving": audio_launches}
+               "audio_serving": audio_launches,
+               "lm_training": train_launches}
     for e in entries:
         e["launches"] = launches[e["name"]]
         check(e["launches"] > 0,

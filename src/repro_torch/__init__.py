@@ -5,7 +5,9 @@ engines and the routed dispatch,
 and the paper's single-cell layer (``core``: the environment, tabular
 Q-learning, the DQN, the brute force, the baselines, the transfer
 protocol and the orchestrator) with the serving launcher's
-RL-orchestrated loop (``launch.serve``). The fleet spans the ranks of a
+RL-orchestrated loop (``launch.serve``), and the language models'
+training (``Model.loss``, ``training``, ``checkpoint``,
+``launch.train``). The fleet spans the ranks of a
 ``torch.distributed`` group as a 1-D mesh (``fleet.shard``), each rank
 on its block of cells, bit-identical to the unsharded fleet.
 
@@ -20,7 +22,9 @@ The six kernels of those paths — the fleet loop's ``kernels.tabular_rl``
 and ``kernels.dqn_head``, the served models' ``flash_attention``,
 ``decode_attention``, ``int8_matmul`` and ``selective_scan`` — and the
 coupled-fleet oracle's ``kernels.best_response`` (port-only: the
-reference runs that round as a jitted loop) are hand-written CUDA C++
+reference runs that round as a jitted loop) and flash attention's
+backward (port-only: the reference differentiates its jnp attention
+with ``jax.grad``) are hand-written CUDA C++
 for Hopper (``csrc/*.cu``), built with ``nvcc`` at first use and bound
 with ``ctypes``. Each has a plain PyTorch version
 beside it, which is what a CPU tensor takes (``kernels.ops``).

@@ -15,6 +15,14 @@
 // frames) every kv row is kept, and only the last kv tile, where Skv is no
 // multiple of 64, is masked row by row.
 //
+// Row log-sum-exp (kLse, training): with the flag, each instance also writes
+// lse (B, H, Sq) float32 in natural log, the softmax's log normaliser
+// m + log l of each q row over the scores it kept, which the backward
+// (flash_attention_backward.cu) reads to recompute P = exp(s - lse). The
+// wgmma instance keeps m in base 2, so there lse = (m + log2 l) ln 2. It is
+// a template flag, so the serving instances (a null lse pointer) are the
+// kernels they were.
+//
 // Logit soft-capping (cap > 0, the reference model layer's logit_softcap):
 // each scaled score s = (q . k) * scale becomes tanh(s / cap) * cap before
 // the mask, by an accurate tanhf in both instances. It is a template flag
@@ -77,11 +85,12 @@ constexpr int kFLanes = 8;               // lanes per q row
 constexpr int kFThreads = kFBQ * kFLanes;  // 256
 constexpr int kFBK = 16;                 // kv rows per tile
 
-template <int HD, bool kCap>
+template <int HD, bool kCap, bool kLse>
 __global__ void __launch_bounds__(kFThreads)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ lse,
                            int Sq, int Skv, int H, int KV, int causal,
                            int window, int q_offset, float scale, float cap) {
   constexpr int kDims = HD / kFLanes;    // dims of a row per lane
@@ -179,6 +188,9 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     float* op = o + ((long long)b * Sq + qi) * q_row + (long long)h * HD;
 #pragma unroll
     for (int i = 0; i < kDims; ++i) op[sub + kFLanes * i] = acc[i] / denom;
+    if constexpr (kLse) {
+      if (sub == 0) lse[((long long)b * H + h) * Sq + qi] = m + logf(denom);
+    }
   }
 }
 
@@ -426,12 +438,13 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
 // score_mul: scale * log2(e), or with kCap scale / cap, and then
 // cap_log2 = cap * log2(e) multiplies the tanh: the base-2 rescale moves
 // after the cap.
-template <int HD, bool kCap>
+template <int HD, bool kCap, bool kLse>
 __global__ void __launch_bounds__(kTcThreads)
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ o, int Sq, int Skv,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int Sq, int Skv,
                           int H, int KV, int causal, int window,
                           int q_offset, float score_mul, float cap_log2) {
   using Tile = TcTile<HD>;
@@ -575,6 +588,17 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
+  if constexpr (kLse) {       // m is in base 2: lse = (m + log2 l) ln 2
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = q0 + r0 + 8 * r;
+        if (qi < Sq)
+          lse[((long long)b * H + h) * Sq + qi] =
+              (m[r] + log2f(fmaxf(l[r], 1e-30f))) * 0.6931471805599453f;
+      }
+    }
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = q0 + r0 + 8 * r;
@@ -590,24 +614,24 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ------------------------------------------------------------ launch ----
-template <int HD, bool kCap>
+template <int HD, bool kCap, bool kLse>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int Sq, int Skv, int H, int KV, int causal,
-                       int window, int q_offset, float scale, float cap,
-                       cudaStream_t stream) {
+                       float* lse, int B, int Sq, int Skv, int H, int KV,
+                       int causal, int window, int q_offset, float scale,
+                       float cap, cudaStream_t stream) {
   const dim3 grid(B * H, (Sq + kFBQ - 1) / kFBQ);
-  flash_attention_f32_kernel<HD, kCap><<<grid, kFThreads, 0, stream>>>(
+  flash_attention_f32_kernel<HD, kCap, kLse><<<grid, kFThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KV,
-      causal, window, q_offset, scale, cap);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Skv, H,
+      KV, causal, window, q_offset, scale, cap);
   return cudaGetLastError();
 }
 
-template <int HD, bool kCap>
+template <int HD, bool kCap, bool kLse>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      int B, int Sq, int Skv, int H, int KV, int causal,
-                      int window, int q_offset, float scale, float cap,
-                      cudaStream_t stream) {
+                      float* lse, int B, int Sq, int Skv, int H, int KV,
+                      int causal, int window, int q_offset, float scale,
+                      float cap, cudaStream_t stream) {
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   // the q tile and two stages of K and V, plus the alignment slack: 41 KB
   // at hd 64, 81 KB at 128, 161 KB at 256, so above the 48 KB default the
@@ -620,83 +644,102 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices || !granted[dev]) {
-    err = cudaFuncSetAttribute(flash_attention_tc_kernel<HD, kCap>,
+    err = cudaFuncSetAttribute(flash_attention_tc_kernel<HD, kCap, kLse>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return err;
     if (dev < kMaxDevices) granted[dev] = true;
   }
   constexpr float kLog2e = 1.4426950408889634f;
-  flash_attention_tc_kernel<HD, kCap><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Sq, Skv, H, KV, causal, window, q_offset,
-      kCap ? scale / cap : scale * kLog2e, cap * kLog2e);
+  flash_attention_tc_kernel<HD, kCap, kLse>
+      <<<grid, kTcThreads, smem, stream>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v),
+          static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, H, KV, causal, window,
+          q_offset, kCap ? scale / cap : scale * kLog2e, cap * kLog2e);
   return cudaGetLastError();
+}
+
+template <int HD, bool kCap, bool kLse>
+cudaError_t launch_kind(int dtype, const void* q, const void* k,
+                        const void* v, void* o, float* lse, int B, int Sq,
+                        int Skv, int H, int KV, int causal, int window,
+                        int q_offset, float scale, float cap,
+                        cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_f32<HD, kCap, kLse>(q, k, v, o, lse, B, Sq, Skv, H, KV,
+                                      causal, window, q_offset, scale, cap,
+                                      stream);
+  if (dtype == 1)
+    return launch_tc<HD, kCap, kLse>(q, k, v, o, lse, B, Sq, Skv, H, KV,
+                                     causal, window, q_offset, scale, cap,
+                                     stream);
+  return cudaErrorInvalidValue;
 }
 
 template <int HD, bool kCap>
 cudaError_t launch_cap(int dtype, const void* q, const void* k, const void* v,
-                       void* o, int B, int Sq, int Skv, int H, int KV,
-                       int causal, int window, int q_offset, float scale,
-                       float cap, cudaStream_t stream) {
-  if (dtype == 0)
-    return launch_f32<HD, kCap>(q, k, v, o, B, Sq, Skv, H, KV, causal,
-                                window, q_offset, scale, cap, stream);
-  if (dtype == 1)
-    return launch_tc<HD, kCap>(q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                               q_offset, scale, cap, stream);
-  return cudaErrorInvalidValue;
+                       void* o, float* lse, int B, int Sq, int Skv, int H,
+                       int KV, int causal, int window, int q_offset,
+                       float scale, float cap, cudaStream_t stream) {
+  if (lse != nullptr)
+    return launch_kind<HD, kCap, true>(dtype, q, k, v, o, lse, B, Sq, Skv, H,
+                                       KV, causal, window, q_offset, scale,
+                                       cap, stream);
+  return launch_kind<HD, kCap, false>(dtype, q, k, v, o, lse, B, Sq, Skv, H,
+                                      KV, causal, window, q_offset, scale,
+                                      cap, stream);
 }
 
 template <int HD>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
-                   void* o, int B, int Sq, int Skv, int H, int KV, int causal,
-                   int window, int q_offset, float scale, float cap,
-                   cudaStream_t stream) {
+                   void* o, float* lse, int B, int Sq, int Skv, int H, int KV,
+                   int causal, int window, int q_offset, float scale,
+                   float cap, cudaStream_t stream) {
   if (cap > 0.f)
-    return launch_cap<HD, true>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal,
-                                window, q_offset, scale, cap, stream);
-  return launch_cap<HD, false>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal,
-                               window, q_offset, scale, cap, stream);
+    return launch_cap<HD, true>(dtype, q, k, v, o, lse, B, Sq, Skv, H, KV,
+                                causal, window, q_offset, scale, cap, stream);
+  return launch_cap<HD, false>(dtype, q, k, v, o, lse, B, Sq, Skv, H, KV,
+                               causal, window, q_offset, scale, cap, stream);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v and o share it); cap: the logit
-// soft-cap, 0 for none
+// soft-cap, 0 for none; lse: (B, H, Sq) float32, or null (serving)
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int Sq,
-                                      int Skv, int H, int KV, int hd,
-                                      int causal, int window, int q_offset,
-                                      float scale, float cap, int dtype,
-                                      void* stream) {
+                                      const void* v, void* o, void* lse_out,
+                                      int B, int Sq, int Skv, int H, int KV,
+                                      int hd, int causal, int window,
+                                      int q_offset, float scale, float cap,
+                                      int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || Skv <= 0 || !(cap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   cudaError_t err;
   switch (hd) {
     case 16:
-      err = launch<16>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                       q_offset, scale, cap, st);
+      err = launch<16>(dtype, q, k, v, o, lse, B, Sq, Skv, H, KV, causal,
+                       window, q_offset, scale, cap, st);
       break;
     case 32:
-      err = launch<32>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                       q_offset, scale, cap, st);
+      err = launch<32>(dtype, q, k, v, o, lse, B, Sq, Skv, H, KV, causal,
+                       window, q_offset, scale, cap, st);
       break;
     case 64:
-      err = launch<64>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                       q_offset, scale, cap, st);
+      err = launch<64>(dtype, q, k, v, o, lse, B, Sq, Skv, H, KV, causal,
+                       window, q_offset, scale, cap, st);
       break;
     case 128:
-      err = launch<128>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                        q_offset, scale, cap, st);
+      err = launch<128>(dtype, q, k, v, o, lse, B, Sq, Skv, H, KV, causal,
+                        window, q_offset, scale, cap, st);
       break;
     case 256:
-      err = launch<256>(dtype, q, k, v, o, B, Sq, Skv, H, KV, causal, window,
-                        q_offset, scale, cap, st);
+      err = launch<256>(dtype, q, k, v, o, lse, B, Sq, Skv, H, KV, causal,
+                        window, q_offset, scale, cap, st);
       break;
     default:
       err = cudaErrorInvalidValue;

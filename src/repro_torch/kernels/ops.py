@@ -69,18 +69,51 @@ def dqn_head(active, member, end_b, agg, params, allowed, acc_table, *,
               acc_table, threshold=threshold, topk=topk)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K3 with its gradient: the forward saves q, k, v, o and the rows'
+    log-sum-exp (the ``kLse`` instance on the card, ``plain_with_lse`` on
+    the CPU); the backward is P2 (``flash_attention_backward_cuda``) on
+    the card and ``plain_backward`` on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        mask = dict(causal=causal, window=window, softcap=softcap)
+        if _route(q) == "cpu":
+            o, lse = _flash_attention.plain_with_lse(q, k, v, **mask)
+        else:
+            o, lse = _flash_attention.flash_attention_cuda(q, k, v, lse=True,
+                                                           **mask)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = mask
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        fn = _flash_attention.plain_backward if _route(q) == "cpu" else \
+            _flash_attention.flash_attention_backward_cuda
+        dq, dk, dv = fn(q, k, v, o, lse, do.contiguous(), **ctx.mask)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0):
     """Prefill attention. q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) ->
     (B, Sq, H, hd), q right-aligned against the kv sequence, each scaled
     score capped as ``tanh(s / softcap) * softcap`` where ``softcap >
-    0``; see ``ref.attention_ref``."""
+    0``; see ``ref.attention_ref``. Differentiable: where grad mode is on
+    and an input requires grad, the call goes through ``_FlashAttention``
+    (K3 with its row log-sum-exp, P2 for the gradient); otherwise it is
+    the serving call."""
     if is_fake(q):
         b, sq, h, hd = q.shape
         record_cost("flash_attention", *_flash_attention.cost(
             b, sq, k.shape[1], h, k.shape[2], hd, q.element_size(),
             causal=causal, window=window))
         return torch.empty_like(q)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, softcap)
     fn = _flash_attention.plain if _route(q) == "cpu" else \
         _flash_attention.flash_attention_cuda
     return fn(q, k, v, causal=causal, window=window, softcap=softcap)
@@ -140,6 +173,12 @@ def selective_scan(u, dt, A, B, C, D):
                 u.new_empty((bt, di, A.shape[1]), dtype=torch.float32))
     if _route(u) == "cpu":
         return _selective_scan.plain(u, dt, A, B, C, D)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (u, dt, A, B, C, D)):
+        raise NotImplementedError(
+            "K6 (selective_scan) has no backward kernel yet: training an "
+            "ssm or hybrid model on the card waits for the K6 backward "
+            "(ROADMAP queue 1)")
     return _selective_scan.selective_scan_cuda(
         u.contiguous(), dt.contiguous(), A.contiguous(), B.contiguous(),
         C.contiguous(), D.contiguous())

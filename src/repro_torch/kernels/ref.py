@@ -15,6 +15,49 @@ import torch
 NEG_INF = -1e30
 
 
+def attention_mask(sq: int, skv: int, causal: bool, window: int,
+                   device=None):
+    """(Sq, Skv) bool: which kv positions each q row keeps, q
+    right-aligned against the kv sequence; ``window > 0`` keeps kv_pos in
+    (q_pos - window, q_pos]."""
+    q_pos = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    kv_pos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kv_pos <= q_pos
+    if window:
+        mask &= kv_pos > q_pos - window
+    return mask
+
+
+def attention_scores_ref(q, k, *, causal: bool = True, window: int = 0,
+                         bias=None, softcap: float = 0.0):
+    """The float32 scores (B, KV, G, Sq, Skv) of ``attention_ref``: scaled,
+    capped, masked to ``NEG_INF``, plus ``bias``."""
+    b, sq, h, hd = q.shape
+    skv, n_kv = k.shape[1], k.shape[2]
+    g = h // n_kv
+    qg = q.reshape(b, sq, n_kv, g, hd).float()
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
+    s = s * (1.0 / math.sqrt(hd))
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(attention_mask(sq, skv, causal, window, q.device), s,
+                    NEG_INF)
+    if bias is not None:
+        s = s + bias[:, None, None, None, :]
+    return s
+
+
+def attention_from_scores(s, v, dtype):
+    """softmax(s) v for scores (B, KV, G, Sq, Skv): (B, Sq, H, hd) in
+    ``dtype``."""
+    b, n_kv, g, sq, _ = s.shape
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return o.reshape(b, sq, n_kv * g, v.shape[-1]).to(dtype)
+
+
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                   bias=None, softcap: float = 0.0):
     """Naive exact attention in float32. q: (B, Sq, H, hd); k, v: (B,
@@ -24,27 +67,9 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     slots); ``softcap > 0`` caps each scaled score as ``tanh(s / softcap)
     * softcap`` before the mask and the bias, as the reference's model
     layer does. Returns q's dtype."""
-    b, sq, h, hd = q.shape
-    skv, n_kv = k.shape[1], k.shape[2]
-    g = h // n_kv
-    qg = q.reshape(b, sq, n_kv, g, hd).float()
-    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
-    s = s * (1.0 / math.sqrt(hd))
-    if softcap:
-        s = torch.tanh(s / softcap) * softcap
-    q_pos = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
-    kv_pos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kv_pos <= q_pos
-    if window:
-        mask &= kv_pos > q_pos - window
-    s = torch.where(mask, s, NEG_INF)
-    if bias is not None:
-        s = s + bias[:, None, None, None, :]
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
-    return o.reshape(b, sq, h, hd).to(q.dtype)
+    s = attention_scores_ref(q, k, causal=causal, window=window, bias=bias,
+                             softcap=softcap)
+    return attention_from_scores(s, v, q.dtype)
 
 
 def decode_attention_ref(q, k_cache, v_cache, bias, softcap: float = 0.0):

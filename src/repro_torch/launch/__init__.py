@@ -1,1 +1,1 @@
-"""Launchers of the port (serving engines)."""
+"""Launchers of the port (serving engines, LM training)."""

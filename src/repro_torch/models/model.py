@@ -4,6 +4,7 @@ vision-language and encoder-decoder):
 
     model = build_model(cfg)
     params = model.init(seed, device="cuda")
+    loss, metrics = model.loss(params, {"tokens": tokens})
     logits, cache = model.prefill(params, {"tokens": tokens}, max_len=...)
     logits, cache = model.decode(params, cache, tokens)   # (B, 1) tokens
 
@@ -23,8 +24,14 @@ Params are a plain dict: ``{"embed": {"w"}, "final_norm": {"g"},
 embeddings are untied, ``proj_img`` in a ``vlm`` model and ``encoder``
 (``{"segments", "final_norm"}``) in an encoder-decoder, whose decoder
 layers also hold ``cross`` and ``ln_cross`` (``convert.model_params``
-carries the reference's stacked params across). The training loss is
-still to port (ROADMAP queue 1).
+carries the reference's stacked params across).
+
+``loss`` is the reference's training forward: next-token cross-entropy
+in float32 over the text tokens, through K3 with its backward (P2) on
+the card, plus the MoE blocks' weighted aux loss in the moe family.
+Training a state-space or hybrid model on the card raises
+``NotImplementedError`` until K6 has a backward (ROADMAP queue 1); on
+the CPU their plain scan is differentiable.
 """
 from __future__ import annotations
 
@@ -100,22 +107,22 @@ class Model:
 
     def _inputs_full(self, params, batch):
         """Token embeddings, behind the projected image embeddings in a
-        ``vlm`` model."""
+        ``vlm`` model. Returns (x, the number of prefix positions)."""
         x = self._embed(params, batch["tokens"])
         if self.cfg.arch_type == "vlm":
             img = L.linear(params["proj_img"],
                            batch["img_embeds"].to(x.dtype))
-            x = torch.cat([img, x], dim=1)
-        return x
+            return torch.cat([img, x], dim=1), img.shape[1]
+        return x, 0
 
     def _encode(self, params, frames):
         """The encoder over ``frames`` (B, enc_seq, d_model), cast to
         ``cfg.dtype``: every position kept, RoPE at ``arange(enc_seq)``,
         then the encoder's final norm. Returns (B, enc_seq, d_model)."""
         x = frames.to(L.dt(self.cfg.dtype))
-        x, _ = T.run_stack_full(self.enc_segments,
-                                params["encoder"]["segments"], x,
-                                self.enc_cfg, None, causal=False)
+        x, _, _ = T.run_stack_full(self.enc_segments,
+                                   params["encoder"]["segments"], x,
+                                   self.enc_cfg, None, causal=False)
         return L.rmsnorm(params["encoder"]["final_norm"], x,
                          self.cfg.rms_norm_eps)
 
@@ -125,21 +132,83 @@ class Model:
             return x @ params["embed"]["w"].to(x.dtype).T
         return L.linear(params["lm_head"], x)
 
+    # ---------------- training forward ----------------
+    def loss(self, params, batch, *, remat: bool = True,
+             loss_chunk: int = 0):
+        """Next-token cross-entropy over ``batch["tokens"]`` (B, S) (with
+        the stub embeddings a ``vlm`` or ``audio`` model takes), as the
+        reference's ``Model.loss``: the decoder stack (each layer under
+        ``transformer.rematerialise`` with ``remat``; an encoder-decoder's
+        encoder over ``batch["frames"]`` is not rematerialised), the final
+        norm, then over the text positions only, chunks of ``loss_chunk``
+        positions (``FLAGS["loss_chunk"]`` when 0), each rematerialised
+        too: the head's logits in float32, the padded vocab columns at
+        -1e30, ``logsumexp - gold`` summed. The last chunk is shorter
+        where ``loss_chunk`` does not divide S - 1, the same sum the
+        reference takes over its padded and masked chunk. Divided by
+        ``B (S - 1)``. Returns (loss, {"loss": the cross-entropy,
+        "aux_loss"}): a moe model adds ``aux_loss_weight`` times the
+        layers' summed aux loss to the loss it returns."""
+        from repro_torch.tuning import FLAGS
+        loss_chunk = loss_chunk or FLAGS["loss_chunk"]
+        cfg = self.cfg
+        x, n_prefix = self._inputs_full(params, batch)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        cross_src = self._encode(params, batch["frames"]) \
+            if cfg.is_encdec else None
+        x, _, aux = T.run_stack_full(self.segments, params["segments"], x,
+                                     cfg, positions, cross_src=cross_src,
+                                     aux=True, remat=remat)
+        x = L.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
+        x = x[:, n_prefix:]                       # predict only text tokens
+        tokens = batch["tokens"].long()
+        inputs_x, targets = x[:, :-1], tokens[:, 1:]
+        head = params["embed"]["w"] if cfg.tie_embeddings else None
+
+        def chunk_loss(xc, tc):
+            if head is not None:
+                logits = xc @ head.to(xc.dtype).T
+            else:
+                logits = L.linear(params["lm_head"], xc)
+            logits = logits.float()
+            if cfg.padded_vocab > cfg.vocab_size:
+                logits = torch.cat([logits[..., :cfg.vocab_size],
+                                    logits.new_full(
+                                        logits.shape[:-1]
+                                        + (cfg.padded_vocab
+                                           - cfg.vocab_size,), -1e30)], -1)
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, tc[..., None])[..., 0]
+            return (lse - gold).sum()
+
+        s = inputs_x.shape[1]
+        total = x.new_zeros((), dtype=torch.float32)
+        for c0 in range(0, s, loss_chunk):
+            xc, tc = inputs_x[:, c0:c0 + loss_chunk], \
+                targets[:, c0:c0 + loss_chunk]
+            total = total + (T.rematerialise(chunk_loss, xc, tc) if remat
+                             else chunk_loss(xc, tc))
+        loss = total / (inputs_x.shape[0] * s)
+        metrics = {"loss": loss, "aux_loss": aux}
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.aux_loss_weight * aux
+        return loss, metrics
+
     # ---------------- prefill ----------------
     def prefill(self, params, batch, *, max_len: Optional[int] = None):
         """Run the full prompt (behind its image prefix in a ``vlm``
         model, cross-attending the encoded ``batch["frames"]`` in an
         encoder-decoder); return (last-token logits (B, 1, Vp), decode
         cache)."""
-        x = self._inputs_full(params, batch)
+        x, _ = self._inputs_full(params, batch)
         s_total = x.shape[1]
         max_len = max_len or s_total
         positions = torch.arange(s_total, device=x.device)[None, :]
         cross_src = self._encode(params, batch["frames"]) \
             if self.cfg.is_encdec else None
-        x, seg_ys = T.run_stack_full(self.segments, params["segments"], x,
-                                     self.cfg, positions,
-                                     cross_src=cross_src, want_cache=True)
+        x, seg_ys, _ = T.run_stack_full(self.segments, params["segments"],
+                                        x, self.cfg, positions,
+                                        cross_src=cross_src, want_cache=True)
         logits = self._logits(params, x[:, -1:])
         return logits, self._cache_from_prefill(seg_ys, s_total, max_len)
 

@@ -14,8 +14,12 @@ A layer's mixer is attention (dense), the Mamba block (ssm), or both on
 the same normed input, each output normed and the two averaged (hybrid);
 its feed-forward is the MLP or, in the moe family, ``moe.moe_apply``:
 the block without its aux statistics, which prefill and decode never
-compute, as the reference's prefill drops them (the loss comes with the
-training slice, through ``moe.moe_block``).
+compute, as the reference's prefill drops them; the training forward
+(``run_stack_full(aux=True)``, ``Model.loss``) runs ``moe.moe_block``
+and sums its aux loss over the layers. Under ``remat`` each layer of the
+training forward runs under ``torch.utils.checkpoint``
+(``rematerialise``), as the reference's ``jax.checkpoint`` of each
+scanned layer.
 
 An encoder layer is a dense layer whose self-attention keeps every
 position (``causal=False``, RoPE at ``arange(S)``). A decoder layer of
@@ -42,8 +46,10 @@ queue 1); so does a head_dim the attention kernels have no instance of
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.kernels import decode_attention, flash_attention
 from repro_torch.models import layers as L
@@ -138,14 +144,20 @@ def init_segment(gen: torch.Generator, cfg, seg: Segment,
 # Layer application — full sequence (prefill)
 
 
-def _ffn(p, x, cfg):
+def _ffn(p, x, cfg, want_aux: bool = False):
+    """The feed-forward block. Returns (x, aux): with ``want_aux`` a MoE
+    block runs ``moe.moe_block`` and ``aux`` is its aux loss (0-d
+    float32); otherwise (and without a MoE block) ``aux`` is None."""
     if "moe" in p:
         h = L.rmsnorm(p["ln2"], x, cfg.rms_norm_eps)
-        return x + MOE.moe_apply(p["moe"], h, cfg)[0]
+        if want_aux:
+            y, stats = MOE.moe_block(p["moe"], h, cfg)
+            return x + y, stats["aux_loss"]
+        return x + MOE.moe_apply(p["moe"], h, cfg)[0], None
     if "mlp" in p:
         h = L.rmsnorm(p["ln2"], x, cfg.rms_norm_eps)
-        return x + L.mlp(p["mlp"], h, cfg.mlp_act)
-    return x
+        return x + L.mlp(p["mlp"], h, cfg.mlp_act), None
+    return x, None
 
 
 def _mix(p, outs, cfg):
@@ -178,12 +190,13 @@ def _cross_full(p, x, cfg, cross_src):
 
 
 def layer_full(p, x, cfg, window: int, positions, *, causal: bool = True,
-               cross_src=None):
+               cross_src=None, want_aux: bool = False):
     """One layer over a full sequence: causal (a decoder's) or not (an
     encoder's, every position kept); ``cross_src``, the encoder's output,
     runs a decoder layer's cross-attention block. Returns (x, this
     layer's cache entries: ``k``/``v`` of its attention, ``ck``/``cv``
-    of its cross-attention, ``conv``/``h`` of its Mamba block)."""
+    of its cross-attention, ``conv``/``h`` of its Mamba block; its MoE
+    block's aux loss where ``want_aux``, else None)."""
     h = L.rmsnorm(p["ln1"], x, cfg.rms_norm_eps)
     outs, ys = {}, {}
     if "attn" in p:
@@ -206,7 +219,8 @@ def layer_full(p, x, cfg, window: int, positions, *, causal: bool = True,
     x = x + _mix(p, outs, cfg)
     if cross_src is not None and "cross" in p:
         x, (ys["ck"], ys["cv"]) = _cross_full(p, x, cfg, cross_src)
-    return _ffn(p, x, cfg), ys
+    x, aux = _ffn(p, x, cfg, want_aux)
+    return x, ys, aux
 
 
 # ---------------------------------------------------------------------------
@@ -250,29 +264,78 @@ def layer_decode(p, x, cache_l, cfg, window: int, pos: int, cross=None):
             b, 1, cfg.n_heads, cfg.resolved_head_dim)
         oc = L.decode_attention(qc, cache_l["ck"], cache_l["cv"], *cross)
         x = x + L.linear(p["cross"]["wo"], oc.reshape(b, 1, -1))
-    return _ffn(p, x, cfg)
+    return _ffn(p, x, cfg)[0]
 
 
 # ---------------------------------------------------------------------------
 # Stacks
 
 
+#: the products a ``"dots"`` rematerialised layer keeps for its backward:
+#: matrix products without batch dims (the projections), as JAX's
+#: ``dots_with_no_batch_dims_saveable``; ``bmm`` (the experts' products)
+#: and everything elementwise are recomputed
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def rematerialise(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under ``torch.utils.checkpoint`` (not
+    reentrant: the params it closes over get their gradients), keeping
+    for the backward what ``FLAGS["remat_policy"]`` names: nothing
+    (``"full"``: the layer is recomputed whole) or the outputs of its
+    ``mm``/``addmm`` (``"dots"``, through the selective-checkpoint
+    context)."""
+    from repro_torch.tuning import FLAGS
+    policy = FLAGS["remat_policy"]
+    if policy not in ("full", "dots"):
+        raise ValueError(f"remat_policy is 'full' or 'dots', got {policy!r}")
+    extra = {}
+    if policy == "dots":
+        extra["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False, **extra,
+                            **kwargs)
+
+
 def run_stack_full(segments, seg_params_list, x, cfg, positions, *,
                    causal: bool = True, cross_src=None,
-                   want_cache: bool = False):
+                   want_cache: bool = False, aux: bool = False,
+                   remat: bool = False):
     """Full-sequence pass over all segments (``causal=False`` for an
     encoder; ``cross_src``, the encoder's output, for an encoder-decoder's
     decoder). Returns (x, per-segment cache entries stacked over its
     layers — ``{"k", "v": (Lseg, B, S, KV, hd)}``, ``{"ck", "cv":
     (Lseg, B, Se, KV, hd)}`` and/or ``{"conv": (Lseg, B, K-1, di), "h":
-    (Lseg, B, di, N)}`` — or None)."""
+    (Lseg, B, di, N)}`` — or None; the MoE blocks' aux losses summed
+    over the layers, 0-d float32), as the reference's.
+
+    The training forward: with ``aux``, each MoE block computes its aux
+    statistics (``moe.moe_block``); without, it runs ``moe.moe_apply``,
+    as prefill does, and the sum stays 0. With ``remat``, each layer runs
+    under ``rematerialise`` and keeps no cache."""
+    if remat and want_cache:
+        raise ValueError("a rematerialised stack keeps no cache")
+    aux_total = x.new_zeros((), dtype=torch.float32)
     seg_caches = []
     for seg, seg_params in zip(segments, seg_params_list):
         window = seg_window(cfg, seg)
         stacked = {}
         for i, p in enumerate(seg_params):
-            x, y = layer_full(p, x, cfg, window, positions, causal=causal,
-                              cross_src=cross_src)
+            call = functools.partial(layer_full, p, cfg=cfg, window=window,
+                                     positions=positions, causal=causal,
+                                     cross_src=cross_src, want_aux=aux)
+            if remat:
+                x, aux_l = rematerialise(_without_cache, call, x)
+                y = {}
+            else:
+                x, y, aux_l = call(x=x)
+            if aux_l is not None:
+                aux_total = aux_total + aux_l
             if not want_cache:
                 continue
             # each layer's entries go straight into the stacked buffers,
@@ -282,7 +345,14 @@ def run_stack_full(segments, seg_params_list, x, cfg, positions, *,
                     stacked[name] = t.new_empty((len(seg_params),) + t.shape)
                 stacked[name][i] = t
         seg_caches.append(stacked if want_cache else None)
-    return x, seg_caches
+    return x, seg_caches, aux_total
+
+
+def _without_cache(call, x):
+    """A layer's (x, aux) without its cache entries: what a
+    rematerialised layer returns."""
+    x, _, aux = call(x=x)
+    return x, aux
 
 
 def cross_positions(seg_caches):

@@ -1,11 +1,25 @@
-"""Tuning flags — the port's copy of the one flag of ``repro/tuning.py``
+"""Tuning flags — the port's copy of the flags of ``repro/tuning.py``
 that its code reads.
 
 ``FLAGS["moe_cf"]`` overrides the MoE capacity factor (0.0 = use the
 config's ``capacity_factor``); ``models.moe.moe_block`` reads it at each
-call, as the reference does.
+call, as the reference does. ``FLAGS["loss_chunk"]`` is the sequence
+chunk of ``Model.loss``'s logits and cross-entropy (its default when the
+call passes none); ``FLAGS["remat_policy"]`` is what a rematerialised
+layer keeps for its backward: ``"full"`` nothing (the layer is recomputed
+whole), ``"dots"`` the outputs of its matrix products without batch
+dims (``models.transformer.rematerialise``). The reference's other flags
+have no reader here: K3 does not chunk its kv sequence in Python
+(``attn_chunk``), the cache is updated in place (``donate_cache``), K6
+scans the whole sequence (``mamba_chunk``), and the int8 KV cache is not
+ported (``kv_cache_dtype``).
 """
 FLAGS = {
     # MoE capacity factor override (0.0 = use the config's value)
     "moe_cf": 0.0,
+    # training loss: sequence chunk for the logits/CE loop
+    "loss_chunk": 512,
+    # layer remat policy: "full" (recompute everything) | "dots"
+    # (save matmul outputs, recompute elementwise)
+    "remat_policy": "full",
 }

@@ -1,0 +1,154 @@
+"""The training path's kernels on the card against their plain PyTorch
+versions: K3's ``kLse`` instances (the output bit-equal to the serving
+instance's, the rows' log-sum-exp against ``plain_with_lse``), the
+attention backward P2 against ``plain_backward`` on the same forward
+output at every head_dim, GQA groups of 1, 2 and 6, causal, windowed and
+unmasked rows, sequences that are no tile multiple, caps of 0, 50 and
+2, in float32 and bfloat16 (bit-identical over two runs: no atomics),
+``ops.flash_attention`` under autograd launching both, and an ssm
+gradient on the card refused. Every test here needs a CUDA device and
+skips without one; run them on the GPU with
+
+    PYTHONPATH=src python -m pytest tests/test_torch_cuda_training.py
+
+Tolerances: the log-sum-exp within 1e-4 (float32 sums of ~N(0, 1)
+scores over up to 300 keys); the gradients in float32 within 1e-4
+absolute + 1e-4 relative (float32 sums in another order), in bfloat16
+within 2e-2 + 2e-2 (one rounding of each output to bfloat16, 2^-8
+relative, where the plain version rounds its float32 result once too).
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention, ops, selective_scan
+
+TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+       torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+LSE_TOL = 1e-4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(cuda, dtype, b, sq, skv, h, kv, hd, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=cuda).to(dtype)
+            for shape in ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd),
+                          (b, sq, h, hd))]
+
+
+#: (b, sq, skv, h, kv, hd, causal, window, cap): every head_dim, G 1, 2
+#: and 6, lengths that are no multiple of the 16-, 32- or 64-row tiles,
+#: a window shorter than the sequence, q onto a longer kv sequence
+#: without a mask and with a causal mask (right-aligned), caps 50 and 2
+CASES = [
+    (2, 37, 37, 4, 2, 16, True, 0, 0.0),
+    (2, 70, 70, 8, 4, 32, True, 0, 0.0),
+    (1, 129, 129, 6, 1, 64, True, 0, 0.0),
+    (2, 100, 100, 12, 2, 64, True, 24, 0.0),
+    (1, 80, 80, 4, 4, 128, True, 0, 50.0),
+    (1, 96, 96, 4, 2, 256, True, 32, 2.0),
+    (2, 33, 300, 4, 4, 64, False, 0, 0.0),
+    (1, 40, 75, 6, 3, 32, True, 0, 0.0),
+    (2, 64, 64, 4, 1, 128, False, 0, 2.0),
+    (1, 50, 50, 2, 2, 256, False, 0, 0.0),
+]
+
+
+def _ids(c):
+    return "b{}_q{}_kv{}_h{}-{}_hd{}_{}_w{}_cap{}".format(
+        *c[:6], "causal" if c[6] else "full", *c[7:])
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lse_instance_keeps_the_output_and_writes_the_lse(cuda, case, dtype):
+    b, sq, skv, h, kv, hd, causal, window, cap = case
+    q, k, v, _ = _qkv(cuda, dtype, b, sq, skv, h, kv, hd, seed=sq + hd)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    before = flash_attention.KERNEL.launches
+    o, lse = flash_attention.flash_attention_cuda(q, k, v, lse=True, **kw)
+    serving = flash_attention.flash_attention_cuda(q, k, v, **kw)
+    _, want = flash_attention.plain_with_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.KERNEL.launches == before + 2
+    assert torch.equal(o, serving)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    assert float((lse - want).abs().max()) <= LSE_TOL
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_matches_plain(cuda, case, dtype):
+    b, sq, skv, h, kv, hd, causal, window, cap = case
+    q, k, v, do = _qkv(cuda, dtype, b, sq, skv, h, kv, hd, seed=3 * sq + hd)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    o, lse = flash_attention.flash_attention_cuda(q, k, v, lse=True, **kw)
+    before = flash_attention.BACKWARD.launches
+    got = flash_attention.flash_attention_backward_cuda(q, k, v, o, lse, do,
+                                                        **kw)
+    again = flash_attention.flash_attention_backward_cuda(q, k, v, o, lse,
+                                                          do, **kw)
+    want = flash_attention.plain_backward(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.BACKWARD.launches == before + 2
+    for name, x, y, z in zip(("dq", "dk", "dv"), got, again, want):
+        assert x.dtype == dtype and x.shape == z.shape, name
+        assert torch.equal(x, y), f"{name} differs between two runs"
+        torch.testing.assert_close(x.float(), z.float(), **TOL[dtype],
+                                   msg=lambda m: f"{name}: {m}")
+
+
+def test_autograd_launches_the_lse_forward_and_the_backward(cuda):
+    q, k, v, do = _qkv(cuda, torch.bfloat16, 2, 96, 96, 8, 4, 64, seed=7)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    f0 = flash_attention.KERNEL.launches
+    b0 = flash_attention.BACKWARD.launches
+    o = ops.flash_attention(*leaves, causal=True, window=0, softcap=0.0)
+    assert flash_attention.KERNEL.launches == f0 + 1
+    assert flash_attention.BACKWARD.launches == b0
+    grads = torch.autograd.grad(o, leaves, do)
+    assert flash_attention.BACKWARD.launches == b0 + 1
+    o2, lse = flash_attention.flash_attention_cuda(q, k, v, lse=True)
+    assert torch.equal(o.detach(), o2)
+    want = flash_attention.flash_attention_backward_cuda(q, k, v, o2, lse,
+                                                         do)
+    for x, y in zip(grads, want):
+        assert torch.equal(x, y)
+    with torch.no_grad():              # the serving call, no lse
+        assert torch.equal(ops.flash_attention(*leaves), o2)
+
+
+def test_backward_refuses_a_mask_with_more_q_rows_than_kv(cuda):
+    q, k, v, do = _qkv(cuda, torch.float32, 1, 40, 20, 2, 2, 32, seed=1)
+    o, lse = flash_attention.flash_attention_cuda(q, k, v, causal=False,
+                                                  lse=True)
+    with pytest.raises(ValueError, match="Sq <= Skv"):
+        flash_attention.flash_attention_backward_cuda(q, k, v, o, lse, do)
+    dq, _, _ = flash_attention.flash_attention_backward_cuda(
+        q, k, v, o, lse, do, causal=False)
+    want = flash_attention.plain_backward(q, k, v, o, lse, do, causal=False)
+    torch.testing.assert_close(dq, want[0], **TOL[torch.float32])
+
+
+def test_selective_scan_gradient_on_the_card_raises(cuda):
+    bt, s, di, n = 1, 8, 16, 8
+    g = torch.Generator(device=cuda).manual_seed(0)
+    u, dt = (torch.randn((bt, s, di), generator=g, device=cuda)
+             .requires_grad_() for _ in range(2))
+    A = -torch.rand((di, n), generator=g, device=cuda)
+    B, C = (torch.randn((bt, s, n), generator=g, device=cuda)
+            for _ in range(2))
+    D = torch.randn(di, device=cuda)
+    before = selective_scan.KERNEL.launches
+    with pytest.raises(NotImplementedError, match="K6 backward"):
+        ops.selective_scan(u, dt, A, B, C, D)
+    assert selective_scan.KERNEL.launches == before
+    with torch.no_grad():
+        ops.selective_scan(u, dt, A, B, C, D)
+    assert selective_scan.KERNEL.launches == before + 1
