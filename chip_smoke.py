@@ -209,6 +209,7 @@ OUR_KERNELS = ("tabular_rl_kernel", "dqn_head_kernel",
                "decode_partial_kernel",
                "decode_merge_kernel", "int8_matmul_kernel",
                "selective_scan_kernel", "flash_bwd_dot_kernel",
+               "flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel",
                "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 
 
@@ -3718,10 +3719,11 @@ LM_STEPS, LM_BATCH, LM_SEQ = 20, 8, 2048
 
 def bwd_regs(ptxas, dtype, hd, cap=False):
     """[[registers, spill store, spill load bytes] of P2's dK/dV kernel,
-    the same of its dQ kernel] for ``dtype`` at head dim ``hd``."""
-    t = "I13__nv_bfloat16" if dtype == "bfloat16" else "If"
-    return [instance_regs(ptxas, "flash_bwd_%s_kernel%sLi%dELb%dE"
-                          % (kind, t, hd, int(bool(cap))))
+    the same of its dQ kernel] for ``dtype`` at head dim ``hd``: the
+    tensor-core kernels in bf16, the CUDA-core ones in float32."""
+    name = ("flash_bwd_%s_tc_kernelILi%dELb%dE" if dtype == "bfloat16"
+            else "flash_bwd_%s_kernelIfLi%dELb%dE")
+    return [instance_regs(ptxas, name % (kind, hd, int(bool(cap))))
             for kind in ("dkdv", "dq")]
 
 

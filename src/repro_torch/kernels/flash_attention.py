@@ -32,9 +32,15 @@ Training (``ops.flash_attention`` under autograd): the forward's
 log-sum-exp, and the backward, P2 (``csrc/flash_attention_backward.cu``,
 port-only: the reference differentiates its jnp mirrors with
 ``jax.grad``), recomputes P from it and writes dq, dk and dv (dk and dv
-summed over the G q heads of each kv head, no atomics). Its plain
-version is ``plain_backward``, the explicit formulas; ``plain_with_lse``
-is the forward's with the log-sum-exp.
+summed over the G q heads of each kv head, no atomics). Its bfloat16
+instance runs its products on the tensor cores as K3's forward does: a
+dK/dV kernel per 64 kv rows (S^T = K Q^T and dP^T = V dO^T by
+``wgmma``, then dV += P^T dO and dK += dS^T Q with P^T and dS^T as
+register operands, the Q and dO tiles through a 2-stage ``cp.async``
+ring; two warpgroups at head_dim 128 and 256) and a dQ kernel per 64 q
+rows; its float32 instance stays on the CUDA cores. Its plain version
+is ``plain_backward``, the explicit formulas; ``plain_with_lse`` is the
+forward's with the log-sum-exp.
 """
 from __future__ import annotations
 

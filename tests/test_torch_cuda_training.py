@@ -2,9 +2,10 @@
 versions: K3's ``kLse`` instances (the output bit-equal to the serving
 instance's, the rows' log-sum-exp against ``plain_with_lse``), the
 attention backward P2 against ``plain_backward`` on the same forward
-output at every head_dim, GQA groups of 1, 2 and 6, causal, windowed and
-unmasked rows, sequences that are no tile multiple, caps of 0, 50 and
-2, in float32 and bfloat16 (bit-identical over two runs: no atomics),
+output at every head_dim, GQA groups of 1, 2, 4 and 6, causal, windowed
+and unmasked rows, sequences that are no tile multiple and span several
+64-row tiles, caps of 0, 50 and 2, in float32 and bfloat16
+(bit-identical over two runs: no atomics),
 ``ops.flash_attention`` under autograd launching both, and an ssm
 gradient on the card refused. Every test here needs a CUDA device and
 skips without one; run them on the GPU with
@@ -12,7 +13,7 @@ skips without one; run them on the GPU with
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_training.py
 
 Tolerances: the log-sum-exp within 1e-4 (float32 sums of ~N(0, 1)
-scores over up to 300 keys); the gradients in float32 within 1e-4
+scores over up to 517 keys); the gradients in float32 within 1e-4
 absolute + 1e-4 relative (float32 sums in another order), in bfloat16
 within 2e-2 + 2e-2 (one rounding of each output to bfloat16, 2^-8
 relative, where the plain version rounds its float32 result once too).
@@ -57,6 +58,15 @@ CASES = [
     (1, 40, 75, 6, 3, 32, True, 0, 0.0),
     (2, 64, 64, 4, 1, 128, False, 0, 2.0),
     (1, 50, 50, 2, 2, 256, False, 0, 0.0),
+    # several 64-row q and kv tiles of the bf16 kernels, with ragged ends:
+    # the causal diagonal across tiles, a window that starts and ends
+    # inside tiles (and a cap at 256), Sq and Skv apart without a mask,
+    # and exactly one tile
+    (1, 300, 300, 8, 2, 64, True, 0, 0.0),
+    (1, 400, 400, 4, 4, 128, True, 100, 0.0),
+    (1, 200, 200, 4, 2, 256, True, 64, 50.0),
+    (2, 130, 517, 6, 3, 32, False, 0, 0.0),
+    (1, 64, 64, 2, 1, 16, True, 0, 0.0),
 ]
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the port's attention kernels (K3 flash attention, K4 decode
-attention) of one or more source trees, in turns, on one card.
+attention, P2 the attention backward) of one or more source trees, in
+turns, on one card.
 
     python3 tools/attention_ab.py SRC [SRC ...]
 
@@ -22,18 +23,27 @@ plain version]}``; warm and
 cold as ``chip_smoke.timed`` and ``chip_smoke.cold_ms`` take them (CUDA
 events with the launch hidden, ``hidden_ms``; cold with the L2 flushed
 before each call).
+For every bf16 case of ``BWD_CASES`` the line also holds
+``"flash_attention_backward <layout>": [warm ms, cold ms, max abs error
+against plain_backward, plain ms, library ms]``, the library being
+SDPA's backward alone (a capped case compiled ``flex_attention``'s), as
+``chip_smoke.attention_backward`` times them.
 End to end, the same line holds ``"serving <variant> decode ms/token"``
 and ``"serving <variant> prefill ms"`` for the edge ladder's d0 and d4,
 each a list of ``REPS`` readings of ``chip_smoke.timed_generate`` (host
 clock, batch 64, prompt 256, 16 new tokens, cache 512, as in the
-``serving`` phase). The card's name and power limit (``nvidia-smi``)
-come first. Needs a CUDA device; each tree's kernels are built into its
-own ``build`` directory.
+``serving`` phase), and ``"lm_training_step ms"``: ``REPS`` training
+steps of Granite-3.0-1B-A400M whole at 8 x 2,048 (host clock around
+synchronised steps after one warm-up step, seed 0, one random batch),
+as the ``lm_training_step`` phase takes them. The card's name and power
+limit (``nvidia-smi``) come first. Needs a CUDA device; each tree's
+kernels are built into its own ``build`` directory.
 """
 import json
 import os
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPS = 5
@@ -55,7 +65,7 @@ def load_tree(src):
         sys.exit(f"{os.path.basename(sys.argv[0])}: no CUDA device "
                  "available")
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.build([fa.KERNEL, da.KERNEL, im.KERNEL])
+    _build.build([fa.KERNEL, fa.BACKWARD, da.KERNEL, im.KERNEL])
     return torch, cs
 
 
@@ -91,8 +101,69 @@ def run_tree(src):
         out[f"decode_attention {name} {sc}"] = reading(
             lambda: da.decode_attention_cuda(q, kc, vc, bias),
             da.plain(q, kc, vc, bias))
+    backward(torch, cs, fa, g, out)
     serving(torch, cs, out)
+    lm_step(torch, cs, out)
     print(json.dumps(out), flush=True)
+
+
+def backward(torch, cs, fa, g, out):
+    """P2 at every ``BWD_CASES`` case in bf16: warm and cold ms, its
+    error against ``plain_backward``, the plain version's ms and the
+    library's backward ms."""
+    for name, b, sq, skv, h, kv, hd, window, causal, cap in cs.BWD_CASES:
+        kw = dict(causal=causal, window=window, softcap=cap)
+        q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
+                       .bfloat16() for shape in ((b, sq, h, hd),
+                                                 (b, skv, kv, hd),
+                                                 (b, skv, kv, hd),
+                                                 (b, sq, h, hd)))
+        o, lse = fa.flash_attention_cuda(q, k, v, lse=True, **kw)
+
+        def call():
+            return fa.flash_attention_backward_cuda(q, k, v, o, lse, do,
+                                                    **kw)
+
+        def plain():
+            return fa.plain_backward(q, k, v, o, lse, do, **kw)
+        err = max(float((x.float() - y.float()).abs().max())
+                  for x, y in zip(call(), plain()))
+        lib = (cs.flex_backward(torch, q, k, v, do, cap, causal, window)
+               if cap else cs.sdpa_backward(torch, q, k, v, do, causal,
+                                            window))
+        out[f"flash_attention_backward {name}"] = [
+            cs.hidden_ms(call, reps=10), cs.cold_ms(call, reps=5), err,
+            cs.hidden_ms(plain, reps=3), cs.hidden_ms(lib, reps=10)]
+        del q, k, v, do, o, lse, lib
+        cs.free_card(torch)
+
+
+def lm_step(torch, cs, out):
+    """``REPS`` training steps of ``chip_smoke.MOE_ARCH`` whole at
+    ``LM_BATCH`` x ``LM_SEQ``, host clock around each synchronised step."""
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, init_state, make_train_step
+    cfg = get_config(cs.MOE_ARCH)
+    model = build_model(cfg)
+    state = init_state(model, 0, device="cuda")
+    step = make_train_step(model, AdamWConfig(lr=3e-4, warmup_steps=2,
+                                              total_steps=20))
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (cs.LM_BATCH, cs.LM_SEQ)).astype(np.int32)
+    batch = {"tokens": torch.tensor(tokens, device="cuda")}
+    state, _ = step(state, batch)
+    walls = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["lm_training_step ms"] = walls
+    del state, step, model
+    cs.free_card(torch)
 
 
 def serving(torch, cs, out, arch="edge-ladder", variants=("d0", "d4"),

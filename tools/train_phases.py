@@ -10,7 +10,11 @@ smoke prints them:
 - ``bwd``: ``chip_smoke.attention_backward`` (K3's ``kLse`` instances and
   P2 against their plain versions at ``BWD_CASES``, bf16 timed beside
   SDPA's or compiled ``flex_attention``'s backward), then its kernels-line
-  entry;
+  entry; then the registers and spills of every instance of P2's
+  kernels that ``nvcc`` compiled (``p2_instances``: every head dim,
+  capped or not, both dtypes, the D kernel too), and P2's device ms by
+  kernel (D, dK/dV, dQ) at every bf16 ``BWD_CASES`` case from one
+  ``torch.profiler`` window of 5 calls (``p2_by_kernel``);
 - ``agree``: ``chip_smoke.training_cpu_agreement`` (one training step
   card vs CPU on the edge ladder, a 2-layer Granite cut and Whisper's
   2+2 cut);
@@ -23,6 +27,7 @@ name and power limit (``nvidia-smi``) come last. Needs a CUDA device.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -53,6 +58,8 @@ def main(which):
         ptxas = cs.ptxas_summary(flash_attention.BACKWARD.ptxas_log)
         print(json.dumps(cs.attention_backward(torch, flash_attention,
                                                ptxas)), flush=True)
+        cs.emit(phase="p2_instances", registers_spills=instances(ptxas))
+        by_kernel(torch, cs, flash_attention)
     if "agree" in which:
         cs.training_cpu_agreement(torch, get_config, build_model, training,
                                   flash_attention)
@@ -63,6 +70,49 @@ def main(which):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
+
+
+def instances(ptxas):
+    """{"<kernel><<dtype>, <head dim>[, cap]>": [registers, spill store,
+    spill load bytes]} of every P2 function in a ``ptxas_summary``."""
+    out = {}
+    for fn, v in ptxas.items():
+        m = re.search(r"(flash_bwd_\w+?_kernel)I(f|13__nv_bfloat16)?Li(\d+)E"
+                      r"(?:Lb(\d)E)?", fn)
+        if m:
+            kind, t, hd, cap = m.groups()
+            out["%s<%s, %s%s>" % (kind, "f32" if t == "f" else "bf16", hd,
+                                  ", cap" if cap == "1" else "")] = v
+    return dict(sorted(out.items()))
+
+
+def by_kernel(torch, cs, flash_attention):
+    """P2's device ms a call by kernel at every bf16 ``BWD_CASES`` case:
+    one ``torch.profiler`` window of 5 calls after one warm call."""
+    g = torch.Generator(device="cuda").manual_seed(26)
+    for name, b, sq, skv, h, kv, hd, window, causal, cap in cs.BWD_CASES:
+        kw = dict(causal=causal, window=window, softcap=cap)
+        q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
+                       .bfloat16() for shape in ((b, sq, h, hd),
+                                                 (b, skv, kv, hd),
+                                                 (b, skv, kv, hd),
+                                                 (b, sq, h, hd)))
+        o, lse = flash_attention.flash_attention_cuda(q, k, v, lse=True, **kw)
+
+        def call():
+            return flash_attention.flash_attention_backward_cuda(
+                q, k, v, o, lse, do, **kw)
+        call()
+        _, names, _ = cs.profile_window(torch, lambda: [call()
+                                                         for _ in range(5)])
+        ms = {}
+        for n, us in names.items():
+            m = re.search(r"flash_bwd_\w+?_kernel", n)
+            if m:
+                ms[m.group(0)] = ms.get(m.group(0), 0.0) + us / 5 / 1e3
+        cs.emit(phase="p2_by_kernel", layout=name, ms_a_call=ms)
+        del q, k, v, do, o, lse
+        cs.free_card(torch)
 
 
 if __name__ == "__main__":
