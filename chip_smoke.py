@@ -99,7 +99,10 @@ paths through the entry points a user calls:
   on the card, with the aware-vs-blind reward on the hot edge; a
   ``FleetDQN`` trained on 32,768 x 5 cells over 64 skewed edges and
   scored against that oracle, one round of which is held equal to the
-  plain round at that shape; ``FleetDQN(net='cell')`` at the DQN
+  plain round at that shape; at each shape a changing round and a round
+  that changes nothing split by kernel (totals, pre-pass, walker), the
+  walker's rescored cells and passes, and the oracle's wall split into
+  its stages; ``FleetDQN(net='cell')`` at the DQN
   phase's shape; ``obs.prof`` stage costs of both agents and a scaling
   sweep over 1,024 to 32,768 cells (kernels K1, K2 and the port-only
   best-response kernel);
@@ -204,7 +207,9 @@ FLUSH_BYTES = 256 << 20
 SPIN_HZ = 1.98e9
 # the port's kernel functions, whose device time a step profile reports
 OUR_KERNELS = ("tabular_rl_kernel", "dqn_head_kernel",
-               "best_response_kernel", "flash_attention_tc_kernel",
+               "best_response_totals_kernel",
+               "best_response_prepass_kernel",
+               "best_response_walker_kernel", "flash_attention_tc_kernel",
                "flash_attention_f32_kernel",
                "decode_partial_kernel",
                "decode_merge_kernel", "int8_matmul_kernel",
@@ -3179,16 +3184,73 @@ def coupled_oracle(torch, R, fleets):
     return runs
 
 
-def coupled_oracle_parity(torch, R, fleets, runs, best_response):
+#: the kernels of one best-response round, in launch order
+ROUND_KERNELS = ("best_response_totals_kernel",
+                 "best_response_prepass_kernel",
+                 "best_response_walker_kernel")
+
+
+def round_split(torch, best_response, idx, packed, args, reps=5):
+    """One best-response round from ``idx`` through the kernels: its
+    device ms (``hidden_ms``); the walker's statistics
+    (``best_response.STATS``); the device ms of each of its kernels and
+    of the memset from a profiler trace of ``reps`` rounds that holds
+    every launch (the profiler drops events at times; None if no trace
+    of ``TRACE_TRIES`` does)."""
+    stats = torch.empty(len(best_response.STATS), dtype=torch.int32,
+                        device="cuda")
+
+    def kern():
+        return best_response.best_response_cuda(idx, packed, *args,
+                                                stats=stats)
+    ms = hidden_ms(kern, reps=reps)
+    split = None
+    for _ in range(TRACE_TRIES):
+        counts, us = kernel_counts(torch, kern, reps)
+        by = {}
+        for n, t in us.items():
+            key = next((k for k in ROUND_KERNELS
+                        if k + "<" in n or k + "(" in n), n[:40])
+            by[key] = (by.get(key, (0, 0.0))[0] + counts[n],
+                       by.get(key, (0, 0.0))[1] + t / reps / 1e3)
+        if all(by.get(k, (0,))[0] == reps for k in ROUND_KERNELS):
+            split = {k: t for k, (_, t) in by.items()}
+            break
+    return dict(round_ms=ms, **dict(zip(best_response.STATS,
+                                        stats.tolist())),
+                device_ms_by_kernel=split)
+
+
+def round_pair(torch, best_response, idx0, fixed, packed, args):
+    """The round from the isolated start ``idx0`` and the round from the
+    fixed point ``fixed`` (``round_split``). The converged round is the
+    start totals, the pre-pass and a walker that stops at once, the same
+    work as in any round; so its ms over the changing round's is the
+    pre-pass's share of that round, and the difference over the cells
+    rescored the walker's ms a rescored cell."""
+    chg = round_split(torch, best_response, idx0, packed, args)
+    conv = round_split(torch, best_response, fixed, packed, args)
+    walk = chg["round_ms"] - conv["round_ms"]
+    return dict(changing_round=chg, converged_round=conv,
+                prepass_share=conv["round_ms"] / chg["round_ms"],
+                walker_ms_per_rescored_cell=(walk / chg["rescored"]
+                                             if chg["rescored"] else None))
+
+
+def coupled_oracle_parity(torch, R, fleets, runs, best_response,
+                          ptxas=None):
     """The kernel's oracle against the same loop with the plain round on
     the card: indices, ``converged``, ``rounds`` and ms equal. Then one
     round from the isolated start timed: the kernel's device ms (and per
-    call of 10 back-to-back launches, ``burst_ms``), the plain version's
-    wall, the bound of the (cells, K) tables, and the sequential floor
-    (the kernel at K = 1, read both ways); on the hot edge, the expected
-    reward of aware (best-response) against blind (isolated-optimal)
-    decisions under the same shared contention. Returns the kernels-line
-    entry (the 1,024-cell fleet's round)."""
+    call of 10 back-to-back calls, ``burst_ms``), the plain version's
+    wall and the bound of the (cells, K) tables; on the hot edge, the
+    expected reward of aware (best-response) against blind
+    (isolated-optimal) decisions under the same shared contention. The
+    round from the isolated start and the round from the fixed point
+    split by kernel (``round_pair``), and the walker's registers and
+    spills at each user count (``ptxas``: the ``ptxas_summary`` of the
+    kernel's build). Returns the kernels-line entry (the 1,024-cell
+    fleet's round)."""
     pop, bound_row = R.population, None
     for (label, scen, pu), (got, k_wall) in zip(fleets, runs):
         saved = pop._best_response_round
@@ -3223,18 +3285,11 @@ def coupled_oracle_parity(torch, R, fleets, runs, best_response):
         best_response.plain(idx0, pu, *args, feas, ce, cc, *tail)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        zeros = torch.zeros_like(idx0)
-        one = [x[:, :1].contiguous() for x in (feas, ce, cc)]
-
-        def floor():
-            return best_response.best_response_cuda(
-                zeros, packed[:1].contiguous(), *args, *one, *tail)
-        floor_ms, _, floor_prof_ms = timed(floor, warmup=1, reps=5,
-                                            profile=True)
-        burst, floor_burst = burst_ms(kern), burst_ms(floor)
+        burst = burst_ms(kern)
         cells, k, users = scen.cells, pu.shape[0], scen.users
         ops, nbytes = best_response.cost(cells, k, users, topo.n_edges)
         b_ms, b_by = bound(nbytes, ops)
+        full = (*args, feas, ce, cc, *tail)
         line = dict(label=label, cells=cells, users=users, candidates=k,
                     edges=topo.n_edges, rounds=got[3],
                     converged=got[2], equal=True, ms_max_abs_err=err,
@@ -3242,11 +3297,14 @@ def coupled_oracle_parity(torch, R, fleets, runs, best_response):
                     plain_oracle_wall_s=p_wall, round_ms=ms,
                     round_wall_ms=wall_ms, round_burst_ms=burst,
                     plain_round_wall_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=b_by, sequential_floor_ms=floor_ms,
-                    sequential_floor_burst_ms=floor_burst,
-                    bound_share=b_ms / ms, floor_share=floor_burst / burst,
+                    bound_by=b_by, bound_share=b_ms / ms,
                     profiler_ms=prof_ms,
-                    floor_profiler_ms=floor_prof_ms)
+                    **round_pair(torch, best_response, idx0, got[1],
+                                 packed, full),
+                    walker_registers_spills={
+                        n: instance_regs(
+                            ptxas, "best_response_walker_kernelILi%dE" % n)
+                        for n in range(1, 9)})
         if label.startswith("hot_edge"):
             iso = R.scenarios.with_topology(scen, None)
             _, blind = pop.fleet_bruteforce(iso, pu, COUPLED_GOAL)
@@ -3273,6 +3331,46 @@ def coupled_oracle_parity(torch, R, fleets, runs, best_response):
     return bound_row
 
 
+def oracle_split(torch, R, best_response, scen, pu, goal):
+    """Host seconds (each stage synchronised) of ``topology_bruteforce``'s
+    stages on ``scen``: the isolated start, the candidate tables, the
+    rounds through the kernel and the final expected response. Returns
+    (the seconds and the rounds, the fixed point)."""
+    pop, topo = R.population, scen.topo
+    laps = [time.perf_counter()]
+
+    def lap():
+        torch.cuda.synchronize()
+        laps.append(time.perf_counter())
+    torch.cuda.synchronize()
+    laps[0] = time.perf_counter()
+    _, idx = pop._isolated_bruteforce(scen, pu, goal)
+    lap()
+    feas, ce, cc = pop._candidate_tables(scen, pu, goal, 4096)
+    lap()
+    packed = best_response.pack_actions(pu)
+    end_b, edge_b = scen.end_b.to(torch.int32), scen.edge_b.to(torch.int32)
+    rounds = 0
+    for rounds in range(1, 51):
+        new, changed = best_response.best_response_cuda(
+            idx, packed, end_b, edge_b, scen.member, feas, ce, cc,
+            topo.cell_edge, topo.edge_capacity, topo.cloud_servers,
+            calib=scen.calib)
+        if not bool(changed):
+            break
+        idx = new
+    lap()
+    R.topology.fleet_topology_expected_response(
+        pu[idx.long()], scen.end_b, scen.edge_b, topo, scen.member,
+        calib=scen.calib)
+    lap()
+    names = ("isolated_start_s", "candidate_tables_s", "rounds_s",
+             "expected_response_s")
+    out = {n: b - a for n, a, b in zip(names, laps, laps[1:])}
+    out["rounds"] = rounds
+    return out, idx
+
+
 def coupled_holdout(torch, R, best_response, kernels):
     """``FleetDQN`` (shared encoder, K2), 300 steps on a 32,768-cell x
     5-user synthetic fleet over 64 skewed edges, scored on a held-out
@@ -3280,9 +3378,13 @@ def coupled_holdout(torch, R, best_response, kernels):
     ``topology_bruteforce`` through the kernel: the ratio in (0, 1.05];
     the oracle's wall and rounds. ``kernels`` (K2 and the best-response
     kernel) count their launches on this path alone, each at least once.
-    Then, outside the count, one round from the isolated start through
-    the kernel and through its plain version on the card: indices and
-    changed flag equal. Returns the path's launch counts."""
+    Then, outside the count: the oracle's wall split into its stages
+    (``oracle_split``, its result equal to the oracle's); the round from
+    the isolated start and the round from the fixed point split by kernel
+    (``round_pair``) beside the round's bound; one round from the
+    isolated start through the kernel and through its plain version on
+    the card: indices and changed flag equal. Returns the path's launch
+    counts."""
     for k in kernels:
         k.launches = 0
     cfg = R.scenarios.FleetConfig(
@@ -3306,8 +3408,8 @@ def coupled_holdout(torch, R, best_response, kernels):
     pu, goal = agent.pu_table, agent.accuracy_threshold
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, _, converged, rounds = R.population.topology_bruteforce(held, pu,
-                                                               goal)
+    _, oracle_idx, converged, rounds = R.population.topology_bruteforce(
+        held, pu, goal)
     torch.cuda.synchronize()
     oracle_s = time.perf_counter() - t0
     ev = R.policy.holdout_reward_ratio(agent, held)
@@ -3316,13 +3418,20 @@ def coupled_holdout(torch, R, best_response, kernels):
     for name, n in launched.items():
         check(n > 0, f"{name} was never launched on the coupled holdout")
 
+    split, fixed = oracle_split(torch, R, best_response, held, pu, goal)
+    check(torch.equal(fixed, oracle_idx) and split["rounds"] == rounds,
+          "coupled holdout: the oracle's stages, timed apart, disagree "
+          "with topology_bruteforce")
     pop, topo = R.population, held.topo
     feas, ce, cc = pop._candidate_tables(held, pu, goal, 4096)
     _, idx0 = pop._isolated_bruteforce(held, pu, goal)
     args = (held.end_b, held.edge_b, held.member, feas, ce, cc,
             topo.cell_edge, topo.edge_capacity, topo.cloud_servers)
-    got, got_changed = best_response.best_response_cuda(
-        idx0, best_response.pack_actions(pu), *args)
+    packed = best_response.pack_actions(pu)
+    rounds_read = round_pair(torch, best_response, idx0, fixed, packed, args)
+    ops, nbytes = best_response.cost(CELLS, pu.shape[0], USERS, topo.n_edges)
+    b_ms, b_by = bound(nbytes, ops)
+    got, got_changed = best_response.best_response_cuda(idx0, packed, *args)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want, want_changed = best_response.plain(idx0, pu, *args)
@@ -3344,7 +3453,10 @@ def coupled_holdout(torch, R, best_response, kernels):
          round_equal=True, round_cells_moved=moved,
          member_counts={n: int((held.member.sum(-1) == n).sum())
                         for n in range(1, USERS + 1)},
-         plain_round_wall_s=plain_round_s)
+         plain_round_wall_s=plain_round_s, oracle_split=split,
+         **rounds_read, round_bound_ms=b_ms, round_bound_by=b_by,
+         converged_round_over_bound=(
+             rounds_read["converged_round"]["round_ms"] / b_ms))
     return launched
 
 
@@ -4127,7 +4239,8 @@ def main():
         "best_response": launches["best_response"]},
         coupled_holdout=holdout_launches)
     entries.append(coupled_oracle_parity(torch, R, fleets, runs,
-                                         best_response))
+                                         best_response,
+                                         ptxas[best_response.KERNEL.name]))
     cell_dqn(torch, R, dqn_head.KERNEL)
     prof_phase(torch, R, prof, [tab_agent, dqn_agent], kernels)
     del fleets, runs, tab_agent, dqn_agent

@@ -1,19 +1,24 @@
-"""One best-response round of the coupled-fleet oracle: the CUDA kernel
-``csrc/best_response.cu`` and its plain PyTorch version.
+"""One best-response round of the coupled-fleet oracle: the CUDA kernels
+``csrc/best_response.cu`` and their plain PyTorch version.
 
 Port-only: the reference runs this round as a jitted ``fori_loop``
 (``repro/fleet/population.py`` ``_best_response_round``) and has no
 Pallas kernel for it. The plain version is that loop's body as a Python
-loop over cells, a few dozen small ops a cell; the kernel walks the
-cells in one thread block and splits each cell's K candidates over its
-threads, so a round is one launch.
+loop over cells, a few dozen small ops a cell. On the card a round is
+one call, ``best_response_cuda``: a memset and three launches (the
+start totals; a pre-pass over the whole card that scores every cell at
+those totals; a one-block walker that goes through the cells in
+windows of 32, a warp a cell, taking the pre-pass's choice wherever a
+cell meets the start totals and rescoring the rest until every cell of
+the window was scored at the totals its predecessors give it), counted
+once on ``KERNEL.launches``.
 
-Bound on the H100: the chain of cells. Every cell reads the edge and
-cloud totals the previous cell wrote, so the round cannot beat one
-block reduction and two barriers a cell (``chip_smoke.py`` measures
-that floor as the kernel's time at K = 1). The work beside it is the
-``(cells, K)`` tables read once and ~``10 + 12 N`` FP32 operations per
-entry (``cost``).
+Bound on the H100: the ``(cells, K)`` tables read once and ~``10 + 12 N``
+FP32 operations per entry (``cost``), which a round that changes nothing
+approaches; a round that moves counts adds the walker's windows, one
+or more passes each of a table build, a warp's scoring of K candidates
+and two block barriers (``rescored_cells`` counts the cells it must
+rescore).
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import torch
 
 from repro_torch.kernels._build import F, I, P, CudaKernel, check_cuda
 
-KERNEL = CudaKernel("best_response", [P] * 16 + [I] * 4 + [F])
+KERNEL = CudaKernel("best_response", [P] * 20 + [I] * 4 + [F])
 
 #: minimum per-cell improvement (ms) for a best-response switch — a
 #: strict-improvement margin so equal-cost candidates can't cycle
@@ -32,16 +37,44 @@ BEST_RESPONSE_TOL = 1e-6
 #: the most users a cell may have (a candidate's actions pack 4 bits a
 #: user into one int32)
 MAX_USERS = 8
+#: the most candidates (the walker's 64-bit key holds a 24-bit index)
+MAX_ACTIONS = (1 << 24) - 1
+#: what ``best_response_cuda`` writes to ``stats``
+STATS = ("first_moved", "first_switch", "rescored", "scorings", "passes")
+
+
+def choose(i: int, e_i: int, cur, others_e, others_c, pu_table, end_b,
+           edge_b, member, feas, cand_e, cand_c, edge_capacity,
+           cloud_servers: float, calib=None):
+    """Cell ``i``'s best response, on edge ``e_i``, from its current
+    candidate ``cur``, given the job totals of the other cells at its
+    turn: ``others_e`` on its edge and ``others_c`` in the cloud (the
+    sweep's two integers, its edge's total and the cloud's, less the
+    cell's own counts at ``cur``). Its best feasible candidate if that
+    improves on ``cur`` by more than ``BEST_RESPONSE_TOL``, else ``cur``;
+    a 0-dim long tensor."""
+    from repro_torch.fleet import dynamics, topology
+    n_e_k = (others_e + cand_e[i]) / edge_capacity[e_i]
+    mult_k = topology.cloud_load_multiplier(others_c + cand_c[i],
+                                            cloud_servers)
+    ms_k, _ = dynamics.expected_response(
+        pu_table, end_b[i][None, :], edge_b[i], active=member[i][None, :],
+        counts=(n_e_k, cand_c[i]), cloud_mult=mult_k[:, None],
+        calib=calib)                                              # (K,)
+    score = torch.where(feas[i], ms_k, torch.inf)
+    j = score.argmin()                           # the first index on ties
+    return torch.where(score[j] < score[cur] - BEST_RESPONSE_TOL, j, cur)
 
 
 def plain(idx, pu_table, end_b, edge_b, member, feas, cand_e, cand_c,
           cell_edge, edge_capacity, cloud_servers: float, calib=None):
     """One Gauss-Seidel sweep: each cell in turn picks its best feasible
-    candidate given every other cell's current decision, the running
-    per-edge and cloud totals updated as it goes. ``feas`` / ``cand_e``
-    / ``cand_c`` are the (cells, K) round-invariant tables. Returns
-    ``(new_idx, changed)``, ``changed`` a bool tensor on idx's device."""
-    from repro_torch.fleet import dynamics, topology
+    candidate given every other cell's current decision (``choose``), the
+    running per-edge and cloud totals updated as it goes. ``feas`` /
+    ``cand_e`` / ``cand_c`` are the (cells, K) round-invariant tables.
+    Returns ``(new_idx, changed)``, ``changed`` a bool tensor on idx's
+    device."""
+    from repro_torch.fleet import topology
     cells = idx.shape[0]
     rows = torch.arange(cells, device=idx.device)
     new = idx.clone()
@@ -51,21 +84,32 @@ def plain(idx, pu_table, end_b, edge_b, member, feas, cand_e, cand_c,
                                         edge_capacity.shape[0])
     cloud_tot = c_cnt.sum()
     for i, e_i in enumerate(cell_edge.tolist()):
-        n_e_k = (edge_tot[e_i] - e_cnt[i] + cand_e[i]) / edge_capacity[e_i]
-        tot_c_k = cloud_tot - c_cnt[i] + cand_c[i]
-        mult_k = topology.cloud_load_multiplier(tot_c_k, cloud_servers)
-        ms_k, _ = dynamics.expected_response(
-            pu_table, end_b[i][None, :], edge_b[i],
-            active=member[i][None, :], counts=(n_e_k, cand_c[i]),
-            cloud_mult=mult_k[:, None], calib=calib)          # (K,)
-        score = torch.where(feas[i], ms_k, torch.inf)
-        j = score.argmin()                       # the first index on ties
-        cur = new[i].long()
-        nxt = torch.where(score[j] < score[cur] - BEST_RESPONSE_TOL, j, cur)
+        nxt = choose(i, e_i, new[i].long(), edge_tot[e_i] - e_cnt[i],
+                     cloud_tot - c_cnt[i], pu_table, end_b, edge_b, member,
+                     feas, cand_e, cand_c, edge_capacity, cloud_servers,
+                     calib)
         edge_tot[e_i] += cand_e[i, nxt] - e_cnt[i]
         cloud_tot = cloud_tot + cand_c[i, nxt] - c_cnt[i]
         new[i] = nxt
     return new, (new != idx).any()
+
+
+def rescored_cells(idx, new, cand_e, cand_c, cell_edge) -> int:
+    """The cells the walker rescores in the round from ``idx`` to
+    ``new``: those that meet their edge's or the cloud's job total away
+    from its start value (every earlier cell's count changes summed).
+    Before the first cell whose choice moves a count, none does."""
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    d_e = cand_e[rows, new.long()] - cand_e[rows, idx.long()]
+    d_c = cand_c[rows, new.long()] - cand_c[rows, idx.long()]
+    cloud_seen = torch.cumsum(d_c, 0) - d_c               # exclusive
+    order = torch.sort(cell_edge, stable=True).indices    # by edge, then i
+    e_sorted, de_sorted = cell_edge[order], d_e[order]
+    run = torch.cumsum(de_sorted, 0) - de_sorted
+    seg = torch.searchsorted(e_sorted.contiguous(), e_sorted.contiguous())
+    edge_seen = torch.empty_like(run)
+    edge_seen[order] = run - run[seg]
+    return int(((edge_seen != 0) | (cloud_seen != 0)).sum())
 
 
 def pack_actions(pu_table: torch.Tensor) -> torch.Tensor:
@@ -95,11 +139,18 @@ def consts() -> np.ndarray:
 
 def best_response_cuda(idx, pu_packed, end_b, edge_b, member, feas, cand_e,
                        cand_c, cell_edge, edge_capacity,
-                       cloud_servers: float, calib=None):
-    """Launch the CUDA kernel: one round over every cell. ``pu_packed``
+                       cloud_servers: float, calib=None, stats=None):
+    """Launch the round on the card: one call, counted once. ``pu_packed``
     is ``pack_actions`` of the (K, N) table; ``member``/``feas`` bool;
-    the rest int32 / float32 as ``plain``. Returns ``(new_idx, changed)``
-    with ``changed`` a (1,) int32 flag on the card."""
+    ``cand_e`` / ``cand_c`` member counts (0..N; the pre-pass traps on
+    another value); the rest int32 / float32 as ``plain``. Returns
+    ``(new_idx, changed)`` with ``changed`` a (1,) int32 flag on the
+    card. A (5,) int32 ``stats`` on the card receives ``STATS``: the
+    first cell whose choice moves a count and the first that switches
+    (``cells`` where none does), the cells that met a total away from
+    its start value (``rescored_cells``), the cells the walker scored
+    (a cell may be scored in several passes of its window) and the
+    walker's passes."""
     cells, users = end_b.shape
     k = pu_packed.shape[0]
     n_edges = edge_capacity.shape[0]
@@ -117,6 +168,11 @@ def best_response_cuda(idx, pu_packed, end_b, edge_b, member, feas, cand_e,
     if not 1 <= users <= MAX_USERS:
         raise ValueError(f"the kernel takes 1..{MAX_USERS} users, got "
                          f"{users}")
+    if not 1 <= k <= MAX_ACTIONS:
+        raise ValueError(f"the kernel takes 1..{MAX_ACTIONS} candidates, "
+                         f"got {k}")
+    if stats is not None:
+        check_cuda("stats", stats, i32, (len(STATS),))
     scale = off = None
     if calib is not None:
         scale, off = calib.compute_scale, calib.hop_offset_ms
@@ -126,12 +182,19 @@ def best_response_cuda(idx, pu_packed, end_b, edge_b, member, feas, cand_e,
     dev = idx.device
     new = torch.empty_like(idx)
     changed = torch.empty(1, dtype=i32, device=dev)
-    edge_tot = torch.empty(n_edges, dtype=i32, device=dev)
+    tot = torch.empty(n_edges + 3, dtype=i32, device=dev)
+    cell_info = torch.empty((cells, 8), dtype=i32, device=dev)
+    codes = torch.empty((cells, -(-k // 16) * 16), dtype=torch.uint8,
+                        device=dev)
+    drift = torch.empty(n_edges, dtype=i32, device=dev)
     KERNEL.launch(idx.data_ptr(), new.data_ptr(), changed.data_ptr(),
+                  None if stats is None else stats.data_ptr(),
                   pu_packed.data_ptr(), end_b.data_ptr(), edge_b.data_ptr(),
                   member.data_ptr(), feas.data_ptr(), cand_e.data_ptr(),
                   cand_c.data_ptr(), cell_edge.data_ptr(),
-                  edge_capacity.data_ptr(), edge_tot.data_ptr(),
+                  edge_capacity.data_ptr(), tot.data_ptr(),
+                  cell_info.data_ptr(), codes.data_ptr(),
+                  drift.data_ptr(),
                   None if scale is None else scale.data_ptr(),
                   None if off is None else off.data_ptr(), c.ctypes.data,
                   cells, k, users, n_edges, float(cloud_servers))

@@ -24,7 +24,12 @@ states, over 2 and over 4 lanes; the banded sliding-window
 attention against the CPU's plain path; the coupled oracle's
 best-response round against its plain version (one cell, every cell on
 one edge, an infinite cloud, a calibration, one-user cells, tied
-candidates, one feasible candidate), the float32 fleet env step and the AdamW
+candidates, one feasible candidate; the walker's statistics against the
+plain sweep's; a round that changes nothing, a switch that keeps both
+counts, the first and the last cell the only ones to change, a cloud
+total that leaves its start and comes back over 1,536 edges, one tight
+edge, 10^5 candidates, two runs bit-equal), the float32 fleet env step
+and the AdamW
 step against the CPU, bit for bit, and a short ``FleetDQN`` run's
 parameters against the CPU's.
 Every test here needs a CUDA device
@@ -942,28 +947,67 @@ def _coupled(cuda, cells, users, cell_edge, capacity, cloud_servers,
                                    scen.active, 0, topo, calib)
 
 
-def _check_best_response(scen, pu, threshold, max_rounds=8):
-    """Every round of the sweep: the kernel's indices and changed flag
-    equal the plain version's on the card, bit for bit, from the same
-    start; then the whole oracle through the kernel."""
+def _round_args(scen, pu, threshold):
+    """(isolated start, the round's arguments after idx and pu)."""
     from repro_torch.fleet import population
-    from repro_torch.kernels import best_response
     feas, ce, cc = population._candidate_tables(scen, pu, threshold, 4096)
     _, idx = population._isolated_bruteforce(scen, pu, threshold)
     topo = scen.topo
-    args = (scen.end_b, scen.edge_b, scen.member, feas, ce, cc,
-            topo.cell_edge, topo.edge_capacity, topo.cloud_servers)
+    return idx, (scen.end_b, scen.edge_b, scen.member, feas, ce, cc,
+                 topo.cell_edge, topo.edge_capacity, topo.cloud_servers)
+
+
+def _checked_round(idx, pu, args, calib):
+    """One round through the kernel and through its plain version on the
+    card: indices and changed flag bit-equal, one launch counted, and the
+    walker's statistics those of the plain sweep (the first cell whose
+    choice moves a count, the first that switches, the cells rescored)
+    and within the bounds of its windows (scorings, passes).
+    Returns (new idx, (first, first switch, rescored))."""
+    from repro_torch.kernels import best_response
+    before = best_response.KERNEL.launches
+    stats = torch.full((len(best_response.STATS),), -1, dtype=torch.int32,
+                       device=idx.device)
+    got, changed = best_response.best_response_cuda(
+        idx, best_response.pack_actions(pu), *args, calib=calib,
+        stats=stats)
+    want, want_changed = best_response.plain(idx, pu, *args, calib=calib)
+    torch.cuda.synchronize()
+    assert best_response.KERNEL.launches == before + 1
+    assert torch.equal(got, want)
+    assert bool(changed.item()) == bool(want_changed)
+    ce, cc, cell_edge = args[4], args[5], args[6]
+    rows = torch.arange(idx.shape[0], device=idx.device)
+    moved = ((ce[rows, want.long()] != ce[rows, idx.long()])
+             | (cc[rows, want.long()] != cc[rows, idx.long()]))
+    cells = idx.shape[0]
+    first = int(moved.nonzero()[0]) if moved.any() else cells
+    switch = want != idx
+    first_switch = int(switch.nonzero()[0]) if switch.any() else cells
+    rescored = best_response.rescored_cells(idx, want, ce, cc, cell_edge)
+    got = stats.tolist()
+    assert got[:3] == [first, first_switch, rescored]
+    scorings, passes = got[3:]
+    if first < cells:       # a window of 32 cells takes 1 to 33 passes
+        windows = -(-(cells - first) // 32)
+        assert windows <= passes <= 33 * windows
+        assert rescored <= scorings <= 32 * passes
+    else:
+        assert scorings == passes == 0
+    return want, (first, first_switch, rescored)
+
+
+def _check_best_response(scen, pu, threshold, max_rounds=8):
+    """Every round of the sweep: the kernel's indices and changed flag
+    equal the plain version's on the card, bit for bit, from the same
+    start (``_checked_round``); then the whole oracle through the
+    kernel."""
+    from repro_torch.fleet import population
+    idx, args = _round_args(scen, pu, threshold)
     for _ in range(max_rounds):
-        before = best_response.KERNEL.launches
-        got, changed = best_response.best_response_cuda(
-            idx, best_response.pack_actions(pu), *args, calib=scen.calib)
-        want, want_changed = best_response.plain(idx, pu, *args,
-                                                 calib=scen.calib)
-        torch.cuda.synchronize()
-        assert best_response.KERNEL.launches == before + 1
-        assert torch.equal(got, want)
-        assert bool(changed.item()) == bool(want_changed)
-        if not bool(want_changed):
+        want, (_, first_switch, _) = _checked_round(idx, pu, args,
+                                                    scen.calib)
+        if first_switch == idx.shape[0]:
             break
         idx = want
     return population.topology_bruteforce(scen, pu, threshold)
@@ -1030,6 +1074,169 @@ def test_best_response_kernel_one_feasible_candidate(cuda):
     pu = torch.tensor([[k, k] for k in range(8)], device=cuda)
     ms, idx, converged, rounds = _check_best_response(scen, pu, 89.0)
     assert converged and not idx.any()
+
+
+def _converge(idx, pu, args, calib, max_rounds=12):
+    """Checked rounds from ``idx`` until one switches nothing; returns
+    the fixed point and the statistics of the round that found it."""
+    for _ in range(max_rounds):
+        new, stats = _checked_round(idx, pu, args, calib)
+        if stats[1] == idx.shape[0]:
+            return idx, stats
+        idx = new
+    raise AssertionError("the sweep did not converge")
+
+
+def _other_candidate(rng, idx, args, i, d_c):
+    """A feasible candidate of cell i other than idx[i]: of the same edge
+    and cloud counts (``d_c`` 0), of another cloud count (None), or of
+    the cloud count ``idx[i]``'s + ``d_c``."""
+    feas, ce, cc = (x[i].cpu().numpy() for x in args[3:6])
+    cur = int(idx[i])
+    if d_c == 0:
+        ok = (ce == ce[cur]) & (cc == cc[cur])
+    else:
+        ok = cc != cc[cur] if d_c is None else cc == cc[cur] + d_c
+    ok = feas & ok
+    ok[cur] = False
+    return int(rng.choice(np.flatnonzero(ok)))
+
+
+def _rows_changed(a, b):
+    return (a != b).nonzero().flatten().tolist()
+
+
+def _np_coupled(dev, rng, cells, users, cell_edge, capacity,
+                cloud_servers):
+    """A fleet drawn with numpy, every user a member, on ``dev``."""
+    from repro_torch.fleet import scenarios, topology
+
+    def t(x, dtype):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=dev)
+    member = t(np.ones((cells, users), bool), torch.bool)
+    topo = topology.Topology(t(cell_edge, torch.int32),
+                             t(capacity, torch.float32),
+                             float(cloud_servers))
+    return scenarios.FleetScenario(
+        t(rng.integers(0, 2, (cells, users)), torch.int32),
+        t(rng.integers(0, 2, cells), torch.int32), member, member, 0, topo,
+        None)
+
+
+@pytest.mark.parametrize("case", ["converged", "switch_keeps_counts",
+                                  "first_and_last", "cloud_returns",
+                                  "one_tight_edge"])
+def test_best_response_walker_cases(cuda, case):
+    """The pre-pass and the walker at the rounds that decide their
+    paths, each round checked bit-equal to the plain version with the
+    walker's statistics (``_checked_round``):
+
+    * converged: a round from the fixed point moves nothing and walks
+      nothing;
+    * switch_keeps_counts: cells 0 and the last moved, at the fixed
+      point, to another candidate of the same counts switch back in a
+      round whose totals never move (no cell rescored);
+    * first_and_last: on a fleet whose cells share nothing (an edge
+      each, an infinite cloud), cells 0 and the last moved to another
+      cloud count are the only ones to change, and every cell after the
+      first is rescored (the cloud total has moved);
+    * cloud_returns: 1,536 cells, an edge each (the walker's edge totals
+      past shared memory), a finite cloud: from the fixed point with
+      one more cloud job at cell 100 and one fewer at cell 900, the cloud
+      total leaves its start and comes back, so the cells after 900 are
+      taken unscored;
+    * one_tight_edge: every cell on one edge of capacity 0.5, so every
+      change moves the total that all the later cells see."""
+    rng = np.random.default_rng(11)
+    users, cells, goal = 2, 96, 89.0
+    pu = _full_table(users, cuda)
+    if case == "one_tight_edge":
+        scen = _np_coupled(cuda, rng, cells, users, np.zeros(cells, int),
+                           [0.5], 2.0 * cells)
+        idx, args = _round_args(scen, pu, goal)
+        new, (first, _, rescored) = _checked_round(idx, pu, args, None)
+        assert first < cells and rescored > 0
+        _converge(new, pu, args, None)
+        return
+    if case == "cloud_returns":
+        cells = 1536
+    finite = case in ("converged", "switch_keeps_counts", "cloud_returns")
+    scen = _np_coupled(cuda, rng, cells, users, np.arange(cells),
+                       rng.choice([0.5, 1.0, 2.0], cells),
+                       cells / 4.0 if finite else float("inf"))
+    idx, args = _round_args(scen, pu, goal)
+    fixed, stats = _converge(idx, pu, args, None)
+    if case == "cloud_returns":
+        # a cell from 100 on holds one cloud job more than its fixed
+        # point, one from 900 on one fewer: the round takes the cloud
+        # total below its start from the first and back to it later
+        ce, cc = args[4].cpu().numpy(), args[5].cpu().numpy()
+        feas, at = args[3].cpu().numpy(), fixed.cpu().numpy()
+        start, moved = fixed.clone(), []
+        for lo, d_c in ((100, 1), (900, -1)):
+            i = next(i for i in range(lo, cells)
+                     if (feas[i] & (cc[i] == cc[i, at[i]] + d_c)).any())
+            start[i] = _other_candidate(rng, fixed, args, i, d_c)
+            moved.append(i)
+        new, (first, _, rescored) = _checked_round(start, pu, args, None)
+        rows = torch.arange(cells, device=cuda)
+        d_c = args[5][rows, new.long()] - args[5][rows, start.long()]
+        seen = (torch.cumsum(d_c, 0) - d_c)[first + 1:]
+        back = (seen == 0) & (torch.cumsum(seen != 0, 0) > 0)
+        assert first == moved[0] and bool(back.any())
+        assert 0 < rescored < cells - first - 1
+        return
+    if case == "converged":
+        assert stats == (cells, cells, 0)
+        return
+    start = fixed.clone()
+    for i in (0, cells - 1):
+        start[i] = _other_candidate(
+            rng, fixed, args, i, 0 if case == "switch_keeps_counts" else None)
+    new, (first, first_switch, rescored) = _checked_round(start, pu, args,
+                                                          None)
+    assert _rows_changed(new, start) == [0, cells - 1]
+    assert first_switch == 0
+    if case == "switch_keeps_counts":
+        assert (first, rescored) == (cells, 0)
+    else:
+        assert (first, rescored) == (0, cells - 1)
+
+
+@pytest.mark.parametrize("case", ["five_users_all_actions", "two_runs"])
+def test_best_response_walker_rows_and_repeat(cuda, case):
+    """five_users_all_actions: 10^5 candidates a cell, past the walker's
+    ring, so it reads the candidate bytes from device memory;
+    two_runs: one changing round of 1,024 cells x 3 users over 16 edges
+    run twice gives the same bits, statistics included."""
+    from repro_torch.kernels import best_response
+    rng = np.random.default_rng(12)
+    if case == "five_users_all_actions":
+        scen = _np_coupled(cuda, rng, 32, 5, rng.integers(0, 3, 32),
+                           [1.0, 0.5, 2.0], 8.0)
+        pu = _full_table(5, cuda)
+        idx, args = _round_args(scen, pu, 89.0)
+        new, (first, _, rescored) = _checked_round(idx, pu, args, None)
+        assert first < 32 and rescored > 0
+        _converge(new, pu, args, None)
+        return
+    cells = 1024
+    scen = _np_coupled(cuda, rng, cells, 3, rng.integers(0, 16, cells),
+                       rng.choice([0.5, 1.0, 2.0], 16), cells / 2.0)
+    pu = _full_table(3, cuda)
+    idx, args = _round_args(scen, pu, 89.0)
+    packed = best_response.pack_actions(pu)
+    runs = []
+    for _ in range(2):
+        stats = torch.empty(len(best_response.STATS), dtype=torch.int32,
+                            device=cuda)
+        new, changed = best_response.best_response_cuda(idx, packed, *args,
+                                                        stats=stats)
+        runs.append((new, changed, stats))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert int(runs[0][2][0]) < cells and int(runs[0][2][2]) > 0
+    _checked_round(idx, pu, args, None)
 
 
 def test_best_response_kernel_refuses_what_it_does_not_take(cuda):
