@@ -99,7 +99,8 @@ paths through the entry points a user calls:
   on the card, with the aware-vs-blind reward on the hot edge; a
   ``FleetDQN`` trained on 32,768 x 5 cells over 64 skewed edges and
   scored against that oracle, one round of which is held equal to the
-  plain round at that shape; at each shape a changing round and a round
+  plain round at that shape (run on the CPU on copies of the card's
+  inputs); at each shape a changing round and a round
   that changes nothing split by kernel (totals, pre-pass, walker), the
   walker's rescored cells and passes, and the oracle's wall split into
   its stages; ``FleetDQN(net='cell')`` at the DQN
@@ -119,16 +120,29 @@ paths through the entry points a user calls:
   on the card against the CPU for every experiment x threshold, N =
   1..5; tabular Q-learning (N = 3, goal 85) converging, its Q rows equal
   to the CPU run's; both DQN forms (paper N = 3, factored N = 5 at goal
-  85) 2,000 steps, greedy equal to the CPU's on the same parameters
+  85) 500 steps, greedy equal to the CPU's on the same parameters
   where the margin is clear; then ``python -m repro_torch.launch.serve``'s
   ``main`` with its defaults (the full-width edge ladder, d0-d7 on the
   device tier): 4 waves of the trained agent's decisions served through
   the engines (kernels K3, K4, K5), and K3-K5 held against their plain
   versions at its shapes (batch 1 x 16 tokens, 64 slots, d5's and d6's
-  projections at 16 rows and 1).
+  projections at 16 rows and 1);
+* the training path: K3's ``kLse`` instances and their backward P2
+  against their plain versions at the training layouts
+  (``attention_backward``), K6's ``kStates`` instance (bit-equal to the
+  serving one) and the scan's backward P3 against ``plain_backward`` at
+  Falcon-Mamba's 64 x 256 x 8,192 and Hymba's 8 x 2,048 x 3,200
+  (``scan_backward``); one ``make_train_step`` step card vs CPU on five
+  full-width cuts (``training_cpu_agreement``: the edge ladder, Granite
+  2 layers, Whisper 2+2, Falcon-Mamba 2 of its 64 layers, Hymba's
+  global layer 0 and windowed layer 1 over 1,152 tokens); then
+  ``launch.train`` on Hymba-1.5B whole (``ssm_training``; K3, P2, K6,
+  P3) and on Granite-3.0-1B-A400M whole (``lm_training``; K3, P2), 20
+  steps at 8 x 2,048 each, their launches counted from the start of
+  each.
 
-(The dense and VLM path and then the encoder-decoder path run last in
-the script, after the state-space path's profiles.) The phase
+(The dense and VLM path, the encoder-decoder path and then the training
+path run last in the script, after the state-space path's profiles.) The phase
 ``cpu_agreement`` also holds the float32 fleet env step on the card
 bit-equal to the CPU on an isolated and a coupled fleet. Each
 path's kernel launch counts are set to 0 just before it and read just
@@ -215,8 +229,12 @@ OUR_KERNELS = ("tabular_rl_kernel", "dqn_head_kernel",
                "decode_merge_kernel", "int8_matmul_kernel",
                "selective_scan_kernel", "flash_bwd_dot_kernel",
                "flash_bwd_dkdv_tc_kernel", "flash_bwd_dq_tc_kernel",
-               "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+               "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel",
+               "selective_scan_bwd_kernel", "selective_scan_bwd_sum_kernel")
 
+
+#: decode steps in one profiler window of a served model (``step_profile``)
+DECODE_PROFILE_STEPS = 3
 
 #: the script's start; every line gives its seconds since (``t_s``)
 T0 = time.perf_counter()
@@ -1124,7 +1142,7 @@ def scan_phase(torch, selective_scan, ptxas):
               f"{err_h} (tolerance 1e-4)")
         errs += [err_y, err_h]
         lanes, per_lane = selective_scan.plan(bt, di, n)
-        inst = f"selective_scan_kernelI{SCAN_TYPES[dtype]}Li{lanes}EE"
+        inst = f"selective_scan_kernelI{SCAN_TYPES[dtype]}Li{lanes}ELb0EE"
         regs = [v for f, v in ptxas.items() if inst in f]
         line = dict(kernel="selective_scan", layout=label,
                     shape=[bt, s, di, n], dtype=dtype, max_abs_err_y=err_y,
@@ -1396,7 +1414,7 @@ def route_dispatch(torch, R, engines, cells=ROUTE_CELLS,
 #: benchmarks/bench_bridge.py HOP_MS)
 HOP_MS = {"E": 25.0, "C": 50.0}
 METRICS_STEPS, CALIB_STEPS = 100, 300
-BRIDGE_TURNS = 3
+BRIDGE_TURNS = 1
 
 
 class SpreadPolicy:
@@ -1833,8 +1851,8 @@ def serving(torch, engines):
     return out
 
 
-def decode_profile(torch, engines, caches, steps=5, path="serving",
-                   batch=SERVE_BATCH):
+def decode_profile(torch, engines, caches, steps=DECODE_PROFILE_STEPS,
+                   path="serving", batch=SERVE_BATCH):
     """Device busy share of ``steps`` decode steps of each variant in
     ``caches`` (the caches of ``serving`` continue)."""
     for vid, cache in caches.items():
@@ -2829,12 +2847,13 @@ def audio_serve_one(torch, cfg, vid, build_model, variant_seed, kernels):
          peak_gb=peak_gb(torch))
     cur = torch.zeros((AUDIO_BATCH, 1), dtype=torch.int32, device="cuda")
 
-    def decode_steps(steps=5):
+    def decode_steps(steps=DECODE_PROFILE_STEPS):
         nonlocal cache
         with torch.inference_mode():
             for _ in range(steps):
                 _, cache = model.decode(params, cache, cur)
-    step_profile(torch, decode_steps, 5, path="audio_serving", variant=vid,
+    step_profile(torch, decode_steps, DECODE_PROFILE_STEPS,
+                 path="audio_serving", variant=vid,
                  arch=cfg.name, what="decode step")
 
     def one_prefill():
@@ -2867,7 +2886,7 @@ def audio_serving(torch, get_config, build_model, variant_seed, kernels):
 #: the serving launcher's shapes: one request a call, a 16-token prompt,
 #: a cache of 64 slots (``build_engines``' default ``max_len``)
 CLI_PROMPT, CLI_MAX_LEN = 16, 64
-SC_DQN_STEPS, SC_GREEDY_STATES, SC_MARGIN = 2000, 200, 1e-4
+SC_DQN_STEPS, SC_GREEDY_STATES, SC_MARGIN = 500, 200, 1e-4
 
 
 def single_cell_bruteforce(torch, C):
@@ -3382,8 +3401,10 @@ def coupled_holdout(torch, R, best_response, kernels):
     (``oracle_split``, its result equal to the oracle's); the round from
     the isolated start and the round from the fixed point split by kernel
     (``round_pair``) beside the round's bound; one round from the
-    isolated start through the kernel and through its plain version on
-    the card: indices and changed flag equal. Returns the path's launch
+    isolated start through the kernel on the card and through its plain
+    version on the CPU, on copies of the same inputs (a sequential loop
+    over the cells, 3x faster there than on the card, ~75 s a call on
+    it): indices and changed flag equal. Returns the path's launch
     counts."""
     for k in kernels:
         k.launches = 0
@@ -3432,12 +3453,12 @@ def coupled_holdout(torch, R, best_response, kernels):
     ops, nbytes = best_response.cost(CELLS, pu.shape[0], USERS, topo.n_edges)
     b_ms, b_by = bound(nbytes, ops)
     got, got_changed = best_response.best_response_cuda(idx0, packed, *args)
-    torch.cuda.synchronize()
+    got = got.cpu()
+    host = [a.cpu() if torch.is_tensor(a) else a for a in (idx0, pu, *args)]
     t0 = time.perf_counter()
-    want, want_changed = best_response.plain(idx0, pu, *args)
-    torch.cuda.synchronize()
+    want, want_changed = best_response.plain(*host)
     plain_round_s = time.perf_counter() - t0
-    moved = int((got != idx0).sum())
+    moved = int((got != host[0]).sum())
     check(torch.equal(got, want) and
           bool(got_changed.item()) == bool(want_changed),
           f"coupled holdout: the kernel's round differs from the plain "
@@ -3453,7 +3474,7 @@ def coupled_holdout(torch, R, best_response, kernels):
          round_equal=True, round_cells_moved=moved,
          member_counts={n: int((held.member.sum(-1) == n).sum())
                         for n in range(1, USERS + 1)},
-         plain_round_wall_s=plain_round_s, oracle_split=split,
+         plain_round_cpu_wall_s=plain_round_s, oracle_split=split,
          **rounds_read, round_bound_ms=b_ms, round_bound_by=b_by,
          converged_round_over_bound=(
              rounds_read["converged_round"]["round_ms"] / b_ms))
@@ -3797,7 +3818,8 @@ def fleet_sharded(torch, R, kernels):
 #: frames and its decoder's cross-attention from 64 tokens onto them (no
 #: mask); InternLM2-20B at 4 x 2,048 (48/8 heads of 128); Gemma3-4B's
 #: sliding layers, window 1,024 over 2,048 at head_dim 256, with and
-#: without a cap of 50
+#: without a cap of 50; Hymba-1.5B's sliding layers at the ssm_training
+#: phase's 8 x 2,048 (25/5 heads of 64, G 5, window 1,024)
 BWD_CASES = (
     ("granite", 8, 2048, 2048, 16, 8, 64, 0, True, 0.0),
     ("edge ladder", 8, 256, 256, 8, 4, 32, 0, True, 0.0),
@@ -3807,6 +3829,8 @@ BWD_CASES = (
     ("gemma3 window", 8, 2048, 2048, 8, 4, 256, 1024, True, 0.0),
     ("gemma3 window capped", 8, 2048, 2048, 8, 4, 256, 1024, True,
      SOFTCAP),
+    ("hymba window", HYBRID_BATCH, HYBRID_PROMPT, HYBRID_PROMPT, 25, 5, 64,
+     1024, True, 0.0),
 )
 #: (atol, rtol) of the backward against ``plain_backward`` on the same
 #: forward output and lse: bf16, one rounding of each output (2^-8
@@ -3816,9 +3840,11 @@ BWD_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}
 #: the rows' log-sum-exp against ``plain_with_lse``: float32 sums of up
 #: to 2,048 exponentials (``ex2.approx`` in the bf16 instance)
 LSE_TOL = 1e-3
-#: the training steps of ``training_cpu_agreement``: (what, batch, seq)
+#: the training steps of ``training_cpu_agreement``: (what, batch, seq);
+#: Hymba's 1,152 tokens run past its 1,024-token window
 TRAIN_AGREE = (("edge ladder", 8, 256), ("granite 2 layers", 4, 256),
-               ("whisper 2+2 layers", 2, 64))
+               ("whisper 2+2 layers", 2, 64),
+               ("falcon-mamba 2 layers", 2, 256), ("hymba 2 layers", 1, 1152))
 #: (atol, rtol) of the card's step against the CPU's, both bf16 from the
 #: same params and batch: the loss (~ln V, a mean over every token), the
 #: aux loss (a Switch balance term: one token whose top expert flips on a
@@ -3827,6 +3853,28 @@ TRAIN_AGREE = (("edge ladder", 8, 256), ("granite 2 layers", 4, 256),
 TRAIN_TOL = {"loss": (0.0, 2e-3), "aux_loss": (0.0, 2e-2),
              "grad_norm": (0.0, 5e-2)}
 LM_STEPS, LM_BATCH, LM_SEQ = 20, 8, 2048
+#: P3 at Falcon-Mamba's 64 x 256 x 8,192 (the card check of the Falcon
+#: cut) and at Hymba's 8 x 2,048 x 3,200 (its training step's shape), bf16
+#: u, Hymba also with float32 u: (label, Bt, S, di, u's type, a non-zero
+#: final-state gradient)
+SCAN_BWD_CASES = (
+    ("falcon", SERVE_BATCH, PROMPT, 8192, "bfloat16", False),
+    ("hymba", HYBRID_BATCH, HYBRID_PROMPT, 3200, "bfloat16", True),
+    ("hymba", HYBRID_BATCH, HYBRID_PROMPT, 3200, "float32", False))
+#: P3 against ``plain_backward``: du within atol = rtol of u's type (one
+#: rounding to bf16 on each side; float32 sums over 16 states, the decays
+#: by ``ex2.approx``), ddt (float32) within the float32 one; dA, dD, dB,
+#: dC (sums over rows and time, or over channels) within a share of the
+#: leaf's largest magnitude
+SCAN_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+SCAN_BWD_REDUCED = 1e-3
+SCAN_GRADS = ("du", "ddt", "dA", "dB", "dC", "dD")
+#: exponentials an element P3 takes: 1.5 rebuilding a chunk's states in
+#: two halves, 1 in the reverse walk
+SCAN_BWD_EXPS = 2.5
+#: u's type in the mangled names of P3's walk (``selective_scan_bwd_kernel
+#: <T>``), by the case's type
+SCAN_BWD_TYPES = {"bfloat16": "I13__nv_bfloat16EE", "float32": "IfEE"}
 
 
 def bwd_regs(ptxas, dtype, hd, cap=False):
@@ -3962,26 +4010,145 @@ def attention_backward(torch, flash_attention, ptxas):
                     "library_ms")})
 
 
+def scan_backward(torch, selective_scan, ptxas):
+    """K6's ``kStates`` instance and P3 at every case of
+    ``SCAN_BWD_CASES``, inputs drawn as ``scan_phase`` draws them and dy
+    ~ N(0, 1) in u's type: y and h_last of the ``kStates`` instance
+    bit-equal to the serving instance's, two P3 runs bit-equal, du, ddt,
+    dA, dB, dC, dD against ``plain_backward`` on the same inputs
+    (``SCAN_BWD_TOL``, ``SCAN_BWD_REDUCED``; reported as limit shares).
+    bf16 timed: P3 warm and cold, split by kernel (walk, sums; one
+    profiler window), its bound (``cost_backward`` at the FP32 peak), the
+    bytes its partial sums add, the SFU floor of one exponential an
+    element (``sfu_ms``) and of the design's 2.5 (``sfu_design_ms``), the
+    plain version, the ``kStates`` forward beside the serving one; each
+    line with the registers and spills of P3's walk and sums. Returns the
+    kernels-line entry (Hymba's bf16 case: the ssm_training path's
+    shape)."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(28)
+    n = SCAN_STATE
+    errs, main = [], None
+    for label, bt, s, di, dtype, with_dh in SCAN_BWD_CASES:
+        def rnd(*shape):
+            return torch.randn(shape, generator=g, device="cuda")
+        u = (rnd(bt, s, di) * 0.5).to(getattr(torch, dtype))
+        dt = F.softplus(rnd(bt, s, di)) * 0.1
+        args = (u, dt, -torch.exp(rnd(di, n) * 0.3), rnd(bt, s, n),
+                rnd(bt, s, n), rnd(di))
+        dy = rnd(bt, s, di).to(u.dtype)
+        dh = rnd(bt, di, n) if with_dh else None
+        y, h, states = selective_scan.selective_scan_cuda(*args, states=True)
+        y0, h0 = selective_scan.selective_scan_cuda(*args)
+        got = selective_scan.selective_scan_backward_cuda(*args, states, dy,
+                                                          dh)
+        again = selective_scan.selective_scan_backward_cuda(*args, states,
+                                                            dy, dh)
+        torch.cuda.synchronize()
+        what = f"scan backward {label} {dtype}"
+        check(torch.equal(y, y0) and torch.equal(h, h0),
+              f"{what}: the kStates instance's y or h_last is not the "
+              "serving instance's")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{what}: two runs differ")
+        del y, h, y0, h0, again
+        want = selective_scan.plain_backward(*args, dy, dh)
+        shares, leaf_errs = {}, {}
+        for name, x, w in zip(SCAN_GRADS, got, want):
+            x, w = x.float(), w.float()
+            leaf_errs[name] = float((x - w).abs().max())
+            if name in ("du", "ddt"):
+                tol = SCAN_BWD_TOL[dtype if name == "du" else "float32"]
+                shares[name] = limit_share(x, w, tol, tol)
+            else:
+                shares[name] = leaf_errs[name] / (
+                    SCAN_BWD_REDUCED * float(w.abs().max()))
+        check(max(shares.values()) <= 1.0, f"{what}: limit shares {shares}")
+        errs.append(max(leaf_errs.values()))
+        del want, got
+        regs = {k: instance_regs(ptxas, k) for k in (
+            "selective_scan_bwd_kernel" + SCAN_BWD_TYPES[dtype],
+            "selective_scan_bwd_sum_kernel")}
+        line = dict(phase="scan_backward", layout=label, shape=[bt, s, di, n],
+                    dtype=dtype, dh_last=with_dh, states_equal_serving=True,
+                    runs_bit_equal=True, max_abs_err=leaf_errs,
+                    tolerance_step=SCAN_BWD_TOL[dtype],
+                    tolerance_reduced=SCAN_BWD_REDUCED, limit_shares=shares,
+                    chunks=states.shape[1],
+                    blocks=[-(-di // selective_scan.BWD_CHANNELS), bt],
+                    registers_spills=regs)
+        if dtype != "bfloat16":         # checked, not timed
+            emit(**line)
+            del args, dy, dh, states
+            free_card(torch)
+            continue
+
+        def call():
+            return selective_scan.selective_scan_backward_cuda(
+                *args, states, dy, dh)
+        ops_, nbytes = selective_scan.cost_backward(bt, s, di, n,
+                                                    u.element_size())
+        b_ms, b_by = bound(nbytes, ops_)
+        exps = bt * s * di * n
+        part = selective_scan.partial_bytes(bt, s, di, n)
+        ms = hidden_ms(call, reps=10)
+        _, by_kernel = kernel_counts(torch, call, reps=3)
+        row = dict(ms=ms, plain_ms=hidden_ms(
+            lambda: selective_scan.plain_backward(*args, dy, dh), reps=2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            cold_ms=cold_ms(call, reps=5), bound_share=b_ms / ms,
+            by_kernel_ms={k[:60]: us / 3e3 for k, us in by_kernel.items()},
+            bytes=nbytes, partial_bytes=part,
+            moved_ms=(nbytes + part) / HBM_BYTES_PER_S * 1e3,
+            sfu_ms=exps / SFU_OPS_PER_S * 1e3,
+            sfu_design_ms=SCAN_BWD_EXPS * exps / SFU_OPS_PER_S * 1e3,
+            forward_states_ms=hidden_ms(
+                lambda: selective_scan.selective_scan_cuda(*args,
+                                                           states=True),
+                reps=10),
+            forward_ms=hidden_ms(
+                lambda: selective_scan.selective_scan_cuda(*args), reps=10))
+        emit(**line, **row)
+        if label == "hymba":
+            main = row
+        del args, dy, dh, states
+        free_card(torch)
+    return dict(name="selective_scan_backward", route="cuda",
+                source="src/repro_torch/csrc/selective_scan_backward.cu",
+                replaces="none: port-only (the reference differentiates "
+                "its jnp scan with jax.grad, src/repro/models/mamba.py:95 "
+                "selective_scan_ref)",
+                max_abs_err=max(errs), **{k: main[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")})
+
+
 def training_cuts(get_config):
     """(what, config, batch, seq) of ``TRAIN_AGREE``: the edge ladder
     whole, Granite at full width cut to 2 layers, Whisper at full width
-    cut to 2 encoder and 2 decoder layers over its 1,500 frames."""
+    cut to 2 encoder and 2 decoder layers over its 1,500 frames,
+    Falcon-Mamba at full width cut to 2 of its 64 layers, Hymba at full
+    width cut to its layers 0 (global) and 1 (window 1,024)."""
     edge = get_config("edge-ladder")
     granite = dataclasses.replace(get_config(MOE_ARCH), n_layers=2)
     whisper = dataclasses.replace(get_config(AUDIO_ARCH), n_layers=2,
                                   n_enc_layers=2)
+    falcon = dataclasses.replace(get_config(SSM_ARCH), n_layers=2)
+    hymba = dataclasses.replace(get_config(HYBRID_ARCH), n_layers=2,
+                                global_layers=(0,))
     return [(what, cfg, b, s) for (what, b, s), cfg in
-            zip(TRAIN_AGREE, (edge, granite, whisper))]
+            zip(TRAIN_AGREE, (edge, granite, whisper, falcon, hymba))]
 
 
 def training_cpu_agreement(torch, get_config, build_model, training,
-                           flash_attention):
+                           flash_attention, selective_scan):
     """One ``make_train_step`` step on the card and on the CPU from the
     same params (drawn on the card, copied) and batch, bf16 on both, for
     each of ``training_cuts``: the loss, aux loss and gradient norm
-    within ``TRAIN_TOL`` (with their limit shares), and the K3 forward
-    and P2 launches of the card's step (the forward's include the
-    rematerialised layers' second run)."""
+    within ``TRAIN_TOL`` (with their limit shares), and the launches of
+    the card's step: K3's forward and P2 where the cut has attention, K6's
+    ``kStates`` forward and P3 where it has Mamba blocks (each forward
+    twice a layer: the rematerialised layers run again)."""
     import numpy as np
     from repro_torch.training.optimizer import tree_leaves, tree_map
     opt = training.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=20)
@@ -3999,17 +4166,16 @@ def training_cpu_agreement(torch, get_config, build_model, training,
             batch["frames"] = torch.tensor(rng.standard_normal(
                 (b, cfg.enc_seq, cfg.d_model)).astype(np.float32))
         step = training.make_train_step(model, opt)
-        f0 = flash_attention.KERNEL.launches
-        b0 = flash_attention.BACKWARD.launches
+        counted = [flash_attention.KERNEL, flash_attention.BACKWARD,
+                   selective_scan.KERNEL, selective_scan.BACKWARD]
+        before = [k.launches for k in counted]
         t0 = time.perf_counter()
         _, card = step({"params": params,
                         "opt": training.init_opt_state(params)},
                        {k: v.cuda() for k, v in batch.items()})
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
-        launches = {"flash_attention": flash_attention.KERNEL.launches - f0,
-                    "flash_attention_backward":
-                        flash_attention.BACKWARD.launches - b0}
+        launches = {k.name: k.launches - b for k, b in zip(counted, before)}
         t0 = time.perf_counter()
         _, cpu = step({"params": p_cpu, "opt": training.init_opt_state(
             p_cpu)}, batch)
@@ -4029,41 +4195,38 @@ def training_cpu_agreement(torch, get_config, build_model, training,
             check(np.isfinite(a) and share <= 1.0,
                   f"training {what}: card {key} {a} vs CPU {c}")
         line["tolerance"] = {k: list(v) for k, v in TRAIN_TOL.items()}
-        check(launches["flash_attention"] > 0
-              and launches["flash_attention_backward"] > 0,
-              f"training {what}: K3 or P2 never launched: {launches}")
+        attn, scan = cfg.arch_type != "ssm", cfg.arch_type in ("ssm",
+                                                               "hybrid")
+        want = [k.name for k, on in zip(counted, (attn, attn, scan, scan))
+                if on]
+        check(all(launches[k] > 0 for k in want),
+              f"training {what}: one of {want} never launched: {launches}")
         emit(**line)
         del params, p_cpu, card, cpu
         free_card(torch)
 
 
-def lm_training(torch, train_cli, load_pytree, tuning, kernels):
-    """``launch.train.main`` on Granite-3.0-1B-A400M at full size, 20 steps
-    at 8 x 2,048 with ``--save``: its loss lines (the last loss below the
-    first, every gradient norm finite), tokens/s, the card's peak memory
-    and the host's peak RSS, the saved params read back bit-equal; then,
-    on the trained state, a step's wall and device ms, its profile (top
-    kernels, the K3 forward's and P2's share, busy), and one step under
-    ``remat_policy="dots"`` (ms, peak). Returns the launches of
-    ``kernels`` in ``main`` alone: their counts are set to 0 just before
-    it and read just after."""
+def train_main(torch, train_cli, arch, kernels, phase, *extra):
+    """``launch.train.main`` on ``arch`` at full size, ``LM_STEPS`` steps
+    at ``LM_BATCH`` x ``LM_SEQ`` (plus ``extra`` arguments), its output
+    parsed: the last loss below the first and every loss and gradient norm
+    finite, else it raises. Returns (main's result, its loss lines, the
+    parsed steps, main's seconds, the launches of ``kernels`` in ``main``
+    alone: their counts are set to 0 just before it and read just after,
+    the card's peak GB)."""
     import contextlib
     import io
     import math
     import re
-    import resource
-    import shutil
-    out_dir = os.path.join(ROOT, "build", "lm_training")
-    path = os.path.join(out_dir, "params")
     free_card(torch)
     buf = io.StringIO()
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        run = train_cli.main(["--arch", MOE_ARCH, "--steps", str(LM_STEPS),
+        run = train_cli.main(["--arch", arch, "--steps", str(LM_STEPS),
                               "--batch", str(LM_BATCH), "--seq",
-                              str(LM_SEQ), "--save", path])
+                              str(LM_SEQ), *extra])
     main_s = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels if k.launches}
     train_peak = peak_gb(torch)
@@ -4072,12 +4235,103 @@ def lm_training(torch, train_cli, load_pytree, tuning, kernels):
              for ln in lines]
     steps = [(int(m.group(1)), float(m.group(2)), float(m.group(3)),
               float(m.group(4))) for m in steps if m]
-    check(len(steps) >= 2, f"lm_training printed no loss lines: {lines}")
+    check(len(steps) >= 2, f"{phase} printed no loss lines: {lines}")
     check(all(math.isfinite(x[1]) and math.isfinite(x[2]) for x in steps),
-          f"lm_training: a loss or gradient norm is not finite: {steps}")
+          f"{phase}: a loss or gradient norm is not finite: {steps}")
     check(steps[-1][1] < steps[0][1],
-          f"lm_training: the last loss {steps[-1][1]} is not below the "
+          f"{phase}: the last loss {steps[-1][1]} is not below the "
           f"first {steps[0][1]}")
+    return run, lines, steps, main_s, launches, train_peak
+
+
+def step_walls(torch, one_step, n=3):
+    """Host ms of ``n`` synchronised calls of ``one_step``."""
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+class RssPeak:
+    """The host's peak resident memory while the ``with`` block runs, in
+    GB, from ``/proc/self/statm`` read every 50 ms on a thread (the
+    process's ``ru_maxrss`` keeps the peak of every earlier phase)."""
+
+    def __enter__(self):
+        import threading
+        self.gb, self._stop = 0.0, threading.Event()
+        page = os.sysconf("SC_PAGE_SIZE")
+
+        def poll():
+            while True:
+                with open("/proc/self/statm") as f:
+                    self.gb = max(self.gb, int(f.read().split()[1]) * page
+                                  / 1e9)
+                if self._stop.wait(0.05):
+                    return
+        self._thread = threading.Thread(target=poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def ssm_training(torch, train_cli, kernels):
+    """``launch.train.main`` on Hymba-1.5B at full size, 20 steps at 8 x
+    2,048 (``train_main``): its loss lines, tokens/s, the card's peak
+    memory (below the card's 80 GB) and the host's peak RSS over the
+    phase; then, on the trained state, three steps' wall ms (tokens/s a
+    step) and one step's profile (top kernels, K6's, P3's, K3's and P2's
+    ms and shares, busy). Returns the launches of ``kernels`` in ``main``
+    alone."""
+    with RssPeak() as rss:
+        run, lines, steps, main_s, launches, train_peak = train_main(
+            torch, train_cli, HYBRID_ARCH, kernels, "ssm_training")
+    check(train_peak < 80.0, f"ssm_training: peak {train_peak} GB")
+    state, step_fn, batch = run["state"], run["step_fn"], run["batch"]
+    from repro_torch.training.optimizer import tree_leaves_with_path
+    n_params = sum(p.numel() for _, p in tree_leaves_with_path(
+        state["params"]))
+    emit(phase="ssm_training", arch=HYBRID_ARCH, steps=LM_STEPS,
+         batch=LM_BATCH, seq=LM_SEQ, params=n_params, lines=lines,
+         first_loss=steps[0][1], last_loss=steps[-1][1],
+         loop_s=run["seconds"], tokens_per_s=LM_STEPS * LM_BATCH * LM_SEQ
+         / run["seconds"], main_s=main_s, peak_gb=train_peak,
+         host_peak_rss_gb=rss.gb, launches=launches)
+
+    def one_step():
+        step_fn(state, batch)
+    walls = step_walls(torch, one_step)
+    emit(phase="ssm_training_step", arch=HYBRID_ARCH, batch=LM_BATCH,
+         seq=LM_SEQ, wall_ms=walls, tokens_per_s_step=LM_BATCH * LM_SEQ
+         / (min(walls) / 1e3))
+    step_profile(torch, one_step, steps=1, top=8, path="ssm_training",
+                 what="train step")
+    del run, state, step_fn, batch
+    free_card(torch)
+    return launches
+
+
+def lm_training(torch, train_cli, load_pytree, tuning, kernels):
+    """``launch.train.main`` on Granite-3.0-1B-A400M at full size, 20 steps
+    at 8 x 2,048 with ``--save`` (``train_main``): its loss lines,
+    tokens/s, the card's peak memory and the host's peak RSS, the saved
+    params read back bit-equal; then, on the trained state, a step's wall
+    and device ms, its profile (top kernels, the K3 forward's and P2's
+    share, busy), and one step under ``remat_policy="dots"`` (ms, peak).
+    Returns the launches of ``kernels`` in ``main`` alone."""
+    import resource
+    import shutil
+    out_dir = os.path.join(ROOT, "build", "lm_training")
+    path = os.path.join(out_dir, "params")
+    run, lines, steps, main_s, launches, train_peak = train_main(
+        torch, train_cli, MOE_ARCH, kernels, "lm_training", "--save", path)
     state, step_fn, batch = run["state"], run["step_fn"], run["batch"]
     params = state["params"]
     back = load_pytree(path, params)
@@ -4103,13 +4357,7 @@ def lm_training(torch, train_cli, load_pytree, tuning, kernels):
 
     def one_step():
         step_fn(state, batch)
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        one_step()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
+    walls = step_walls(torch, one_step)
     step_profile(torch, one_step, steps=1, top=8, path="lm_training",
                  what="train step")
     tuning.FLAGS["remat_policy"] = "dots"
@@ -4165,7 +4413,8 @@ def main():
                        int8_matmul.KERNEL]
     ssm_kernels = serving_kernels + [selective_scan.KERNEL]
     kernels = fleet_kernels + ssm_kernels + [best_response.KERNEL,
-                                             flash_attention.BACKWARD]
+                                             flash_attention.BACKWARD,
+                                             selective_scan.BACKWARD]
 
     emit(phase="env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0))
@@ -4397,15 +4646,27 @@ def main():
         check(n > 0, f"{name} was never launched on the encoder-decoder "
               "path")
 
-    # the training path: K3's lse instances and P2 against their plain
-    # versions at the training shapes; one step card vs CPU on three
-    # cuts; then launch.train's main on Granite-3.0-1B-A400M at full
-    # size, its launches counted from here
+    # the training path: K3's lse instances and P2, K6's kStates instance
+    # and P3 against their plain versions at the training shapes; one
+    # step card vs CPU on five cuts; then launch.train's main on
+    # Hymba-1.5B and on Granite-3.0-1B-A400M at full size, the launches of
+    # each counted from its start
     free_card(torch)
     entries.append(attention_backward(
         torch, flash_attention, ptxas[flash_attention.BACKWARD.name]))
+    entries.append(scan_backward(torch, selective_scan,
+                                 ptxas[selective_scan.BACKWARD.name]))
     training_cpu_agreement(torch, get_config, build_model, training,
-                           flash_attention)
+                           flash_attention, selective_scan)
+    ssm_train_kernels = [flash_attention.KERNEL, flash_attention.BACKWARD,
+                         selective_scan.KERNEL, selective_scan.BACKWARD]
+    ssm_train_launches = ssm_training(torch, train_cli, kernels)
+    emit(phase="launches", ssm_training=ssm_train_launches)
+    for k in ssm_train_kernels:
+        check(ssm_train_launches.get(k.name, 0) > 0,
+              f"{k.name} was never launched on the ssm training path")
+    launches[selective_scan.BACKWARD.name] = \
+        ssm_train_launches[selective_scan.BACKWARD.name]
     train_kernels = [flash_attention.KERNEL, flash_attention.BACKWARD]
     train_launches = lm_training(torch, train_cli, load_pytree, tuning,
                                  kernels)
@@ -4427,6 +4688,7 @@ def main():
                "moe_path": moe_launches, "dense_serving": dense_launches,
                "vlm_and_cuts": vlm_launches,
                "audio_serving": audio_launches,
+               "ssm_training": ssm_train_launches,
                "lm_training": train_launches}
     for e in entries:
         e["launches"] = launches[e["name"]]

@@ -48,6 +48,14 @@
 // chunk is computed, and y is written out coalesced after the chunk, by the
 // lanes that staged its u. Channels past di (di = 3,200 is no multiple of
 // 128) are bounds-checked rather than padded.
+//
+// Training (template flag kStates): the flagged instance also writes the
+// state entering every chunk, h before step 32 c, to states (Bt, ceil(S /
+// 32), di, N) float32 (zeros for c = 0), from the registers it holds at the
+// chunk's start. The backward (selective_scan_backward.cu, P3) rebuilds
+// each chunk's states from there. The store is under if constexpr, so the
+// serving instance's code is unchanged, and the flagged instance's y and
+// h_last are the serving instance's bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -81,20 +89,21 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-template <typename T, int L>
+template <typename T, int L, bool kStates>
 __global__ void __launch_bounds__(kThreads)
 selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
                       const float* __restrict__ A,
                       const float* __restrict__ Bm,
                       const float* __restrict__ Cm,
                       const float* __restrict__ D, T* __restrict__ y,
-                      float* __restrict__ h_last, int S, int di, int N) {
-  constexpr int kStates = kMaxState / L;  // states per lane
+                      float* __restrict__ h_last,
+                      float* __restrict__ states, int S, int di, int N) {
+  constexpr int kPerLane = kMaxState / L; // states per lane
   constexpr int kCh = kThreads / L;       // channels per block
   constexpr int kUD = kChunk / L;         // u / dt values staged per lane
   constexpr int kBC = kChunk * kMaxState / kThreads;  // B/C per lane
   static_assert(kChunk * kMaxState % kThreads == 0, "B/C staging");
-  static_assert(kStates % 4 == 0, "float4 reads of B and C");
+  static_assert(kPerLane % 4 == 0, "float4 reads of B and C");
   __shared__ float u_s[kChunk][kCh];
   __shared__ float dt_s[kChunk][kCh];
   __shared__ float part_s[kChunk][kThreads];  // each lane's share of y
@@ -102,7 +111,7 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
   __shared__ __align__(16) float c_s[kChunk][kMaxState];
   const int tid = threadIdx.x;
   const int ch = tid / L;                // this lane's channel in the block
-  const int s0 = (tid % L) * kStates;    // and its first state
+  const int s0 = (tid % L) * kPerLane;   // and its first state
   const int d0 = blockIdx.x * kCh;
   const int d = d0 + ch;
   const bool live = d < di;
@@ -119,9 +128,9 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
     (&b_s[0][0])[i] = 0.f;
     (&c_s[0][0])[i] = 0.f;
   }
-  float a[kStates], h[kStates];
+  float a[kPerLane], h[kPerLane];
 #pragma unroll
-  for (int n = 0; n < kStates; ++n) {
+  for (int n = 0; n < kPerLane; ++n) {
     a[n] = (live && s0 + n < N) ? A[(long long)d * N + s0 + n] * kLog2e
                                 : 0.f;
     h[n] = 0.f;
@@ -167,6 +176,15 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
         c_s[i / N][i % N] = cr[k];
       }
     }
+    if constexpr (kStates) {  // the state entering this chunk
+      if (live) {
+        float* out = states + (((long long)b * ((S + kChunk - 1) / kChunk) +
+                                t0 / kChunk) * di + d) * N;
+#pragma unroll
+        for (int n = 0; n < kPerLane; ++n)
+          if (s0 + n < N) out[s0 + n] = h[n];
+      }
+    }
     __syncthreads();
     if (t0 + kChunk < S) fetch(t0 + kChunk);  // loads overlap the compute
 #pragma unroll(kUnroll)
@@ -177,7 +195,7 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
       const float4* cq = reinterpret_cast<const float4*>(&c_s[i][s0]);
       float acc = 0.f;
 #pragma unroll
-      for (int q = 0; q < kStates / 4; ++q) {
+      for (int q = 0; q < kPerLane / 4; ++q) {
         const float4 bv = bq[q], cv = cq[q];
         const float bn[4] = {bv.x, bv.y, bv.z, bv.w};
         const float cn[4] = {cv.x, cv.y, cv.z, cv.w};
@@ -204,62 +222,79 @@ selective_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
   if (live) {
     float* out = h_last + ((long long)b * di + d) * N;
 #pragma unroll
-    for (int n = 0; n < kStates; ++n)
+    for (int n = 0; n < kPerLane; ++n)
       if (s0 + n < N) out[s0 + n] = h[n];
   }
 }
 
-template <typename T, int L>
+template <typename T, int L, bool kStates>
 cudaError_t launch(const void* u, const void* dt, const void* A,
                    const void* B, const void* C, const void* D, void* y,
-                   void* h_last, int Bt, int S, int di, int N,
+                   void* h_last, void* states, int Bt, int S, int di, int N,
                    cudaStream_t stream) {
   constexpr int kCh = kThreads / L;
   const dim3 grid((di + kCh - 1) / kCh, Bt);
-  selective_scan_kernel<T, L><<<grid, kThreads, 0, stream>>>(
+  selective_scan_kernel<T, L, kStates><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(u), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const float*>(B),
       static_cast<const float*>(C), static_cast<const float*>(D),
-      static_cast<T*>(y), static_cast<float*>(h_last), S, di, N);
+      static_cast<T*>(y), static_cast<float*>(h_last),
+      static_cast<float*>(states), S, di, N);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kStates>
 cudaError_t launch_lanes(int lanes, const void* u, const void* dt,
                          const void* A, const void* B, const void* C,
-                         const void* D, void* y, void* h_last, int Bt, int S,
-                         int di, int N, cudaStream_t s) {
+                         const void* D, void* y, void* h_last, void* states,
+                         int Bt, int S, int di, int N, cudaStream_t s) {
   switch (lanes) {
     case 2:
-      return launch<T, 2>(u, dt, A, B, C, D, y, h_last, Bt, S, di, N, s);
+      return launch<T, 2, kStates>(u, dt, A, B, C, D, y, h_last, states, Bt,
+                                   S, di, N, s);
     case 4:
-      return launch<T, 4>(u, dt, A, B, C, D, y, h_last, Bt, S, di, N, s);
+      return launch<T, 4, kStates>(u, dt, A, B, C, D, y, h_last, states, Bt,
+                                   S, di, N, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+template <typename T>
+cudaError_t launch_flag(int lanes, const void* u, const void* dt,
+                        const void* A, const void* B, const void* C,
+                        const void* D, void* y, void* h_last, void* states,
+                        int Bt, int S, int di, int N, cudaStream_t s) {
+  return states != nullptr
+             ? launch_lanes<T, true>(lanes, u, dt, A, B, C, D, y, h_last,
+                                     states, Bt, S, di, N, s)
+             : launch_lanes<T, false>(lanes, u, dt, A, B, C, D, y, h_last,
+                                      states, Bt, S, di, N, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32 u and y, 1 = bfloat16 u and y; lanes: 2 or 4 lanes
-// per (batch, channel), from the wrapper's plan
+// per (batch, channel), from the wrapper's plan; states: null for the
+// serving instance, else the (Bt, ceil(S / 32), di, N) float32 chunk-entry
+// states the kStates instance writes
 extern "C" int selective_scan_launch(const void* u, const void* dt,
                                      const void* A, const void* B,
                                      const void* C, const void* D, void* y,
-                                     void* h_last, int Bt, int S, int di,
-                                     int N, int dtype, int lanes,
-                                     void* stream) {
+                                     void* h_last, void* states, int Bt,
+                                     int S, int di, int N, int dtype,
+                                     int lanes, void* stream) {
   if (Bt <= 0 || di <= 0) return 0;
   if (N <= 0 || N > kMaxState || S < 0 || Bt > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_lanes<float>(lanes, u, dt, A, B, C, D, y, h_last, Bt, S, di,
-                              N, s);
+    err = launch_flag<float>(lanes, u, dt, A, B, C, D, y, h_last, states, Bt,
+                             S, di, N, s);
   else if (dtype == 1)
-    err = launch_lanes<__nv_bfloat16>(lanes, u, dt, A, B, C, D, y, h_last,
-                                      Bt, S, di, N, s);
+    err = launch_flag<__nv_bfloat16>(lanes, u, dt, A, B, C, D, y, h_last,
+                                     states, Bt, S, di, N, s);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(err);

@@ -160,28 +160,58 @@ def int8_matmul(x_q, sx, w_q, sw, *, out_dtype=torch.float32):
     return fn(x_q, sx, w_q, sw, out_dtype)
 
 
+class _SelectiveScan(torch.autograd.Function):
+    """K6 with its gradient: the forward saves its inputs and the state
+    entering every 32-step chunk (the ``kStates`` instance on the card;
+    ``plain`` on the CPU, which needs none); the backward is P3
+    (``selective_scan_backward_cuda``) on the card and ``plain_backward``
+    on the CPU. A gradient autograd leaves out (h_last's, where only y
+    is used) reaches the backward as None and is taken as zero."""
+
+    @staticmethod
+    def forward(ctx, u, dt, A, B, C, D):
+        ctx.set_materialize_grads(False)
+        if _route(u) == "cpu":
+            (y, h_last), states = _selective_scan.plain(u, dt, A, B, C, D), \
+                None
+        else:
+            y, h_last, states = _selective_scan.selective_scan_cuda(
+                u, dt, A, B, C, D, states=True)
+        ctx.save_for_backward(u, dt, A, B, C, D, states)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        u, dt, A, B, C, D, states = ctx.saved_tensors
+        dy = torch.zeros_like(u) if dy is None else dy.contiguous()
+        if _route(u) == "cpu":
+            return _selective_scan.plain_backward(u, dt, A, B, C, D, dy,
+                                                  dh_last)
+        return _selective_scan.selective_scan_backward_cuda(
+            u, dt, A, B, C, D, states, dy,
+            None if dh_last is None else dh_last.contiguous())
+
+
 def selective_scan(u, dt, A, B, C, D):
     """Mamba-1 selective scan. u, dt: (Bt, S, di); A: (di, N); B, C: (Bt,
     S, N) (slices of a projection are made contiguous here); D: (di,).
     Returns ``(y (Bt, S, di) in u's dtype, h_last (Bt, di, N) f32)``; see
-    ``ref.selective_scan_ref``."""
+    ``ref.selective_scan_ref``. Differentiable: where grad mode is on and
+    an input requires grad, the call goes through ``_SelectiveScan`` (K6
+    writing its chunk states, P3 for the gradient); otherwise it is the
+    serving call."""
     if is_fake(u):
         bt, seq, di = u.shape
         record_cost("selective_scan", *_selective_scan.cost(
             bt, seq, di, A.shape[1], u.element_size()))
         return (torch.empty_like(u),
                 u.new_empty((bt, di, A.shape[1]), dtype=torch.float32))
+    args = tuple(t.contiguous() for t in (u, dt, A, B, C, D))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _SelectiveScan.apply(*args)
     if _route(u) == "cpu":
-        return _selective_scan.plain(u, dt, A, B, C, D)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (u, dt, A, B, C, D)):
-        raise NotImplementedError(
-            "K6 (selective_scan) has no backward kernel yet: training an "
-            "ssm or hybrid model on the card waits for the K6 backward "
-            "(ROADMAP queue 1)")
-    return _selective_scan.selective_scan_cuda(
-        u.contiguous(), dt.contiguous(), A.contiguous(), B.contiguous(),
-        C.contiguous(), D.contiguous())
+        return _selective_scan.plain(*args)
+    return _selective_scan.selective_scan_cuda(*args)
 
 
 def best_response_round(idx, pu_table, end_b, edge_b, member, feas, cand_e,

@@ -16,6 +16,16 @@ lanes of a warp, from the shape alone: four where the (batch, channel)
 grid is too thin to fill the card. See the source note in the ``.cu``
 file. ``di`` need not be a multiple of anything: the kernel
 bounds-checks, where the Pallas wrapper padded to its block.
+
+Training (``ops.selective_scan`` under autograd): the forward's
+``states=True`` instance (template flag ``kStates``) also writes the
+state entering every 32-step chunk, and the backward, P3
+(``csrc/selective_scan_backward.cu``, port-only: the reference
+differentiates its jnp scans with ``jax.grad``), rebuilds each chunk's
+states from there and walks it in reverse, writing du, ddt, dA, dB, dC
+and dD (the sums over channels, batch rows and time as per-block
+partials added in a fixed order by a second launch: no atomics). Its
+plain version is ``plain_backward``, the explicit reverse recurrence.
 """
 from __future__ import annotations
 
@@ -24,7 +34,10 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import I, P, CudaKernel, check_cuda
 
-KERNEL = CudaKernel("selective_scan", [P] * 8 + [I] * 6)
+KERNEL = CudaKernel("selective_scan", [P] * 9 + [I] * 6)
+#: the backward, P3: u, dt, A, B, C, D, the chunk states, dy, dh_last; du,
+#: ddt, dA, dB, dC, dD; the dB / dC / dA / dD partial sums
+BACKWARD = CudaKernel("selective_scan_backward", [P] * 19 + [I] * 5)
 
 #: the largest state the kernel keeps in registers
 MAX_STATE = 16
@@ -38,6 +51,10 @@ THREADS = 128
 #: blocks of four warps on each
 SMS = 132
 WANT_BLOCKS = 4 * SMS
+#: steps between two states the ``kStates`` instance writes
+CHUNK = 32
+#: channels of one block of the backward (four lanes a channel)
+BWD_CHANNELS = 32
 
 #: the plain version (a CPU tensor takes it)
 plain = ref.selective_scan_ref
@@ -60,29 +77,115 @@ def plan(bt: int, di: int, n: int) -> tuple[int, int]:
     return lanes, MAX_STATE // lanes
 
 
-def selective_scan_cuda(u, dt, A, B, C, D):
-    """Launch the CUDA kernel. ``u``: (Bt, S, di) float32 or bfloat16;
-    ``dt``: (Bt, S, di) f32; ``A``: (di, N) f32 with N <= ``MAX_STATE``;
-    ``B``/``C``: (Bt, S, N) f32; ``D``: (di,) f32; all contiguous.
-    Returns ``(y (Bt, S, di) in u's dtype, h_last (Bt, di, N) f32)``."""
+def plain_backward(u, dt, A, B, C, D, dy, dh_last=None):
+    """The backward's plain version, the explicit reverse recurrence in
+    float32: the forward's states rebuilt and kept, then with g the
+    gradient of h_t, for t = S - 1 ... 0: ``g += C_t dy_t``; ``dC_t =
+    sum_d h_t dy_t``; ``du_t = D dy_t + dt_t sum_n g B_t``; ``ddt_t =
+    sum_n g (A a_t h_{t-1} + u_t B_t)``; ``dB_t = sum_d g dt_t u_t``;
+    ``dA += g dt_t a_t h_{t-1}``; then ``g *= a_t`` (a_t = exp(dt_t A));
+    and ``dD = sum dy u``. ``dy`` (Bt, S, di) in y's dtype (u's);
+    ``dh_last`` (Bt, di, N) or None (zero). Returns (du in u's dtype,
+    ddt, dA, dB, dC, dD in float32)."""
+    uf, dtf, dyf = u.float(), dt.float(), dy.float()
+    Af, Bf, Cf = A.float(), B.float(), C.float()
+    bt, s, di = u.shape
+    h = torch.zeros((bt, di, A.shape[1]), dtype=torch.float32,
+                    device=u.device)
+    h_prev = []
+    for t in range(s):
+        h_prev.append(h)
+        h = h * torch.exp(dtf[:, t, :, None] * Af) \
+            + (dtf[:, t] * uf[:, t])[..., None] * Bf[:, t, None, :]
+    g = torch.zeros_like(h) if dh_last is None else dh_last.float()
+    du, ddt = torch.empty_like(uf), torch.empty_like(dtf)
+    dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)
+    dA = torch.zeros_like(Af)
+    for t in reversed(range(s)):
+        hp, dyt = h_prev[t], dyf[:, t, :, None]
+        a = torch.exp(dtf[:, t, :, None] * Af)
+        dut = (dtf[:, t] * uf[:, t])[..., None]
+        g = g + Cf[:, t, None, :] * dyt
+        dC[:, t] = ((hp * a + dut * Bf[:, t, None, :]) * dyt).sum(1)
+        gb = (g * Bf[:, t, None, :]).sum(-1)
+        du[:, t] = D.float() * dyf[:, t] + dtf[:, t] * gb
+        p = g * a * hp
+        ddt[:, t] = (p * Af).sum(-1) + uf[:, t] * gb
+        dB[:, t] = (g * dut).sum(1)
+        dA += (p * dtf[:, t, :, None]).sum(0)
+        g = g * a
+    return du.to(u.dtype), ddt, dA, dB, dC, (dyf * uf).sum((0, 1))
+
+
+def _check_args(u, dt, A, B, C, D):
+    """The checks both kernels make of the forward's inputs."""
     bt, s, di = u.shape
     n = A.shape[-1]
     if u.dtype not in DTYPES:
         raise TypeError(f"selective_scan takes float32 or bfloat16 u, got "
                         f"{u.dtype}")
-    lanes, _ = plan(bt, di, n)
     check_cuda("u", u, u.dtype)
     check_cuda("dt", dt, torch.float32, (bt, s, di))
     check_cuda("A", A, torch.float32, (di, n))
     check_cuda("B", B, torch.float32, (bt, s, n))
     check_cuda("C", C, torch.float32, (bt, s, n))
     check_cuda("D", D, torch.float32, (di,))
+
+
+def selective_scan_cuda(u, dt, A, B, C, D, *, states: bool = False):
+    """Launch the CUDA kernel. ``u``: (Bt, S, di) float32 or bfloat16;
+    ``dt``: (Bt, S, di) f32; ``A``: (di, N) f32 with N <= ``MAX_STATE``;
+    ``B``/``C``: (Bt, S, N) f32; ``D``: (di,) f32; all contiguous.
+    Returns ``(y (Bt, S, di) in u's dtype, h_last (Bt, di, N) f32)``;
+    with ``states``, also the state entering each ``CHUNK``-step chunk,
+    (Bt, ceil(S / CHUNK), di, N) f32, from the ``kStates`` instance."""
+    bt, s, di = u.shape
+    n = A.shape[-1]
+    lanes, _ = plan(bt, di, n)
+    _check_args(u, dt, A, B, C, D)
     y = torch.empty_like(u)
     h_last = torch.empty((bt, di, n), dtype=torch.float32, device=u.device)
+    chunk_states = torch.empty((bt, -(-s // CHUNK), di, n),
+                               dtype=torch.float32, device=u.device) \
+        if states else None
     KERNEL.launch(u.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                   C.data_ptr(), D.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-                  bt, s, di, n, DTYPES[u.dtype], lanes)
-    return y, h_last
+                  chunk_states.data_ptr() if states else None, bt, s, di, n,
+                  DTYPES[u.dtype], lanes)
+    return (y, h_last, chunk_states) if states else (y, h_last)
+
+
+def selective_scan_backward_cuda(u, dt, A, B, C, D, states, dy,
+                                 dh_last=None):
+    """Launch the backward kernels (P3): the reverse walk, then the sums
+    of its partials, one count. ``u``..``D`` as ``selective_scan_cuda``
+    takes them; ``states`` its ``states=True`` output; ``dy`` (Bt, S, di)
+    in u's dtype; ``dh_last`` (Bt, di, N) f32 or None (zero); all
+    contiguous. Returns (du in u's dtype, ddt, dA, dB, dC, dD in f32)."""
+    bt, s, di = u.shape
+    n = A.shape[-1]
+    plan(bt, di, n)             # raises on a state size no kernel takes
+    _check_args(u, dt, A, B, C, D)
+    check_cuda("states", states, torch.float32, (bt, -(-s // CHUNK), di, n))
+    check_cuda("dy", dy, u.dtype, u.shape)
+    if dh_last is not None:
+        check_cuda("dh_last", dh_last, torch.float32, (bt, di, n))
+    f32 = dict(dtype=torch.float32, device=u.device)
+    du, ddt = torch.empty_like(u), torch.empty_like(dt)
+    dA, dB, dC, dD = (torch.empty_like(t) for t in (A, B, C, D))
+    part_bc = torch.empty((2, bt, -(-di // BWD_CHANNELS), s, n), **f32)
+    part_a = torch.empty((bt, di, n), **f32)
+    part_d = torch.empty((bt, di), **f32)
+    BACKWARD.launch(u.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                    C.data_ptr(), D.data_ptr(), states.data_ptr(),
+                    dy.data_ptr(),
+                    dh_last.data_ptr() if dh_last is not None else None,
+                    du.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+                    dB.data_ptr(), dC.data_ptr(), dD.data_ptr(),
+                    part_bc[0].data_ptr(), part_bc[1].data_ptr(),
+                    part_a.data_ptr(), part_d.data_ptr(), bt, s, di, n,
+                    DTYPES[u.dtype])
+    return du, ddt, dA, dB, dC, dD
 
 
 def cost(bt: int, s: int, di: int, n: int, u_elem: int):
@@ -95,3 +198,29 @@ def cost(bt: int, s: int, di: int, n: int, u_elem: int):
     nbytes = bt * s * di * (2 * u_elem + 4) \
         + 4 * (di * n + di + 2 * bt * s * n + bt * di * n)
     return ops, nbytes
+
+
+def cost_backward(bt: int, s: int, di: int, n: int, u_elem: int):
+    """(FP32 operations, bytes) of one backward call (P3) — the arithmetic
+    of its bound in ``PERF.md`` §6. Per (batch, step, channel, state): the
+    rebuilt state (dt*A, the exponential, du*B, one FMA), g += C dy, and
+    the terms and sums of dC, dB, sum_n g B, p = g a h_{t-1}, sum_n A p
+    and dA, and g *= a: 20; per (batch, step, channel): dt*u and the FMAs
+    of du, ddt and dD: 7. u, dy and du move at ``u_elem`` bytes a
+    (batch, step, channel), dt and ddt at 4; B, C, dB, dC once a (batch,
+    step, state); the chunk states and dh_last read once; A, D read and
+    dA, dD written once. The partial sums the design adds are not
+    counted (``partial_bytes``)."""
+    ops = 20 * bt * s * di * n + 7 * bt * s * di
+    nbytes = bt * s * di * (3 * u_elem + 8) \
+        + 4 * (4 * bt * s * n + bt * -(-s // CHUNK) * di * n + bt * di * n
+               + 2 * (di * n + di))
+    return ops, nbytes
+
+
+def partial_bytes(bt: int, s: int, di: int, n: int) -> int:
+    """Bytes of the backward's partial sums, written once and read once by
+    its second launch: dB and dC per (batch, step, state) for each
+    ``BWD_CHANNELS``-channel block, dA and dD per batch row."""
+    return 2 * 4 * (2 * bt * -(-di // BWD_CHANNELS) * s * n
+                    + bt * di * (n + 1))

@@ -12,9 +12,7 @@ A ``vlm`` config's batches carry seeded stub image embeddings
 (``img_embeds``) and an encoder-decoder's seeded stub frames
 (``frames``), as the reference's do. The params start from ``seed`` 0
 on the device (``Model.init``); ``--save PATH`` writes them with
-``checkpoint.save_pytree`` (``PATH.npz`` and ``PATH.json``). On the card
-a state-space or hybrid config raises ``NotImplementedError`` at its
-first step: K6 has no backward yet (ROADMAP queue 1).
+``checkpoint.save_pytree`` (``PATH.npz`` and ``PATH.json``).
 """
 from __future__ import annotations
 

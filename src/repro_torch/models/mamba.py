@@ -5,7 +5,9 @@ Prefill runs the selective scan through ``ops.selective_scan``: on the
 card the hand-written kernel K6 (``csrc/selective_scan.cu``), which
 never materialises the (B, S, d_inner, N) state the reference's
 associative and chunked scans build, so the port has no chunked variant
-and no flag. Decode is the O(1) recurrent step in plain PyTorch, with
+and no flag. Under autograd (``Model.loss``) the same call keeps only
+the state at every 32-step chunk boundary, and its gradient is the
+hand-written backward P3 (``csrc/selective_scan_backward.cu``). Decode is the O(1) recurrent step in plain PyTorch, with
 the ``conv`` window and the ``h`` state of the cache updated IN PLACE
 (the values equal the reference's functional update).
 """

@@ -27,11 +27,9 @@ layers also hold ``cross`` and ``ln_cross`` (``convert.model_params``
 carries the reference's stacked params across).
 
 ``loss`` is the reference's training forward: next-token cross-entropy
-in float32 over the text tokens, through K3 with its backward (P2) on
-the card, plus the MoE blocks' weighted aux loss in the moe family.
-Training a state-space or hybrid model on the card raises
-``NotImplementedError`` until K6 has a backward (ROADMAP queue 1); on
-the CPU their plain scan is differentiable.
+in float32 over the text tokens, through K3 with its backward (P2) and
+the selective scan K6 with its backward (P3) on the card, plus the MoE
+blocks' weighted aux loss in the moe family.
 """
 from __future__ import annotations
 

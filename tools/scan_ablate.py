@@ -86,8 +86,9 @@ VARIANTS = {
     "poly exp2, 2 states": _poly(2),
     "one lane": [("constexpr int kChunk = 32;", "constexpr int kChunk = 16;"),
                  ("    case 2:\n",
-                  "    case 1:\n      return launch<T, 1>(u, dt, A, B, C, "
-                  "D, y, h_last, Bt, S, di, N, s);\n    case 2:\n")],
+                  "    case 1:\n      return launch<T, 1, kStates>(u, dt, A, "
+                  "B, C, D, y, h_last, states, Bt, S, di, N, s);\n"
+                  "    case 2:\n")],
 }
 
 
@@ -133,7 +134,7 @@ def main():
             sys.exit(f"scan_ablate: {name!r} does not build:\n{log}")
         regs[name] = cs.ptxas_summary(log)
         fn = ctypes.CDLL(lib).selective_scan_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
@@ -157,13 +158,14 @@ def main():
                 args = [t.data_ptr() for t in (u, dt, A, B, C, D, y, h)]
 
                 def f():
-                    code = fn(*args, bt, s, di, n, 1, lanes,
+                    code = fn(*args, None, bt, s, di, n, 1, lanes,
                               torch.cuda.current_stream().cuda_stream)
                     if code:
                         raise RuntimeError(f"{name}: CUDA error {code}")
                 f()
                 torch.cuda.synchronize()
-                inst = f"selective_scan_kernelI13__nv_bfloat16Li{lanes}EE"
+                inst = (f"selective_scan_kernelI13__nv_bfloat16Li{lanes}"
+                        "ELb0EE")
                 print(json.dumps({
                     "case": label, "shape": [bt, s, di, n], "lanes": lanes,
                     "variant": name, "ms": cs.time_ms(f),

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """The training phases of ``chip_smoke.py`` alone, on one card.
 
-    python3 tools/train_phases.py [bwd] [agree] [lm]     (default: all three)
+    python3 tools/train_phases.py [bwd] [scan] [agree] [ssm] [lm]
+                                                     (default: all five)
 
 Builds the kernels the training path and its checks run (K3 with its
-``kLse`` instances, P2, K4, K5, K6), then runs, one JSON line each as the
-smoke prints them:
+``kLse`` instances, P2, K4, K5, K6 with its ``kStates`` instances, P3),
+then runs, one JSON line each as the smoke prints them:
 
 - ``bwd``: ``chip_smoke.attention_backward`` (K3's ``kLse`` instances and
   P2 against their plain versions at ``BWD_CASES``, bf16 timed beside
@@ -15,15 +16,20 @@ smoke prints them:
   capped or not, both dtypes, the D kernel too), and P2's device ms by
   kernel (D, dK/dV, dQ) at every bf16 ``BWD_CASES`` case from one
   ``torch.profiler`` window of 5 calls (``p2_by_kernel``);
+- ``scan``: ``chip_smoke.scan_backward`` (K6's ``kStates`` instance and
+  P3 against their plain versions at ``SCAN_BWD_CASES``, bf16 timed), then
+  its kernels-line entry;
 - ``agree``: ``chip_smoke.training_cpu_agreement`` (one training step
-  card vs CPU on the edge ladder, a 2-layer Granite cut and Whisper's
-  2+2 cut);
+  card vs CPU on the edge ladder, a 2-layer Granite cut, Whisper's 2+2
+  cut, a 2-layer Falcon-Mamba cut and Hymba's layers 0 and 1);
+- ``ssm``: ``chip_smoke.ssm_training`` (``launch.train`` on Hymba-1.5B
+  whole, 20 steps at 8 x 2,048, a step's profile), then its launches;
 - ``lm``: ``chip_smoke.lm_training`` (``launch.train`` on
   Granite-3.0-1B-A400M whole, 20 steps at 8 x 2,048, a step's profile,
   the ``"dots"`` policy, ``--save`` read back), then its launches.
 
-About 4 minutes for all three, ~190 s of it in the phases. The card's
-name and power limit (``nvidia-smi``) come last. Needs a CUDA device.
+The card's name and power limit (``nvidia-smi``) come last. Needs a CUDA
+device.
 """
 import json
 import os
@@ -52,7 +58,7 @@ def main(which):
     from repro_torch.models import build_model
     kernels = [flash_attention.KERNEL, flash_attention.BACKWARD,
                decode_attention.KERNEL, int8_matmul.KERNEL,
-               selective_scan.KERNEL]
+               selective_scan.KERNEL, selective_scan.BACKWARD]
     cs.emit(phase="build", seconds=_build.build(kernels))
     if "bwd" in which:
         ptxas = cs.ptxas_summary(flash_attention.BACKWARD.ptxas_log)
@@ -60,9 +66,17 @@ def main(which):
                                                ptxas)), flush=True)
         cs.emit(phase="p2_instances", registers_spills=instances(ptxas))
         by_kernel(torch, cs, flash_attention)
+    if "scan" in which:
+        print(json.dumps(cs.scan_backward(
+            torch, selective_scan,
+            cs.ptxas_summary(selective_scan.BACKWARD.ptxas_log))),
+            flush=True)
     if "agree" in which:
         cs.training_cpu_agreement(torch, get_config, build_model, training,
-                                  flash_attention)
+                                  flash_attention, selective_scan)
+    if "ssm" in which:
+        cs.emit(phase="launches", ssm_training=cs.ssm_training(
+            torch, train_cli, kernels))
     if "lm" in which:
         cs.emit(phase="launches", lm_training=cs.lm_training(
             torch, train_cli, load_pytree, tuning, kernels))
@@ -116,4 +130,4 @@ def by_kernel(torch, cs, flash_attention):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["bwd", "agree", "lm"])
+    main(sys.argv[1:] or ["bwd", "scan", "agree", "ssm", "lm"])
