@@ -4022,9 +4022,10 @@ def scan_backward(torch, selective_scan, ptxas):
     bytes its partial sums add, the SFU floor of one exponential an
     element (``sfu_ms``) and of the design's 2.5 (``sfu_design_ms``), the
     plain version, the ``kStates`` forward beside the serving one; each
-    line with the registers and spills of P3's walk and sums. Returns the
-    kernels-line entry (Hymba's bf16 case: the ssm_training path's
-    shape)."""
+    line with the registers and spills of P3's walk and sums, its tile
+    (the steps between two kept states), channels a block, blocks and
+    waves (``selective_scan.backward_grid``). Returns the kernels-line
+    entry (Hymba's bf16 case: the ssm_training path's shape)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(28)
     n = SCAN_STATE
@@ -4074,8 +4075,10 @@ def scan_backward(torch, selective_scan, ptxas):
                     runs_bit_equal=True, max_abs_err=leaf_errs,
                     tolerance_step=SCAN_BWD_TOL[dtype],
                     tolerance_reduced=SCAN_BWD_REDUCED, limit_shares=shares,
-                    chunks=states.shape[1],
-                    blocks=[-(-di // selective_scan.BWD_CHANNELS), bt],
+                    chunks=states.shape[1], tile=selective_scan.CHUNK,
+                    channels_a_block=selective_scan.BWD_CHANNELS,
+                    blocks=selective_scan.backward_grid(bt, di)[0],
+                    waves=selective_scan.backward_grid(bt, di)[1],
                     registers_spills=regs)
         if dtype != "bfloat16":         # checked, not timed
             emit(**line)

@@ -5,7 +5,7 @@
 // (repro/models/mamba.py selective_scan_ref, an associative scan) with
 // jax.grad and has no Pallas backward. The port's forward runs through K6
 // (selective_scan.cu), so its training needs a backward of its own; this is
-// it, from the state K6's kStates instance writes at every chunk boundary.
+// it, from the state K6's kStates instance writes at every 32-step chunk.
 //
 // The forward, per batch row b, channel d and state n (float32):
 //   a_t = exp(dt_t A),  h_t = a_t h_{t-1} + (dt_t u_t) B_t,  h_{-1} = 0,
@@ -57,16 +57,40 @@
 //  - over batch rows and time (dA, dD): each lane sums its own over time;
 //    each block writes its (b, d) partials.
 // A second launch (selective_scan_bwd_sum_kernel) adds the blocks' dB / dC
-// partials and the rows' dA / dD partials, each in index order.
+// partials and the rows' dA / dD partials, each in index order. The walk
+// takes h_t for dC_t's term from the step after (its h_{t-1}, or the state
+// the half's rebuild ended at) instead of computing it again, is compiled
+// for 3 blocks of 4 warps a SM (what its 72 KB of shared memory allow), and
+// unrolls the rebuild's steps by 8: together 5.5-6% faster at both
+// training shapes (tools/scan_ab.py, parent and change in turns), the same
+// bits.
 //
 // Bound: per (batch, step, channel) u, dy and du at 2 or 4 bytes and dt and
 // ddt at 4; B, C, dB, dC per (batch, step, state); the boundary states; the
 // operations, about 20 FP32 operations an element (the rebuilt h_t, the
 // five products and sums above). At Hymba's shape (bf16 u) the bytes and
 // the FP32 operations each take ~0.25 ms; the 2.5 exponentials an element
-// on the special function units (16 a clock a SM) take 0.50 ms, a floor
-// above both that this design cannot go under. The partial sums add
-// (Bt, S, N) x di / 32 x 2 floats written and read again (210 MB at Hymba).
+// on the special function units (16 a clock a SM) take 0.50 ms. None of
+// them sets the pace (the walk runs at ~0.12-0.15 of its bound): taken out
+// one at a time (tools/scan_bwd_ablate.py), the dB / dC shuffles cost
+// 10-12% of its time, the rebuild's second pass over a chunk's first half
+// 4%, the s1 / s2 shuffles and the exponentials 3% each; a warp spends
+// ~46% of a chunk in the walk, ~25% rebuilding, ~18% staging and ~11% on
+// du / ddt and the sums (tools/scan_bwd_clocks.py). Keeping the decays
+// beside h_{t-1} (1.5 exponentials, 104 KB, 2 blocks a SM) walks 30%
+// slower; summing dB / dC after each half from shared memory instead of
+// the shuffles (64 KB more, 1 block a SM) 2x slower. The partial sums add
+// (Bt, S, N) x di / 32 x 2 floats written and read again (210 MB at
+// Hymba).
+//
+// A design with time across a warp's lanes (each decay computed once, a
+// scan over the lanes per (channel, state) to rebuild the states and to
+// carry the gradient, dB / dC summed in registers over a warp's channels)
+// was built and measured against this one: 1.2x slower at Hymba's shape
+// and 1.4x at Falcon-Mamba's. Its scans cost 21 shuffles a lane per
+// (channel, state) and 400-600 cycles of latency a pass, it issues ~41
+// instructions an element, and its 255 registers allow 8 warps a SM, too
+// few to hide the scans; more warps a block spill (PERF.md §6).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -83,6 +107,9 @@ constexpr int kSub = 16;    // steps whose h_{t-1} a pass keeps
 constexpr int kUD = kChunk * kCh / kThreads;         // u / dt / dy a lane
 constexpr int kBC = kChunk * kMaxState / kThreads;   // B / C a lane
 constexpr int kRed = kChunk * 2 * kMaxState / kThreads;  // dB / dC a lane
+constexpr int kBlocksPerSM = 3;  // what the shared memory allows (and
+                                 // selective_scan.BWD_BLOCKS_PER_SM)
+constexpr int kAdvanceUnroll = 8;  // rebuild steps unrolled
 constexpr int kMaxDevices = 64;  // devices a process grants
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -124,7 +151,7 @@ struct Smem {
 };
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 selective_scan_bwd_kernel(const T* __restrict__ u,
                           const float* __restrict__ dt,
                           const float* __restrict__ A,
@@ -219,12 +246,15 @@ selective_scan_bwd_kernel(const T* __restrict__ u,
     for (int n = 0; n < kPerLane; ++n)
       h[n] = fmaf(h[n], ex2(dtv * a2[n]), duv * bn[n]);
   };
-  // one step of the reverse walk at step i of the chunk, h_{t-1} at hp[j]
-  auto back = [&](int i, int j) {
+  // one step of the reverse walk at step i of the chunk (j of its half):
+  // hq = h_{t-1} (kept at hp[j]), hn = h_t (the step after's h_{t-1}, or
+  // the state the half's rebuild ended at)
+  auto back = [&](int i, int j, const float4 hq, const float4 hn) {
     const float dtv = sm.dt[i][ch], uv = sm.u[i][ch], dyv = sm.dy[i][ch];
     const float duv = dtv * uv;
-    const float4 hq = sm.hp[j][tid], bv = sm.b[i][l], cv = sm.c[i][l];
+    const float4 bv = sm.b[i][l], cv = sm.c[i][l];
     const float hp[4] = {hq.x, hq.y, hq.z, hq.w};
+    const float ht[4] = {hn.x, hn.y, hn.z, hn.w};
     const float bn[4] = {bv.x, bv.y, bv.z, bv.w};
     const float cn[4] = {cv.x, cv.y, cv.z, cv.w};
     float s1 = 0.f, s2 = 0.f, v[2 * kPerLane];
@@ -233,7 +263,7 @@ selective_scan_bwd_kernel(const T* __restrict__ u,
       const float a = ex2(dtv * a2[n]);
       g[n] = fmaf(cn[n], dyv, g[n]);
       v[n] = g[n] * duv;                                 // dB_t's term
-      v[kPerLane + n] = fmaf(hp[n], a, duv * bn[n]) * dyv;  // dC_t's: h_t dy
+      v[kPerLane + n] = ht[n] * dyv;                     // dC_t's: h_t dy
       s1 = fmaf(g[n], bn[n], s1);
       const float p = g[n] * a * hp[n];
       s2 = fmaf(af[n], p, s2);
@@ -289,15 +319,20 @@ selective_scan_bwd_kernel(const T* __restrict__ u,
       float h[kPerLane];
 #pragma unroll
       for (int n = 0; n < kPerLane; ++n) h[n] = h0[n];
-#pragma unroll 4
+#pragma unroll kAdvanceUnroll
       for (int i = 0; i < i0; ++i) advance(h, i);
-#pragma unroll 4
+#pragma unroll kAdvanceUnroll
       for (int i = i0; i < i1; ++i) {
         sm.hp[i - i0][tid] = make_float4(h[0], h[1], h[2], h[3]);
         advance(h, i);
       }
+      float4 hn = make_float4(h[0], h[1], h[2], h[3]);
 #pragma unroll 2
-      for (int i = i1 - 1; i >= i0; --i) back(i, i - i0);
+      for (int i = i1 - 1; i >= i0; --i) {
+        const float4 hq = sm.hp[i - i0][tid];
+        back(i, i - i0, hq, hn);
+        hn = hq;
+      }
     }
     __syncthreads();
     // du and ddt of the chunk, coalesced

@@ -53,8 +53,13 @@ SMS = 132
 WANT_BLOCKS = 4 * SMS
 #: steps between two states the ``kStates`` instance writes
 CHUNK = 32
-#: channels of one block of the backward (four lanes a channel)
+#: channels of one block of the backward (four lanes a channel), and the
+#: blocks a streaming multiprocessor holds at once (its 72 KB of shared
+#: memory allow three): ``kCh`` and ``kBlocksPerSM`` of
+#: ``csrc/selective_scan_backward.cu``, which the walk is compiled for
+#: (``tests/test_torch_scan_grad.py`` holds the two equal)
 BWD_CHANNELS = 32
+BWD_BLOCKS_PER_SM = 3
 
 #: the plain version (a CPU tensor takes it)
 plain = ref.selective_scan_ref
@@ -200,9 +205,18 @@ def cost(bt: int, s: int, di: int, n: int, u_elem: int):
     return ops, nbytes
 
 
+def backward_grid(bt: int, di: int) -> tuple[int, int]:
+    """(blocks, waves) of the backward's walk: a block per (batch row,
+    ``BWD_CHANNELS`` channels), ``BWD_BLOCKS_PER_SM`` of them on each of
+    the ``SMS`` multiprocessors at once."""
+    blocks = bt * -(-di // BWD_CHANNELS)
+    return blocks, blocks / (SMS * BWD_BLOCKS_PER_SM)
+
+
 def cost_backward(bt: int, s: int, di: int, n: int, u_elem: int):
     """(FP32 operations, bytes) of one backward call (P3) — the arithmetic
-    of its bound in ``PERF.md`` §6. Per (batch, step, channel, state): the
+    of its bound in ``PERF.md`` §6: the work the gradient needs, whatever
+    the design. Per (batch, step, channel, state): the
     rebuilt state (dt*A, the exponential, du*B, one FMA), g += C dy, and
     the terms and sums of dC, dB, sum_n g B, p = g a h_{t-1}, sum_n A p
     and dA, and g *= a: 20; per (batch, step, channel): dt*u and the FMAs

@@ -9,8 +9,9 @@ and unmasked rows, sequences that are no tile multiple and span several
 ``ops.flash_attention`` under autograd launching both; K6's ``kStates``
 instance (y and h_last bit-equal to the serving instance's, the chunk
 states equal to the plain scan's state at each chunk start), the scan's
-backward P3 against ``plain_backward`` at both of K6's lane plans, ragged
-lengths and channel counts, 5, 8 and 16 states, float32 and bfloat16
+backward P3 against ``plain_backward`` at both of K6's lane plans,
+ragged lengths, lengths around 256 and 512 steps, ragged channel counts,
+a grid of two blocks, 5, 8 and 16 states, float32 and bfloat16
 ``u``, with and without a final-state gradient (bit-identical over two
 runs: no atomics), and ``ops.selective_scan`` under autograd launching
 both and never the plain versions. Every test here needs a CUDA device
@@ -161,8 +162,10 @@ def test_backward_refuses_a_mask_with_more_q_rows_than_kv(cuda):
 
 #: (Bt, S, di, N, lanes of K6's plan): each of K6's lane plans, lengths
 #: that are no multiple of the 32-step chunk (one step; several chunks),
+#: lengths around 8 and 16 chunks (255, 256, 257, 513, 515 steps),
 #: channel counts that are no multiple of the backward's 32-channel block,
-#: 5, 8 and 16 states
+#: a thin grid (one batch row, two blocks, the second mostly past di), 5,
+#: 8 and 16 states
 SCAN_GRAD_SHAPES = (
     (66, 45, 1024, 16, 2),
     (33, 40, 1000, 8, 2),
@@ -171,6 +174,12 @@ SCAN_GRAD_SHAPES = (
     (3, 100, 200, 5, 4),
     (2, 1, 40, 16, 4),
     (1, 129, 72, 8, 4),
+    (2, 255, 1000, 16, 4),
+    (1, 256, 72, 8, 4),
+    (3, 257, 200, 5, 4),
+    (12, 513, 3200, 16, 2),
+    (2, 515, 3200, 16, 4),
+    (1, 300, 40, 16, 4),
 )
 SCAN_STEP_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SCAN_REDUCED_TOL = 1e-3

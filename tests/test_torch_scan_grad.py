@@ -8,7 +8,12 @@ lengths (31, 33, 70), channel counts that are no multiple of the
 backward's 32-channel block, 8 and 16 states, float32 and bfloat16 ``u``,
 with the final state's gradient zero and not; and ``ops.selective_scan``
 under autograd (``_SelectiveScan``, what a CPU tensor takes) against
-autograd through ``plain``, and without grad the serving call.
+autograd through ``plain``, and without grad the serving call. The
+wrapper's copies of the kernels' compile-time constants (the chunk, the
+largest state, the threads and channels a block, the backward's blocks a
+multiprocessor) are held equal to the CUDA sources they describe, and
+``backward_grid`` / ``partial_bytes`` to the grid and partial sums the
+backward's launcher makes at the training shapes.
 
 Inputs come from a seeded numpy generator and reach both packages as the
 same values; the cotangents ``dy`` are rounded to y's type first, as
@@ -21,6 +26,9 @@ and time, dB, dC over channels) within 1e-4 of the leaf's largest
 magnitude. Against autograd through ``plain`` (the same float32 formulas
 differentiated by PyTorch), 1e-5 + 1e-5 relative.
 """
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -147,3 +155,42 @@ def test_op_without_grad_is_the_serving_call():
     for got in (got_plain, got_no_grad):
         assert all(g.grad_fn is None and not g.requires_grad for g in got)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(K6.__file__)), "csrc")
+
+
+def _constants(source):
+    """The integer literals of a CUDA source's ``constexpr int``s."""
+    with open(os.path.join(CSRC, source)) as f:
+        return {k: int(v) for k, v in re.findall(
+            r"constexpr int (\w+) = (\d+);", f.read())}
+
+
+@pytest.mark.parametrize("value, source, name", [
+    (K6.CHUNK, "selective_scan.cu", "kChunk"),
+    (K6.MAX_STATE, "selective_scan.cu", "kMaxState"),
+    (K6.THREADS, "selective_scan.cu", "kThreads"),
+    (K6.CHUNK, "selective_scan_backward.cu", "kChunk"),
+    (K6.MAX_STATE, "selective_scan_backward.cu", "kMaxState"),
+    (K6.BWD_BLOCKS_PER_SM, "selective_scan_backward.cu", "kBlocksPerSM"),
+], ids=lambda v: str(v))
+def test_wrapper_constants_match_the_sources(value, source, name):
+    assert _constants(source)[name] == value
+
+
+def test_backward_channels_match_the_source():
+    k = _constants("selective_scan_backward.cu")
+    assert K6.BWD_CHANNELS == k["kThreads"] // k["kLanes"]
+
+
+@pytest.mark.parametrize("bt, s, di, blocks, partial", [
+    (8, 2048, 3200, 800, 422_912_000),       # Hymba-1.5B's training shape
+    (64, 256, 8192, 16_384, 1_145_044_992),  # Falcon-Mamba-7B's
+    (1, 300, 40, 2, 2 * 4 * (2 * 2 * 300 * 16 + 40 * 17)),  # ragged di
+])
+def test_backward_grid_and_partial_bytes(bt, s, di, blocks, partial):
+    got, waves = K6.backward_grid(bt, di)
+    assert got == blocks
+    assert waves == blocks / (K6.SMS * K6.BWD_BLOCKS_PER_SM)
+    assert K6.partial_bytes(bt, s, di, 16) == partial
