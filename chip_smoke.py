@@ -120,7 +120,7 @@ paths through the entry points a user calls:
   on the card against the CPU for every experiment x threshold, N =
   1..5; tabular Q-learning (N = 3, goal 85) converging, its Q rows equal
   to the CPU run's; both DQN forms (paper N = 3, factored N = 5 at goal
-  85) 500 steps, greedy equal to the CPU's on the same parameters
+  85) 250 steps, greedy equal to the CPU's on the same parameters
   where the margin is clear; then ``python -m repro_torch.launch.serve``'s
   ``main`` with its defaults (the full-width edge ladder, d0-d7 on the
   device tier): 4 waves of the trained agent's decisions served through
@@ -134,10 +134,10 @@ paths through the entry points a user calls:
   Falcon-Mamba's 64 x 256 x 8,192 and Hymba's 8 x 2,048 x 3,200
   (``scan_backward``); one ``make_train_step`` step card vs CPU on five
   full-width cuts (``training_cpu_agreement``: the edge ladder, Granite
-  2 layers, Whisper 2+2, Falcon-Mamba 2 of its 64 layers, Hymba's
+  2 layers, Whisper 2+2, Falcon-Mamba 1 of its 64 layers, Hymba's
   global layer 0 and windowed layer 1 over 1,152 tokens); then
   ``launch.train`` on Hymba-1.5B whole (``ssm_training``; K3, P2, K6,
-  P3) and on Granite-3.0-1B-A400M whole (``lm_training``; K3, P2), 20
+  P3) and on Granite-3.0-1B-A400M whole (``lm_training``; K3, P2), 10
   steps at 8 x 2,048 each, their launches counted from the start of
   each.
 
@@ -174,7 +174,9 @@ call's time. The last line is ``{"ok": true, "device":
 {...}}``. It needs a CUDA device and the ``src/repro_torch`` package
 beside it, and imports nothing of JAX.
 """
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -2562,12 +2564,15 @@ def serve_dense(torch, build_engines, cfg, batch, prompt, max_len):
     return engines, caches
 
 
-def dense_serving(torch, R, build_engines, get_config, kernels):
+def dense_serving(torch, R, build_engines, get_config, kernels,
+                  with_gemma3=None):
     """Gemma3-4B and InternLM2-20B as published, d0 bf16 and d4 int8
     (``serve_dense``); a 256-cell 3-user fleet routed into Gemma3's
-    engines (``route_dispatch_dense``); the decode and prefill profiles
-    of both. Returns the path's launches of ``kernels``, counted from
-    its start (the profiles outside)."""
+    engines (``route_dispatch_dense``); ``with_gemma3`` called on
+    Gemma3's d0 engine (the int8 K/V cache's phase, its weights reused);
+    the decode and prefill profiles of both. Returns (the path's
+    launches of ``kernels``, counted from its start (the profiles and
+    ``with_gemma3`` outside), what ``with_gemma3`` returned)."""
     for k in kernels:
         k.launches = 0
     free_card(torch)
@@ -2577,6 +2582,7 @@ def dense_serving(torch, R, build_engines, get_config, kernels):
     route_dispatch(torch, R, engines, cells=SSM_ROUTE_CELLS,
                    phase="route_dispatch_dense", seed=DENSE_ROUTE_SEED)
     launches = {k.name: k.launches for k in kernels}
+    extra = with_gemma3(engines["S"]["d0"]) if with_gemma3 else None
     decode_profile(torch, engines, caches, path="dense_serving",
                    batch=GEMMA3_BATCH)
     prefill_profile(torch, engines, GEMMA3_BATCH, GEMMA3_PROMPT,
@@ -2595,7 +2601,299 @@ def dense_serving(torch, R, build_engines, get_config, kernels):
                     "dense_serving", variants=DENSE_VARIANTS)
     del engines, caches
     free_card(torch)
+    return launches, extra
+
+
+# ---------------------------------------------- the int8 K/V cache ----
+#: the int8 cache's decode on Gemma3-4B whole (8 x 2,048, 16 steps) and
+#: its card-vs-CPU check on a 2-layer full-width cut (a sliding and a
+#: global layer, the prompt 32 tokens past the 1,024-slot window). The
+#: quantized write itself on one row is bit-equal on both. From one int8
+#: cache the two decode in bf16, whose K/V rows differ by bf16 steps
+#: (2^-7 relative at most): the logits within the bf16 serving
+#: tolerance; the rows the decode wrote within 3 int8 steps (a bf16 step
+#: of the value and one of the row's amax each move it by up to 127 x
+#: 2^-7 = 1 step, and the rounding by one more), their scales within a
+#: bf16 step of the amax
+INT8_KV_STEPS = 16
+INT8_KV_CUT_STEPS = 4
+INT8_KV_STEP_TOL = 3
+INT8_KV_SCALE_RTOL = 2 ** -7
+
+
+def quantize_kv(torch, kv):
+    """(int8 values, float32 scales) of a K or V (..., hd): the rule the
+    int8 decode applies to each new row (``transformer.quantized_write``),
+    ``scale = (amax + 1e-8) / 127``, rounded half to even, clipped."""
+    kf = kv.float()
+    amax = kf.abs().amax(-1) + 1e-8
+    scale = amax / amax.new_full((), 127.0)
+    q = torch.clamp(torch.round(kf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def int8_cache_of(torch, model, cache, tuning, ctx):
+    """A bf16 prefill cache of ``ctx`` positions as ``model.cache_spec``
+    lays out an int8 one (``FLAGS["kv_cache_dtype"] == "int8"``): each
+    K/V slot quantized by ``quantize_kv``; ``pos`` kept."""
+    tuning.FLAGS["kv_cache_dtype"] = "int8"
+    try:
+        spec = model.cache_spec(cache["segments"][0]["k"].shape[1], ctx)
+    finally:
+        tuning.FLAGS["kv_cache_dtype"] = "bf16"
+    segs = []
+    for seg, want in zip(cache["segments"], spec["segments"]):
+        c = {}
+        for name in ("k", "v"):
+            c[name], c[name + "_s"] = quantize_kv(torch, seg[name])
+        check({n: (tuple(t.shape), t.dtype) for n, t in c.items()} ==
+              {n: (tuple(t.shape), t.dtype) for n, t in want.items()},
+              "the int8 cache differs from cache_spec's")
+        segs.append(c)
+    return {"pos": cache["pos"], "segments": segs}
+
+
+def cache_gb(cache):
+    return sum(t.numel() * t.element_size() for seg in cache["segments"]
+               for t in seg.values()) / 1e9
+
+
+def decode_steps(torch, model, params, cache, cur, steps):
+    """``steps`` greedy decode steps from ``cur``; returns (cache, ms a
+    step, last logits), host clock around synchronised steps."""
+    vocab = model.cfg.vocab_size
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = model.decode(params, cache, cur)
+            cur = logits[:, -1:, :vocab].argmax(-1).int()
+        torch.cuda.synchronize()
+    return cache, (time.perf_counter() - t0) * 1e3 / steps, logits
+
+
+def quantized_write_agreement(torch, T, cfg):
+    """``transformer.quantized_write`` of one random bf16 K row of
+    ``cfg``'s layout into a 64-slot int8 ring, on the card and on the
+    CPU: the int8 values, the scales and the dequantized cache
+    bit-equal."""
+    g = torch.Generator(device="cpu").manual_seed(9)
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    row = (torch.randn((GEMMA3_BATCH, 1, kv, hd), generator=g) * 4).to(
+        torch.bfloat16)
+    ring = torch.randint(-127, 128, (GEMMA3_BATCH, 64, kv, hd),
+                         generator=g, dtype=torch.int8)
+    scales = torch.rand((GEMMA3_BATCH, 64, kv), generator=g)
+    card = [t.cuda() for t in (ring, scales, row)]
+    out_g = T.quantized_write(card[0], card[1], card[2], 37)
+    out_c = T.quantized_write(ring, scales, row, 37)
+    same = all(bool(torch.equal(a.cpu(), b)) for a, b in
+               ((card[0], ring), (card[1], scales), (out_g, out_c)))
+    check(same, "quantized_write: card and CPU differ on the same row")
+    return same
+
+
+def int8_kv_cut(torch, cfg, build_model, tuning):
+    """The int8 decode card vs CPU on ``cfg`` cut to 2 layers at full
+    width: a card prefill's cache quantized on the card, then
+    ``INT8_KV_CUT_STEPS`` decode steps on both from copies of that cache
+    and weights, fed the CPU's greedy tokens."""
+    import numpy as np
+    from repro_torch.models import transformer as T
+    write_equal = quantized_write_agreement(torch, T, cfg)
+    cut = dense_cut(cfg, 2)
+    m = build_model(cut)
+    params = m.init(0, device="cuda")
+    p_cpu = _to_cpu(params)
+    prompt = cut.sliding_window + 32
+    vocab = cut.vocab_size
+    toks = torch.tensor(np.random.default_rng(4).integers(
+        0, vocab, (2, prompt)).astype(np.int32))
+    ctx = prompt + INT8_KV_CUT_STEPS + 1
+    with torch.inference_mode():
+        _, cache = m.prefill(params, {"tokens": toks.cuda()}, max_len=ctx)
+        cg = int8_cache_of(torch, m, cache, tuning, ctx)
+        cc = {"pos": cg["pos"], "segments": _to_cpu(cg["segments"])}
+        cur = torch.zeros((2, 1), dtype=torch.int32)
+        errs, shares = [], []
+        for step in range(INT8_KV_CUT_STEPS):
+            lg, cg = m.decode(params, cg, cur.cuda())
+            lc, cc = m.decode(p_cpu, cc, cur)
+            a, b_ = lg[:, -1, :vocab].float().cpu(), lc[:, -1, :vocab].float()
+            errs.append(float((a - b_).abs().max()))
+            shares.append(limit_share(a, b_))
+            check(bool(torch.allclose(a, b_, atol=0.125, rtol=1e-2)),
+                  f"int8 cache: card vs CPU logits differ by {errs[-1]} at "
+                  f"step {step}")
+            cur = b_.argmax(-1)[:, None].int()
+    apart, max_steps, scale_err, entries = {}, 0, 0.0, 0
+    for sg, sc in zip(cg["segments"], cc["segments"]):
+        for name in ("k", "v"):
+            dq = (sg[name].cpu().int() - sc[name].int()).abs()
+            max_steps = max(max_steps, int(dq.max()))
+            for n in range(1, int(dq.max()) + 1):
+                apart[n] = apart.get(n, 0) + int((dq == n).sum())
+            entries += dq.numel()
+            rel = ((sg[name + "_s"].cpu() - sc[name + "_s"]).abs()
+                   / sc[name + "_s"]).max()
+            scale_err = max(scale_err, float(rel))
+    check(max_steps <= INT8_KV_STEP_TOL,
+          f"int8 cache: card and CPU entries {max_steps} steps apart")
+    check(scale_err <= INT8_KV_SCALE_RTOL,
+          f"int8 cache: card and CPU scales differ by {scale_err} relative")
+    return dict(quantized_write_bit_equal=write_equal, cut_layers=2,
+                cut_prompt=prompt, cut_decode_steps=INT8_KV_CUT_STEPS,
+                logits_max_abs_err=max(errs), logits_tolerance=[0.125, 1e-2],
+                logits_limit_share=max(shares), cache_entries=entries,
+                entries_steps_apart=apart, max_steps_apart=max_steps,
+                steps_tolerance=INT8_KV_STEP_TOL,
+                scales_max_rel_err=scale_err,
+                scales_tolerance=INT8_KV_SCALE_RTOL)
+
+
+def int8_kv_decode(torch, eng, build_model, tuning, kernels):
+    """Gemma3-4B whole (the served d0 engine's weights) at 8 x 2,048: its
+    prefill's cache quantized into an int8 cache laid out by
+    ``cache_spec``, then 16 greedy decode steps over it (K4 over the
+    dequantized K/V, sliding and global segments at head_dim 256, G = 2),
+    beside 16 steps over the bf16 cache from the same prefill; its ms a
+    token and cache GB beside the bf16 cache's; then the card against
+    the CPU on a 2-layer cut (``int8_kv_cut``). Returns the int8 path's
+    launches of ``kernels``."""
+    import numpy as np
+    m, params = eng.model, eng.params
+    vocab = m.cfg.vocab_size
+    toks = torch.tensor(np.random.default_rng(8).integers(
+        0, vocab, (GEMMA3_BATCH, GEMMA3_PROMPT)).astype(np.int32),
+        device="cuda")
+    with torch.inference_mode():
+        logits, cache = m.prefill(params, {"tokens": toks},
+                                  max_len=GEMMA3_MAX_LEN)
+        q_cache = int8_cache_of(torch, m, cache, tuning, GEMMA3_MAX_LEN)
+    cur = logits[:, -1:, :vocab].argmax(-1).int()
+    cache, bf16_ms, _ = decode_steps(torch, m, params, cache, cur,
+                                     INT8_KV_STEPS)
+    for k in kernels:
+        k.launches = 0
+    q_cache, int8_ms, q_logits = decode_steps(torch, m, params, q_cache, cur,
+                                              INT8_KV_STEPS)
+    launches = {k.name: k.launches for k in kernels}
+    check(bool(torch.isfinite(q_logits.float()).all()),
+          "int8 cache: non-finite decode logits")
+    check(q_cache["pos"] == GEMMA3_PROMPT + INT8_KV_STEPS,
+          f"int8 cache: position {q_cache['pos']}")
+    line = dict(phase="int8_kv_decode", arch=m.cfg.name,
+                batch=GEMMA3_BATCH, prompt=GEMMA3_PROMPT,
+                decode_steps=INT8_KV_STEPS, int8_ms_per_token=int8_ms,
+                bf16_ms_per_token=bf16_ms, int8_cache_gb=cache_gb(q_cache),
+                bf16_cache_gb=cache_gb(cache), launches=launches,
+                kv_cache=[list(seg["k"].shape) for seg in
+                          q_cache["segments"]])
+    del cache, q_cache
+    free_card(torch)
+    line.update(int8_kv_cut(torch, m.cfg, build_model, tuning))
+    emit(**line)
     return launches
+
+
+# ------------------------------------------------------------ dry run ----
+#: one full-size pair of each kind on the card's fakes (the last under
+#: the int8 K/V cache), both production meshes from one trace
+DRYRUN_PAIRS = (("granite-moe-1b-a400m", "train_4k", "bf16"),
+                ("gemma3-4b", "prefill_32k", "bf16"),
+                ("falcon-mamba-7b", "decode_32k", "bf16"),
+                ("hymba-1.5b", "decode_32k", "int8"))
+#: the trace against the card, at shapes one card holds (mesh 1 x 1):
+#: Granite's training step and a Gemma3-4B prefill at 8 x 2,048
+DRYRUN_CHECKS = (("granite-moe-1b-a400m", ("train_8x2k", 2048, 8, "train")),
+                 ("gemma3-4b", ("prefill_8x2k", 2048, 8, "prefill")))
+#: predicted peak against the card's ``max_memory_allocated``
+DRYRUN_PEAK_RTOL = 0.10
+
+
+def real_args(torch, cfg, shape, build_model, training):
+    """A pair's arguments for real on the card: the params (and a train
+    step's AdamW state) from seed 0, random tokens."""
+    model = build_model(cfg)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (shape.global_batch, shape.seq_len),
+                           dtype=torch.int32, device="cuda")
+    if shape.kind == "train":
+        return training.init_state(model, 0, device="cuda"), \
+            {"tokens": tokens}
+    return model.init(0, device="cuda"), {"tokens": tokens}
+
+
+def dryrun_phase(torch, dryrun, tuning, mesh_mod, get_config, build_model,
+                 training, kernels, InputShape):
+    """``launch.dryrun.run_one`` on the card's fakes for ``DRYRUN_PAIRS``
+    (no kernel launched), each row printed; then each ``DRYRUN_CHECKS``
+    pair traced through the same ``build_lowerable`` on a one-device
+    mesh and run for real: the predicted argument bytes equal to the
+    real params', optimizer state's and batch's, the predicted peak
+    within ``DRYRUN_PEAK_RTOL`` of ``max_memory_allocated`` over the
+    same call (counted from the memory in use before its arguments)."""
+    from repro_torch.obs.prof import profile_fn
+    before = {k.name: k.launches for k in kernels}
+    for arch, shape, kv in DRYRUN_PAIRS:
+        tuning.FLAGS["kv_cache_dtype"] = kv
+        try:
+            rows = dryrun.run_one(arch, shape, (False, True), device="cuda",
+                                  verbose=False)
+        finally:
+            tuning.FLAGS["kv_cache_dtype"] = "bf16"
+        for r in rows:
+            check(r["ok"], f"dryrun {arch} {shape}: {r.get('error')}")
+            emit(phase="dryrun", part="pair", kv_cache_dtype=kv, **r)
+    check(before == {k.name: k.launches for k in kernels},
+          "the dry run's traces launched a kernel")
+    one = mesh_mod.make_tier_mesh("S", device_type="cuda")
+    for arch, (name, seq, batch, kind) in DRYRUN_CHECKS:
+        shape = InputShape(name, seq, batch, kind)
+        gc.collect()              # no earlier phase's cycle freed mid-call
+        free_card(torch)
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        fn, fakes, meta = dryrun.build_lowerable(arch, shape, device="cuda")
+        prof = profile_fn(fn, *fakes, name=f"{arch}/{name}")
+        row = dryrun.roofline_row(prof, meta, fakes, one, "1x1",
+                                  time.perf_counter() - t0)
+        args = real_args(torch, get_config(arch), shape, build_model,
+                         training)
+        real_bytes = dryrun.arg_bytes_per_device(
+            args, dryrun.arg_specs(args, kind, one), one)
+        check(row["arg_bytes_per_device"] == prof.arg_bytes == real_bytes,
+              f"dryrun {arch} {name}: predicted argument bytes "
+              f"{row['arg_bytes_per_device']} / {prof.arg_bytes}, real "
+              f"{real_bytes}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        with torch.no_grad() if kind != "train" else \
+                contextlib.nullcontext():
+            out = fn(*args)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        measured = torch.cuda.max_memory_allocated() - base
+        after = torch.cuda.memory_allocated() - base
+        err = prof.peak_live_bytes / measured - 1.0
+        emit(phase="dryrun", part="against_the_card", arch=arch,
+             shape=name, kind=kind, mesh="1x1",
+             predicted_arg_bytes=row["arg_bytes_per_device"],
+             real_arg_bytes=real_bytes,
+             predicted_peak_bytes=prof.peak_live_bytes,
+             measured_peak_bytes=measured, peak_rel_err=err,
+             base_bytes=base, bytes_after_call=after,
+             peak_tolerance=DRYRUN_PEAK_RTOL,
+             predicted_temp_bytes=row["temp_bytes_per_device"],
+             flops=prof.flops, bytes_accessed=prof.bytes_accessed,
+             compute_s=row["compute_s"], memory_s=row["memory_s"],
+             trace_s=row["seconds"], real_call_s=run_s)
+        check(abs(err) <= DRYRUN_PEAK_RTOL,
+              f"dryrun {arch} {name}: predicted peak {prof.peak_live_bytes}"
+              f" against {measured} measured ({err:+.3f})")
+        del fn, fakes, args, out
+    free_card(torch)
 
 
 def serve_paligemma(torch, get_config, build_model, variant_seed):
@@ -2886,7 +3184,7 @@ def audio_serving(torch, get_config, build_model, variant_seed, kernels):
 #: the serving launcher's shapes: one request a call, a 16-token prompt,
 #: a cache of 64 slots (``build_engines``' default ``max_len``)
 CLI_PROMPT, CLI_MAX_LEN = 16, 64
-SC_DQN_STEPS, SC_GREEDY_STATES, SC_MARGIN = 500, 200, 1e-4
+SC_DQN_STEPS, SC_GREEDY_STATES, SC_MARGIN = 250, 200, 1e-4
 
 
 def single_cell_bruteforce(torch, C):
@@ -3113,7 +3411,7 @@ def cli_shapes(get_config, build_ladder):
 #: over 16 skewed edges, 4 cloud servers a cell), both at its goal of 89
 COUPLED_GOAL = 89.0
 HOLDOUT_EDGES = 64
-COUPLED_STEPS = 300
+COUPLED_STEPS = 150
 
 
 def step_agreement(torch, R):
@@ -3391,7 +3689,7 @@ def oracle_split(torch, R, best_response, scen, pu, goal):
 
 
 def coupled_holdout(torch, R, best_response, kernels):
-    """``FleetDQN`` (shared encoder, K2), 300 steps on a 32,768-cell x
+    """``FleetDQN`` (shared encoder, K2), 150 steps on a 32,768-cell x
     5-user synthetic fleet over 64 skewed edges, scored on a held-out
     coupled fleet of the same shape (1 to 5 members a cell) against
     ``topology_bruteforce`` through the kernel: the ratio in (0, 1.05];
@@ -3482,7 +3780,7 @@ def coupled_holdout(torch, R, best_response, kernels):
 
 
 def cell_dqn(torch, R, head_kernel):
-    """``FleetDQN(net='cell')`` at the DQN phase's shape, 300 steps: the
+    """``FleetDQN(net='cell')`` at the DQN phase's shape, 150 steps: the
     holdout ratio in (0, 1.05], wall and device ms per step, and K2 never
     launched (the cell net's greedy is torch ops)."""
     before = head_kernel.launches
@@ -3844,7 +4142,7 @@ LSE_TOL = 1e-3
 #: Hymba's 1,152 tokens run past its 1,024-token window
 TRAIN_AGREE = (("edge ladder", 8, 256), ("granite 2 layers", 4, 256),
                ("whisper 2+2 layers", 2, 64),
-               ("falcon-mamba 2 layers", 2, 256), ("hymba 2 layers", 1, 1152))
+               ("falcon-mamba 1 layer", 2, 256), ("hymba 2 layers", 1, 1152))
 #: (atol, rtol) of the card's step against the CPU's, both bf16 from the
 #: same params and batch: the loss (~ln V, a mean over every token), the
 #: aux loss (a Switch balance term: one token whose top expert flips on a
@@ -3852,7 +4150,7 @@ TRAIN_AGREE = (("edge ladder", 8, 256), ("granite 2 layers", 4, 256),
 #: (bf16 gradients summed in another order on each device)
 TRAIN_TOL = {"loss": (0.0, 2e-3), "aux_loss": (0.0, 2e-2),
              "grad_norm": (0.0, 5e-2)}
-LM_STEPS, LM_BATCH, LM_SEQ = 20, 8, 2048
+LM_STEPS, LM_BATCH, LM_SEQ = 10, 8, 2048
 #: P3 at Falcon-Mamba's 64 x 256 x 8,192 (the card check of the Falcon
 #: cut) and at Hymba's 8 x 2,048 x 3,200 (its training step's shape), bf16
 #: u, Hymba also with float32 u: (label, Bt, S, di, u's type, a non-zero
@@ -4130,13 +4428,13 @@ def training_cuts(get_config):
     """(what, config, batch, seq) of ``TRAIN_AGREE``: the edge ladder
     whole, Granite at full width cut to 2 layers, Whisper at full width
     cut to 2 encoder and 2 decoder layers over its 1,500 frames,
-    Falcon-Mamba at full width cut to 2 of its 64 layers, Hymba at full
+    Falcon-Mamba at full width cut to 1 of its 64 layers, Hymba at full
     width cut to its layers 0 (global) and 1 (window 1,024)."""
     edge = get_config("edge-ladder")
     granite = dataclasses.replace(get_config(MOE_ARCH), n_layers=2)
     whisper = dataclasses.replace(get_config(AUDIO_ARCH), n_layers=2,
                                   n_enc_layers=2)
-    falcon = dataclasses.replace(get_config(SSM_ARCH), n_layers=2)
+    falcon = dataclasses.replace(get_config(SSM_ARCH), n_layers=1)
     hymba = dataclasses.replace(get_config(HYBRID_ARCH), n_layers=2,
                                 global_layers=(0,))
     return [(what, cfg, b, s) for (what, b, s), cfg in
@@ -4286,7 +4584,7 @@ class RssPeak:
 
 
 def ssm_training(torch, train_cli, kernels):
-    """``launch.train.main`` on Hymba-1.5B at full size, 20 steps at 8 x
+    """``launch.train.main`` on Hymba-1.5B at full size, 10 steps at 8 x
     2,048 (``train_main``): its loss lines, tokens/s, the card's peak
     memory (below the card's 80 GB) and the host's peak RSS over the
     phase; then, on the trained state, three steps' wall ms (tokens/s a
@@ -4322,7 +4620,7 @@ def ssm_training(torch, train_cli, kernels):
 
 
 def lm_training(torch, train_cli, load_pytree, tuning, kernels):
-    """``launch.train.main`` on Granite-3.0-1B-A400M at full size, 20 steps
+    """``launch.train.main`` on Granite-3.0-1B-A400M at full size, 10 steps
     at 8 x 2,048 with ``--save`` (``train_main``): its loss lines,
     tokens/s, the card's peak memory and the host's peak RSS, the saved
     params read back bit-equal; then, on the trained state, a step's wall
@@ -4410,6 +4708,9 @@ def main():
     from repro_torch import training, tuning
     from repro_torch.checkpoint import load_pytree
     from repro_torch.launch import train as train_cli
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.configs.base import InputShape
     R = fleet_namespace()
     fleet_kernels = [tabular_rl.KERNEL, dqn_head.KERNEL]
     serving_kernels = [flash_attention.KERNEL, decode_attention.KERNEL,
@@ -4609,15 +4910,18 @@ def main():
                      f32=DENSE_F32)
     dense_cpu_agreement(torch, get_config, build_model,
                         serve_cli.variant_seed)
-    dense_launches = dense_serving(torch, R, build_engines, get_config,
-                                   serving_kernels)
+    dense_launches, int8_kv_launches = dense_serving(
+        torch, R, build_engines, get_config, serving_kernels,
+        with_gemma3=lambda eng: int8_kv_decode(
+            torch, eng, build_model, tuning, [decode_attention.KERNEL]))
     vlm_launches = vlm_and_cuts(torch, build_engines, get_config,
                                 build_model, serve_cli.variant_seed,
                                 attn_kernels)
     emit(phase="launches", dense_serving=dense_launches,
-         vlm_and_cuts=vlm_launches)
+         vlm_and_cuts=vlm_launches, int8_kv_decode=int8_kv_launches)
     for path, counts in (("dense", dense_launches), ("VLM and cuts",
-                                                     vlm_launches)):
+                                                     vlm_launches),
+                         ("int8 K/V cache", int8_kv_launches)):
         for name, n in counts.items():
             check(n > 0, f"{name} was never launched on the {path} path")
 
@@ -4648,6 +4952,12 @@ def main():
     for name, n in audio_launches.items():
         check(n > 0, f"{name} was never launched on the encoder-decoder "
               "path")
+
+    # the dry run: four full-size pairs traced on the card's fakes, then
+    # the trace held against the card at shapes one card holds
+    free_card(torch)
+    dryrun_phase(torch, dryrun, tuning, launch_mesh, get_config,
+                 build_model, training, kernels, InputShape)
 
     # the training path: K3's lse instances and P2, K6's kStates instance
     # and P3 against their plain versions at the training shapes; one
@@ -4690,6 +5000,7 @@ def main():
                "single_cell": cli_launches, "ssm_path": ssm_launches,
                "moe_path": moe_launches, "dense_serving": dense_launches,
                "vlm_and_cuts": vlm_launches,
+               "int8_kv_decode": int8_kv_launches,
                "audio_serving": audio_launches,
                "ssm_training": ssm_train_launches,
                "lm_training": train_launches}

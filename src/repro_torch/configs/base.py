@@ -172,6 +172,32 @@ class ModelConfig:
         return self.param_count() - expert_p + active_p
 
 
+@dataclass(frozen=True)
+class InputShape:
+    """One input shape of the dry run: ``global_batch`` sequences of
+    ``seq_len`` tokens for a ``kind`` of call: ``train`` (a training
+    step), ``prefill`` (a prompt) or ``decode`` (one token against a
+    ``seq_len``-slot cache)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k":    InputShape("train_4k",    4_096,   256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   InputShape("long_500k",   524_288, 1,   "decode"),
+}
+
+#: the published architectures, in the reference's order
+ARCH_IDS = [
+    "paligemma-3b", "dbrx-132b", "internlm2-20b", "gemma3-4b",
+    "whisper-medium", "yi-34b", "granite-moe-1b-a400m", "hymba-1.5b",
+    "falcon-mamba-7b", "gemma-7b",
+]
+
 #: arch id -> module of ``repro_torch.configs`` holding its ``CONFIG``
 _MODULE_FOR = {"edge-ladder": "edge_ladder",
                "internlm2-20b": "internlm2_20b",
@@ -192,6 +218,10 @@ def get_config(arch_id: str) -> ModelConfig:
                        f"{sorted(_MODULE_FOR)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[arch_id]}")
     return mod.CONFIG
+
+
+def list_archs() -> list:
+    return list(ARCH_IDS)
 
 
 def reduced(cfg: ModelConfig, *, n_layers: int = 2, d_model: int = 256,

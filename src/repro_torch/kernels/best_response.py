@@ -137,6 +137,20 @@ def consts() -> np.ndarray:
     return out
 
 
+def outputs(idx, k: int, n_edges: int):
+    """What a round's launch allocates: the new choices in idx's shape
+    and dtype, the (1,) int32 changed flag, and its scratch: the edge and
+    cloud totals, a (cells, 8) int32 row a cell, each cell's candidate
+    codes (cells, K rounded up to 16) uint8 and the edges' drift."""
+    i32 = dict(dtype=torch.int32, device=idx.device)
+    cells = idx.shape[0]
+    return (torch.empty_like(idx), torch.empty(1, **i32),
+            torch.empty(n_edges + 3, **i32), torch.empty((cells, 8), **i32),
+            torch.empty((cells, -(-k // 16) * 16), dtype=torch.uint8,
+                        device=idx.device),
+            torch.empty(n_edges, **i32))
+
+
 def best_response_cuda(idx, pu_packed, end_b, edge_b, member, feas, cand_e,
                        cand_c, cell_edge, edge_capacity,
                        cloud_servers: float, calib=None, stats=None):
@@ -179,14 +193,7 @@ def best_response_cuda(idx, pu_packed, end_b, edge_b, member, feas, cand_e,
         check_cuda("compute_scale", scale, torch.float32, (3,))
         check_cuda("hop_offset_ms", off, torch.float32, (3,))
     c = consts()
-    dev = idx.device
-    new = torch.empty_like(idx)
-    changed = torch.empty(1, dtype=i32, device=dev)
-    tot = torch.empty(n_edges + 3, dtype=i32, device=dev)
-    cell_info = torch.empty((cells, 8), dtype=i32, device=dev)
-    codes = torch.empty((cells, -(-k // 16) * 16), dtype=torch.uint8,
-                        device=dev)
-    drift = torch.empty(n_edges, dtype=i32, device=dev)
+    new, changed, tot, cell_info, codes, drift = outputs(idx, k, n_edges)
     KERNEL.launch(idx.data_ptr(), new.data_ptr(), changed.data_ptr(),
                   None if stats is None else stats.data_ptr(),
                   pu_packed.data_ptr(), end_b.data_ptr(), edge_b.data_ptr(),

@@ -69,6 +69,20 @@ def split_plan(b: int, n_kv: int, s: int, g: int) -> tuple[int, int]:
     return -(-tiles // span_tiles), span_tiles * TILE
 
 
+def outputs(q, k_cache):
+    """What a launch allocates: o (B, H, hd) in q's dtype and the split
+    workspace, each split's float32 (m, l, acc) a (batch, head), (B, H,
+    splits, hd + 2) (o itself where the plan has one split). Returns (o,
+    workspace, span)."""
+    b, h, hd = q.shape
+    s, n_kv = k_cache.shape[1], k_cache.shape[2]
+    o = torch.empty_like(q)
+    splits, span = split_plan(b, n_kv, s, h // n_kv)
+    ws = (torch.empty((b, h, splits, hd + 2), dtype=torch.float32,
+                      device=q.device) if splits > 1 else o)
+    return o, ws, span
+
+
 def decode_attention_cuda(q, k_cache, v_cache, bias, softcap: float = 0.0):
     """Launch the CUDA kernel. ``q``: (B, H, hd); caches: (B, S, KV, hd)
     in q's dtype (float32 or bfloat16); ``bias``: (B, S) float32; all
@@ -96,10 +110,7 @@ def decode_attention_cuda(q, k_cache, v_cache, bias, softcap: float = 0.0):
     check_cuda("v_cache", v_cache, q.dtype, (b, s, n_kv, hd))
     check_cuda("bias", bias, torch.float32, (b, s))
     check_aligned(q=q, k_cache=k_cache, v_cache=v_cache)
-    o = torch.empty_like(q)
-    splits, span = split_plan(b, n_kv, s, g)
-    ws = (torch.empty((b, h, splits, hd + 2), dtype=torch.float32,
-                      device=q.device) if splits > 1 else o)
+    o, ws, span = outputs(q, k_cache)
     KERNEL.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                   bias.data_ptr(), ws.data_ptr(), o.data_ptr(), b, s, h,
                   n_kv, hd, span, 1.0 / math.sqrt(hd), float(softcap),

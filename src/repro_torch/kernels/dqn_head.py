@@ -78,6 +78,16 @@ def x_min_table(threshold: float, users: int) -> np.ndarray:
     return out
 
 
+def outputs(active, n_act: int):
+    """What a launch allocates: the decisions (cells, users) int32 and q
+    (cells, users, actions) float32."""
+    cells, users = active.shape
+    return (torch.empty((cells, users), dtype=torch.int32,
+                        device=active.device),
+            torch.empty((cells, users, n_act), dtype=torch.float32,
+                        device=active.device))
+
+
 def dqn_head_cuda(active, member, end_b, agg, w1, b1, w2, b2, w3, b3,
                   allowed, acc_table, *, threshold: float, topk: int):
     """Launch the CUDA kernel; arguments and result as
@@ -107,8 +117,7 @@ def dqn_head_cuda(active, member, end_b, agg, w1, b1, w2, b2, w3, b3,
     if n_combo >= 2 ** 31:
         raise ValueError(f"topk^N = {n_combo} combinations overflow int32")
     x_min = x_min_table(float(threshold), users) if threshold else None
-    dec = torch.empty((cells, users), dtype=torch.int32, device=active.device)
-    q = torch.empty((cells, users, n_act), dtype=f32, device=active.device)
+    dec, q = outputs(active, n_act)
     KERNEL.launch(*(t.data_ptr() for t in (
         active, member, end_b, agg, w1, b1, w2, b2, w3, b3, allowed,
         acc_table, dec, q)), None if x_min is None else x_min.ctypes.data,

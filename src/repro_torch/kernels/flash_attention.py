@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref
@@ -141,6 +142,22 @@ def _check_args(q, k, v, softcap):
     check_aligned(q=q, k=k, v=v)
 
 
+def outputs(q, lse: bool = False):
+    """What a forward launch allocates: o (B, Sq, H, hd) in q's dtype and,
+    for the ``kLse`` instance, the rows' log-sum-exp (B, H, Sq) float32
+    (else None)."""
+    b, sq, h, _ = q.shape
+    return torch.empty_like(q), (q.new_empty((b, h, sq), dtype=torch.float32)
+                                 if lse else None)
+
+
+def backward_outputs(q, k, v, lse):
+    """What a backward launch allocates: dq, dk, dv in their inputs'
+    shapes and dtype, and the float32 D scratch, one value a q row."""
+    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+            torch.empty_like(lse))
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0, lse: bool = False):
     """Launch the CUDA kernel. ``q``: (B, Sq, H, hd); ``k``/``v``: (B,
@@ -151,8 +168,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     _check_args(q, k, v, softcap)
     b, sq, h, hd = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
-    o = torch.empty_like(q)
-    row_lse = q.new_empty((b, h, sq), dtype=torch.float32) if lse else None
+    o, row_lse = outputs(q, lse)
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   row_lse.data_ptr() if lse else None, b, sq, skv, h, n_kv,
                   hd, int(bool(causal)), int(window), skv - sq,
@@ -179,8 +195,7 @@ def flash_attention_backward_cuda(q, k, v, o, lse, do, *,
     check_cuda("do", do, q.dtype, q.shape)
     check_cuda("lse", lse, torch.float32, (b, h, sq))
     check_aligned(o=o, do=do)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    d = torch.empty_like(lse)
+    dq, dk, dv, d = backward_outputs(q, k, v, lse)
     BACKWARD.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
                     dk.data_ptr(), dv.data_ptr(), d.data_ptr(), b, sq, skv,
@@ -190,19 +205,23 @@ def flash_attention_backward_cuda(q, k, v, o, lse, do, *,
 
 
 def cost(b: int, sq: int, skv: int, h: int, n_kv: int, hd: int,
-         elem: int, *, causal: bool = True, window: int = 0):
+         elem: int, *, causal: bool = True, window: int = 0,
+         lse: bool = False):
     """(operations, bytes) of one call — the arithmetic of the bound in
     ``PERF.md`` §6: 2 * 2 * hd per (q, k) pair the mask keeps (q
     right-aligned against the kv sequence), q, k, v read and o written
-    once at ``elem`` bytes a value."""
-    q_pos = torch.arange(sq, dtype=torch.int64) + (skv - sq)
-    hi = torch.clamp(q_pos, max=skv - 1) if causal else \
-        torch.full_like(q_pos, skv - 1)
-    lo = torch.clamp(q_pos - window + 1, min=0) if window else \
-        torch.zeros_like(q_pos)
-    pairs = int(torch.clamp(hi - lo + 1, min=0).sum())
+    once at ``elem`` bytes a value; the ``kLse`` instance (``lse``) also
+    writes a float32 a q row and head. Counted on the host in numpy, so
+    it holds under ``FakeTensorMode`` too."""
+    q_pos = np.arange(sq, dtype=np.int64) + (skv - sq)
+    hi = np.minimum(q_pos, skv - 1) if causal else \
+        np.full(sq, skv - 1, dtype=np.int64)
+    lo = np.maximum(q_pos - window + 1, 0) if window else \
+        np.zeros(sq, dtype=np.int64)
+    pairs = int(np.maximum(hi - lo + 1, 0).sum())
     return 4 * hd * b * h * pairs, elem * b * hd * (2 * sq * h
-                                                     + 2 * skv * n_kv)
+                                                     + 2 * skv * n_kv) \
+        + (4 * b * h * sq if lse else 0)
 
 
 def cost_backward(b: int, sq: int, skv: int, h: int, n_kv: int, hd: int,

@@ -67,6 +67,20 @@ def k_major(w_q):
     return w_q.transpose(-1, -2).contiguous().transpose(-1, -2)
 
 
+def operands(x_q, w_q, out_dtype):
+    """What a launch of (E, M, K) ``x_q`` and K-major (E, K, N) ``w_q``
+    allocates: where K is no multiple of 16, both zero-padded along K to
+    a multiple of 32 (``int8_matmul_cuda``); and the (E, M, N) output in
+    ``out_dtype``. Returns (x_q, w_q, out)."""
+    e, m, k = x_q.shape
+    if k % 16:
+        pad = -k % 32
+        x_q = F.pad(x_q, (0, pad))
+        w_q = F.pad(w_q.transpose(-1, -2), (0, pad)).transpose(-1, -2)
+    return x_q, w_q, torch.empty((e, m, w_q.shape[-1]), dtype=out_dtype,
+                                 device=x_q.device)
+
+
 def int8_matmul_cuda(x_q, sx, w_q, sw, out_dtype=torch.float32):
     """Launch the CUDA kernel. ``x_q``: (M, K) int8 contiguous; ``sx``:
     (M, 1) f32; ``w_q``: (K, N) int8, K-major (strides (1, K)); ``sw``:
@@ -99,13 +113,9 @@ def int8_matmul_cuda(x_q, sx, w_q, sw, out_dtype=torch.float32):
                          f"shape {tuple(w_q.shape)}, strides {w_q.stride()}")
     check_cuda("w_q", w_t, torch.int8)
     check_cuda("sw", sw, torch.float32, (e, 1, n))
-    if k % 16:
-        pad = -k % 32
-        x_q = F.pad(x_q, (0, pad))
-        w_q = F.pad(w_t, (0, pad)).transpose(-1, -2)
-        k += pad
+    x_q, w_q, out = operands(x_q, w_q, out_dtype)
+    k = x_q.shape[-1]
     check_aligned(x_q=x_q, w_q=w_q)
-    out = torch.empty((e, m, n), dtype=out_dtype, device=x_q.device)
     if not (e and m and n):
         return out
     bm, bn = plan(m, n, k)

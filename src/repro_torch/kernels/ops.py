@@ -6,8 +6,13 @@ switch to choose.
 
 Given FakeTensors (``obs.prof`` counting a step under a
 ``FakeTensorMode``), an op launches nothing: it records its kernel's
-``cost`` through ``_build.record_cost`` and returns empty outputs of the
-kernel's shapes.
+``cost`` through ``_build.record_cost`` and allocates what the launch
+path allocates (outputs, workspaces, the decode bias row, the training
+instances' ``kLse`` / ``kStates`` buffers) through the kernel module's
+own ``outputs``, so a traced peak of live bytes sees them. Under grad
+mode the attention and the scan go through their autograd functions on
+fakes too, so a traced training step records K3's and K6's training
+instances and their backwards, P2 and P3.
 """
 from __future__ import annotations
 
@@ -37,8 +42,7 @@ def fused_tabular_update(q, s, a, r, s2, *, alpha: float, gamma: float):
     Returns ``(q, greedy2, td)``; see ``ref.fused_tabular_ref``."""
     if is_fake(q):
         record_cost("tabular_rl", *_tabular_rl.cost(*q.shape))
-        return (q, s.new_empty(s.shape, dtype=torch.int32),
-                r.new_empty(r.shape, dtype=torch.float32))
+        return (q,) + _tabular_rl.outputs(q)
     if _route(q) == "cpu":
         return _tabular_rl.plain(q, s, a, r, s2, alpha=alpha, gamma=gamma)
     return _tabular_rl.tabular_rl_cuda(q, s, a, r, s2, alpha=alpha,
@@ -55,14 +59,13 @@ def dqn_head(active, member, end_b, agg, params, allowed, acc_table, *,
     f32 accuracy ladder. Returns ``(dec, q)``; see ``ref.dqn_head_ref``.
     """
     (w1, b1), (w2, b2), (w3, b3) = [(p["w"], p["b"]) for p in params]
+    allowed_f = allowed.to(torch.float32)
     if is_fake(active):
         cells, users = active.shape
         record_cost("dqn_head", *_dqn_head.cost(
             cells, users, agg.shape[1], w2.shape[0], w3.shape[1],
             threshold, topk))
-        return (active.new_empty((cells, users), dtype=torch.int32),
-                active.new_empty((cells, users, w3.shape[1])))
-    allowed_f = allowed.to(torch.float32)
+        return _dqn_head.outputs(active, w3.shape[1])
     fn = _dqn_head.plain if _route(active) == "cpu" else \
         _dqn_head.dqn_head_cuda
     return fn(active, member, end_b, agg, w1, b1, w2, b2, w3, b3, allowed_f,
@@ -78,7 +81,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
         mask = dict(causal=causal, window=window, softcap=softcap)
-        if _route(q) == "cpu":
+        if is_fake(q):
+            o, lse = _fake_flash(q, k, v, causal, window, lse=True)
+        elif _route(q) == "cpu":
             o, lse = _flash_attention.plain_with_lse(q, k, v, **mask)
         else:
             o, lse = _flash_attention.flash_attention_cuda(q, k, v, lse=True,
@@ -90,10 +95,29 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        if is_fake(q):
+            b, sq, h, hd = q.shape
+            record_cost(_flash_attention.BACKWARD.name,
+                        *_flash_attention.cost_backward(
+                            b, sq, k.shape[1], h, k.shape[2], hd,
+                            q.element_size(), causal=ctx.mask["causal"],
+                            window=ctx.mask["window"]))
+            return _flash_attention.backward_outputs(q, k, v, lse)[:3] + \
+                (None, None, None)
         fn = _flash_attention.plain_backward if _route(q) == "cpu" else \
             _flash_attention.flash_attention_backward_cuda
-        dq, dk, dv = fn(q, k, v, o, lse, do.contiguous(), **ctx.mask)
+        dq, dk, dv = fn(q, k, v, o, lse, do, **ctx.mask)
         return dq, dk, dv, None, None, None
+
+
+def _fake_flash(q, k, v, causal, window, lse=False):
+    """K3 on fakes: its cost recorded, its outputs allocated."""
+    b, sq, h, hd = q.shape
+    record_cost(_flash_attention.KERNEL.name, *_flash_attention.cost(
+        b, sq, k.shape[1], h, k.shape[2], hd, q.element_size(),
+        causal=causal, window=window, lse=lse))
+    return _flash_attention.outputs(q, lse)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -105,15 +129,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     and an input requires grad, the call goes through ``_FlashAttention``
     (K3 with its row log-sum-exp, P2 for the gradient); otherwise it is
     the serving call."""
-    if is_fake(q):
-        b, sq, h, hd = q.shape
-        record_cost("flash_attention", *_flash_attention.cost(
-            b, sq, k.shape[1], h, k.shape[2], hd, q.element_size(),
-            causal=causal, window=window))
-        return torch.empty_like(q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, softcap)
+    if is_fake(q):
+        return _fake_flash(q, k, v, causal, window)[0]
     fn = _flash_attention.plain if _route(q) == "cpu" else \
         _flash_attention.flash_attention_cuda
     return fn(q, k, v, causal=causal, window=window, softcap=softcap)
@@ -127,15 +147,15 @@ def decode_attention(q, k_cache, v_cache, kv_pos, cur_pos, *,
     ``kv_pos > cur_pos - window`` with a window), carried into the
     kernel as an additive float32 bias row; ``softcap > 0`` caps each
     scaled score before the bias."""
-    if is_fake(q):
-        b, h, hd = q.shape
-        record_cost("decode_attention", *_decode_attention.cost(
-            b, h, k_cache.shape[2], hd, k_cache.shape[1], q.element_size()))
-        return torch.empty_like(q)
     valid = (kv_pos >= 0) & (kv_pos <= cur_pos[:, None])
     if window:
         valid &= kv_pos > cur_pos[:, None] - window
     bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
+    if is_fake(q):
+        b, h, hd = q.shape
+        record_cost("decode_attention", *_decode_attention.cost(
+            b, h, k_cache.shape[2], hd, k_cache.shape[1], q.element_size()))
+        return _decode_attention.outputs(q, k_cache)[0]
     fn = _decode_attention.plain if _route(q) == "cpu" else \
         _decode_attention.decode_attention_cuda
     return fn(q, k_cache, v_cache, bias, softcap)
@@ -151,10 +171,11 @@ def int8_matmul(x_q, sx, w_q, sw, *, out_dtype=torch.float32):
     if is_fake(x_q):
         *lead, m, k = x_q.shape
         n = w_q.shape[-1]
-        out = x_q.new_empty((*lead, m, n), dtype=out_dtype)
+        batched = (x_q, w_q) if lead else (x_q[None], w_q[None])
+        out = _int8_matmul.operands(*batched, out_dtype)[2]
         record_cost("int8_matmul", *_int8_matmul.cost(
             m, k, n, out.element_size(), lead[0] if lead else 1))
-        return out
+        return out if lead else out[0]
     fn = _int8_matmul.plain if _route(x_q) == "cpu" else \
         _int8_matmul.int8_matmul_cuda
     return fn(x_q, sx, w_q, sw, out_dtype)
@@ -171,7 +192,9 @@ class _SelectiveScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u, dt, A, B, C, D):
         ctx.set_materialize_grads(False)
-        if _route(u) == "cpu":
+        if is_fake(u):
+            y, h_last, states = _fake_scan(u, A, states=True)
+        elif _route(u) == "cpu":
             (y, h_last), states = _selective_scan.plain(u, dt, A, B, C, D), \
                 None
         else:
@@ -184,12 +207,27 @@ class _SelectiveScan(torch.autograd.Function):
     def backward(ctx, dy, dh_last):
         u, dt, A, B, C, D, states = ctx.saved_tensors
         dy = torch.zeros_like(u) if dy is None else dy.contiguous()
+        if dh_last is not None:
+            dh_last = dh_last.contiguous()
+        if is_fake(u):
+            bt, seq, di = u.shape
+            record_cost(_selective_scan.BACKWARD.name,
+                        *_selective_scan.cost_backward(
+                            bt, seq, di, A.shape[1], u.element_size()))
+            return _selective_scan.backward_outputs(u, dt, A, B, C, D)[0]
         if _route(u) == "cpu":
             return _selective_scan.plain_backward(u, dt, A, B, C, D, dy,
                                                   dh_last)
         return _selective_scan.selective_scan_backward_cuda(
-            u, dt, A, B, C, D, states, dy,
-            None if dh_last is None else dh_last.contiguous())
+            u, dt, A, B, C, D, states, dy, dh_last)
+
+
+def _fake_scan(u, A, states=False):
+    """K6 on fakes: its cost recorded, its outputs allocated."""
+    bt, seq, di = u.shape
+    record_cost(_selective_scan.KERNEL.name, *_selective_scan.cost(
+        bt, seq, di, A.shape[1], u.element_size()))
+    return _selective_scan.outputs(u, A.shape[1], states)
 
 
 def selective_scan(u, dt, A, B, C, D):
@@ -200,15 +238,11 @@ def selective_scan(u, dt, A, B, C, D):
     an input requires grad, the call goes through ``_SelectiveScan`` (K6
     writing its chunk states, P3 for the gradient); otherwise it is the
     serving call."""
-    if is_fake(u):
-        bt, seq, di = u.shape
-        record_cost("selective_scan", *_selective_scan.cost(
-            bt, seq, di, A.shape[1], u.element_size()))
-        return (torch.empty_like(u),
-                u.new_empty((bt, di, A.shape[1]), dtype=torch.float32))
     args = tuple(t.contiguous() for t in (u, dt, A, B, C, D))
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _SelectiveScan.apply(*args)
+    if is_fake(u):
+        return _fake_scan(u, A)[:2]
     if _route(u) == "cpu":
         return _selective_scan.plain(*args)
     return _selective_scan.selective_scan_cuda(*args)
@@ -225,10 +259,13 @@ def best_response_round(idx, pu_table, end_b, edge_b, member, feas, cand_e,
     (``best_response.pack_actions``), packed here when not given. Returns
     ``(new_idx, changed)``; see ``best_response.plain``."""
     if is_fake(idx):
+        if packed is None:
+            _best_response.pack_actions(pu_table)
         record_cost("best_response", *_best_response.cost(
             idx.shape[0], pu_table.shape[0], pu_table.shape[1],
             edge_capacity.shape[0]))
-        return torch.empty_like(idx), idx.new_empty((), dtype=torch.bool)
+        return _best_response.outputs(idx, pu_table.shape[0],
+                                      edge_capacity.shape[0])[:2]
     if _route(idx) == "cpu":
         return _best_response.plain(idx, pu_table, end_b, edge_b, member,
                                     feas, cand_e, cand_c, cell_edge,

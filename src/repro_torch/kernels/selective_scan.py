@@ -137,6 +137,33 @@ def _check_args(u, dt, A, B, C, D):
     check_cuda("D", D, torch.float32, (di,))
 
 
+def outputs(u, n: int, states: bool = False):
+    """What a forward launch allocates: y in u's shape and dtype, h_last
+    (Bt, di, N) float32 and, for the ``kStates`` instance, the state
+    entering each ``CHUNK``-step chunk (Bt, ceil(S / CHUNK), di, N)
+    float32 (else None)."""
+    bt, s, di = u.shape
+    f32 = dict(dtype=torch.float32, device=u.device)
+    return (torch.empty_like(u), torch.empty((bt, di, n), **f32),
+            torch.empty((bt, -(-s // CHUNK), di, n), **f32) if states
+            else None)
+
+
+def backward_outputs(u, dt, A, B, C, D):
+    """What a backward launch allocates: (du, ddt, dA, dB, dC, dD) in
+    their inputs' shapes and dtypes, and the partial sums its second
+    launch adds, (dB / dC per ``BWD_CHANNELS``-channel block (2, Bt,
+    blocks, S, N), dA (Bt, di, N), dD (Bt, di)) float32."""
+    bt, s, di = u.shape
+    n = A.shape[-1]
+    f32 = dict(dtype=torch.float32, device=u.device)
+    grads = (torch.empty_like(u), torch.empty_like(dt)) + tuple(
+        torch.empty_like(t) for t in (A, B, C, D))
+    return grads, (torch.empty((2, bt, -(-di // BWD_CHANNELS), s, n), **f32),
+                   torch.empty((bt, di, n), **f32),
+                   torch.empty((bt, di), **f32))
+
+
 def selective_scan_cuda(u, dt, A, B, C, D, *, states: bool = False):
     """Launch the CUDA kernel. ``u``: (Bt, S, di) float32 or bfloat16;
     ``dt``: (Bt, S, di) f32; ``A``: (di, N) f32 with N <= ``MAX_STATE``;
@@ -148,11 +175,7 @@ def selective_scan_cuda(u, dt, A, B, C, D, *, states: bool = False):
     n = A.shape[-1]
     lanes, _ = plan(bt, di, n)
     _check_args(u, dt, A, B, C, D)
-    y = torch.empty_like(u)
-    h_last = torch.empty((bt, di, n), dtype=torch.float32, device=u.device)
-    chunk_states = torch.empty((bt, -(-s // CHUNK), di, n),
-                               dtype=torch.float32, device=u.device) \
-        if states else None
+    y, h_last, chunk_states = outputs(u, n, states)
     KERNEL.launch(u.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                   C.data_ptr(), D.data_ptr(), y.data_ptr(), h_last.data_ptr(),
                   chunk_states.data_ptr() if states else None, bt, s, di, n,
@@ -175,12 +198,8 @@ def selective_scan_backward_cuda(u, dt, A, B, C, D, states, dy,
     check_cuda("dy", dy, u.dtype, u.shape)
     if dh_last is not None:
         check_cuda("dh_last", dh_last, torch.float32, (bt, di, n))
-    f32 = dict(dtype=torch.float32, device=u.device)
-    du, ddt = torch.empty_like(u), torch.empty_like(dt)
-    dA, dB, dC, dD = (torch.empty_like(t) for t in (A, B, C, D))
-    part_bc = torch.empty((2, bt, -(-di // BWD_CHANNELS), s, n), **f32)
-    part_a = torch.empty((bt, di, n), **f32)
-    part_d = torch.empty((bt, di), **f32)
+    (du, ddt, dA, dB, dC, dD), (part_bc, part_a, part_d) = \
+        backward_outputs(u, dt, A, B, C, D)
     BACKWARD.launch(u.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                     C.data_ptr(), D.data_ptr(), states.data_ptr(),
                     dy.data_ptr(),

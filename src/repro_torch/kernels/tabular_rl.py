@@ -28,6 +28,13 @@ KERNEL = CudaKernel("tabular_rl", [P, P, P, P, P, P, P, I, I, I, F, F])
 plain = ref.fused_tabular_ref
 
 
+def outputs(q):
+    """What a launch allocates: greedy2 (cells,) int32 and td (cells,)
+    float32 (q is updated in place)."""
+    return (torch.empty(q.shape[0], dtype=torch.int32, device=q.device),
+            torch.empty(q.shape[0], dtype=torch.float32, device=q.device))
+
+
 def tabular_rl_cuda(q, s, a, r, s2, *, alpha: float, gamma: float):
     """Launch the CUDA kernel. ``q``: (cells, S, K) f32 contiguous,
     updated in place; ``s``/``a``/``s2``: (cells,) int32; ``r``: (cells,)
@@ -37,8 +44,7 @@ def tabular_rl_cuda(q, s, a, r, s2, *, alpha: float, gamma: float):
     for name, t, dt in (("s", s, torch.int32), ("a", a, torch.int32),
                         ("r", r, torch.float32), ("s2", s2, torch.int32)):
         check_cuda(name, t, dt, (cells,))
-    greedy2 = torch.empty(cells, dtype=torch.int32, device=q.device)
-    td = torch.empty(cells, dtype=torch.float32, device=q.device)
+    greedy2, td = outputs(q)
     KERNEL.launch(q.data_ptr(), s.data_ptr(), a.data_ptr(), r.data_ptr(),
                   s2.data_ptr(), greedy2.data_ptr(), td.data_ptr(), cells,
                   n_states, n_actions, float(alpha), float(gamma))

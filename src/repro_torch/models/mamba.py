@@ -111,3 +111,13 @@ def mamba_block(params, x, cfg, *, cache=None):
 
     y = y * F.silu(z)
     return L.linear(params["out_proj"], y), new_cache
+
+
+def mamba_cache_spec(cfg, batch: int):
+    """The decode cache of one Mamba block for ``batch`` sequences, as
+    (shape, dtype) pairs: the ``conv`` window (batch, d_conv - 1, di) in
+    the model's dtype and the ``h`` state (batch, di, N) float32."""
+    s = cfg.ssm
+    di, n = cfg.d_inner, s.state_dim
+    return {"conv": ((batch, s.d_conv - 1, di), L.dt(cfg.dtype)),
+            "h": ((batch, di, n), torch.float32)}

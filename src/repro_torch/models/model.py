@@ -7,6 +7,7 @@ vision-language and encoder-decoder):
     loss, metrics = model.loss(params, {"tokens": tokens})
     logits, cache = model.prefill(params, {"tokens": tokens}, max_len=...)
     logits, cache = model.decode(params, cache, tokens)   # (B, 1) tokens
+    specs = model.input_specs(INPUT_SHAPES["decode_32k"])  # meta tensors
 
 A ``vlm`` model's prefill also takes ``batch["img_embeds"]`` (B,
 n_img_tokens, d_model), the stub frontend's patch embeddings, as the
@@ -42,6 +43,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models.mamba import mamba_cache_spec
 
 
 class Model:
@@ -245,10 +247,73 @@ class Model:
                                           x, cache, self.cfg, cache["pos"])
         return self._logits(params, x), new_cache
 
+    # ---------------- specs (dry run; no allocation) ----------------
     def _seg_cache_len(self, seg: T.Segment, ctx: int) -> int:
         if seg.is_global or self.cfg.attn_pattern == "full":
             return ctx
         return min(self.cfg.sliding_window, ctx)
+
+    def cache_spec(self, batch: int, ctx: int):
+        """The decode cache of ``batch`` sequences and ``ctx`` positions
+        as the reference's tree, each leaf a ``meta`` tensor of its shape
+        and dtype (nothing allocated): per segment ``k``/``v`` (Lseg,
+        batch, Sc, KV, hd) — int8 with float32 ``k_s``/``v_s`` (Lseg,
+        batch, Sc, KV) under ``FLAGS["kv_cache_dtype"] == "int8"`` —,
+        an encoder-decoder's ``ck``/``cv`` (Lseg, batch, enc_seq, KV,
+        hd), a Mamba block's ``conv``/``h``; ``pos`` a 0-d int32."""
+        from repro_torch.tuning import FLAGS
+        cfg = self.cfg
+        dt_ = L.dt(cfg.dtype)
+        kv_int8 = FLAGS["kv_cache_dtype"] == "int8"
+        kv_dt = torch.int8 if kv_int8 else dt_
+        hd = cfg.resolved_head_dim
+        segs = []
+        for seg in self.segments:
+            c = {}
+            if cfg.has_attention:
+                sc = self._seg_cache_len(seg, ctx)
+                shp = (seg.length, batch, sc, cfg.n_kv_heads, hd)
+                c["k"] = _meta(shp, kv_dt)
+                c["v"] = _meta(shp, kv_dt)
+                if kv_int8:
+                    c["k_s"] = _meta(shp[:-1], torch.float32)
+                    c["v_s"] = _meta(shp[:-1], torch.float32)
+            if cfg.is_encdec:
+                shp = (seg.length, batch, cfg.enc_seq, cfg.n_kv_heads, hd)
+                c["ck"] = _meta(shp, dt_)
+                c["cv"] = _meta(shp, dt_)
+            if cfg.ssm is not None:
+                for name, (shp, dtype) in mamba_cache_spec(cfg,
+                                                           batch).items():
+                    c[name] = _meta((seg.length,) + shp, dtype)
+            segs.append(c)
+        return {"pos": _meta((), torch.int32), "segments": segs}
+
+    def input_specs(self, shape):
+        """``meta`` stand-ins for every model input of an ``InputShape``
+        (``configs.INPUT_SHAPES``): ``tokens`` (B, S - n_img_tokens in a
+        ``vlm`` model) int32 with a VLM's ``img_embeds`` / an
+        encoder-decoder's ``frames`` for ``train`` and ``prefill``; one
+        token against a ``seq_len``-slot ``cache_spec`` for ``decode``."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        dt_ = L.dt(cfg.dtype)
+        if shape.kind in ("train", "prefill"):
+            s_text = s - (cfg.n_img_tokens if cfg.arch_type == "vlm" else 0)
+            spec = {"tokens": _meta((b, s_text), torch.int32)}
+            if cfg.arch_type == "vlm":
+                spec["img_embeds"] = _meta((b, cfg.n_img_tokens,
+                                            cfg.d_model), dt_)
+            if cfg.is_encdec:
+                spec["frames"] = _meta((b, cfg.enc_seq, cfg.d_model), dt_)
+            return spec
+        return {"tokens": _meta((b, 1), torch.int32),
+                "cache": self.cache_spec(b, s)}
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    """A shape-and-dtype stand-in: a tensor on the ``meta`` device."""
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def build_model(cfg) -> Model:

@@ -37,11 +37,14 @@ segment adds the cross cache ``{"ck", "cv": (Lseg, B, Se, KV, hd)}``,
 which decode reads and never writes. ``layer_decode`` updates its
 layer's slices IN PLACE (the K/V row at slot ``pos % Sc``, the conv
 window and the SSM state); the values equal the reference's functional
-update.
+update. An int8 K/V cache (``Model.cache_spec`` under
+``FLAGS["kv_cache_dtype"] == "int8"``) also holds float32 scales
+``{"k_s", "v_s": (Lseg, B, Sc, KV)}``: the new row is quantized into it
+and the whole cache dequantized for K4, as the reference does
+(``quantized_write``).
 
-The reference's int8 KV cache raises ``NotImplementedError`` (ROADMAP
-queue 1); so does a head_dim the attention kernels have no instance of
-(16, 32, 64, 128 and 256), on the card (``check_kernel_shapes``).
+A head_dim the attention kernels have no instance of (16, 32, 64, 128
+and 256) raises on the card (``check_kernel_shapes``).
 """
 from __future__ import annotations
 
@@ -227,13 +230,35 @@ def layer_full(p, x, cfg, window: int, positions, *, causal: bool = True,
 # Layer application — single-token decode
 
 
+def quantized_write(cache, scales, row, slot: int):
+    """The reference's int8 K/V cache step
+    (``repro/models/transformer.py`` ``layer_decode``): ``row`` (B, 1,
+    KV, hd) quantized per (sequence, kv head) with the symmetric scale
+    ``(amax + 1e-8) / 127``, rounded half to even and clipped to +-127,
+    written with its scale into slot ``slot`` of the int8 ``cache`` (B,
+    Sc, KV, hd) and float32 ``scales`` (B, Sc, KV), in place. Returns
+    the whole cache dequantized (``cache * scales``) in row's dtype, the
+    K or V that K4 reads. Each division is by a tensor on the row's
+    device (filled there, not copied from the host): on the card,
+    division by a Python number multiplies by its float32 reciprocal."""
+    rf = row[:, 0].float()                                  # (B, KV, hd)
+    amax = rf.abs().amax(-1) + 1e-8
+    scale = amax / amax.new_full((), 127.0)
+    q = torch.clamp(torch.round(rf / scale[..., None]), -127, 127)
+    cache[:, slot] = q.to(torch.int8)
+    scales[:, slot] = scale
+    return (cache.float() * scales[..., None]).to(row.dtype)
+
+
 def layer_decode(p, x, cache_l, cfg, window: int, pos: int, cross=None):
     """One decoder layer for one token at absolute position ``pos``.
     ``cache_l``: this layer's cache slices — ``k``/``v`` (B, Sc, KV, hd),
-    into which slot ``pos % Sc`` is written, and ``conv``/``h``, which
-    the Mamba step advances; all in place. An encoder-decoder's
-    ``ck``/``cv`` (B, Se, KV, hd) are read by the cross-attention block
-    at ``cross`` (``cross_positions``: every frame valid). Returns x."""
+    into which slot ``pos % Sc`` is written (an int8 cache, with its
+    float32 scales ``k_s``/``v_s`` (B, Sc, KV), through
+    ``quantized_write``), and ``conv``/``h``, which the Mamba step
+    advances; all in place. An encoder-decoder's ``ck``/``cv`` (B, Se,
+    KV, hd) are read by the cross-attention block at ``cross``
+    (``cross_positions``: every frame valid). Returns x."""
     b = x.shape[0]
     h = L.rmsnorm(p["ln1"], x, cfg.rms_norm_eps)
     outs = {}
@@ -244,8 +269,12 @@ def layer_decode(p, x, cache_l, cfg, window: int, pos: int, cross=None):
                                   rope=(cfg.rope_theta > 0))
         sc = kc.shape[1]
         slot = pos % sc
-        kc[:, slot] = k[:, 0]
-        vc[:, slot] = v[:, 0]
+        if "k_s" in cache_l:
+            kc = quantized_write(kc, cache_l["k_s"], k, slot)
+            vc = quantized_write(vc, cache_l["v_s"], v, slot)
+        else:
+            kc[:, slot] = k[:, 0]
+            vc[:, slot] = v[:, 0]
         # absolute position held by each ring slot after the write
         idx = torch.arange(sc, device=x.device)
         kv_pos = pos - (pos - idx) % sc
@@ -374,8 +403,6 @@ def run_stack_decode(segments, seg_params_list, x, cache, cfg, pos: int):
     cross = cross_positions(cache["segments"])
     for seg, seg_params, seg_cache in zip(segments, seg_params_list,
                                           cache["segments"]):
-        if "k_s" in seg_cache:
-            raise NotImplementedError("the int8 KV cache (ROADMAP queue 1)")
         window = seg_window(cfg, seg)
         for i, p in enumerate(seg_params):
             x = layer_decode(p, x, {name: t[i] for name, t in

@@ -8,11 +8,18 @@ runs and no kernel launches, and a ``TorchDispatchMode`` sums every aten
 op the call dispatches —
 
 * **flops**: ``torch.utils.flop_counter``'s formulas for the matmul-like
-  ops, one per output element for every other op (a view is free);
+  ops, one per output element for every other op (a view, and a query
+  that returns no tensor, are free);
 * **bytes_accessed**: each op's input and output bytes;
 * the hand-written kernels launch through ``ctypes``, where no
   dispatcher sees them: given FakeTensors, ``kernels.ops`` records each
-  kernel's own ``cost`` here instead of launching.
+  kernel's own ``cost`` here instead of launching, and allocates what
+  the launch allocates;
+* **peak_live_bytes**: the most bytes of distinct storages alive at
+  once, the arguments' included: each op's new output storages are
+  added as they appear (a view shares its storage; an in-place op
+  allocates nothing) and dropped when their storage is freed, which
+  Python's reference counting decides as it does on the card.
 
 The counts depend only on shapes, so they are deterministic. Stage
 costs split the agents' steps into the reference's stages and put
@@ -66,7 +73,9 @@ class CostProfile:
     """Traced cost of one call. ``temp_bytes`` sums the outputs of every
     op that is not a result of the call: an upper bound on the
     intermediates' memory, since no allocator runs and nothing is freed
-    or reused."""
+    or reused. ``peak_live_bytes`` is the most bytes of storages alive at
+    once during the call, its arguments' included: what an allocator
+    that wastes nothing would need."""
     name: str
     flops: float
     bytes_accessed: float
@@ -76,6 +85,7 @@ class CostProfile:
     backend: str
     peak_flops_per_s: float
     peak_bytes_per_s: float
+    peak_live_bytes: int = 0
 
     @property
     def arithmetic_intensity(self) -> float:
@@ -145,15 +155,57 @@ def _nbytes(tree) -> int:
     return sum(sizes.values())
 
 
+class _LiveBytes:
+    """Bytes of the distinct storages alive, and their peak. Each storage
+    is held by a weak reference, so its end is seen whatever keeps it
+    alive (a Python name, a view, autograd's saved tensors). Freed
+    storages are swept out only where the running total would pass the
+    peak, so the total is an upper bound between sweeps and exact at
+    every new peak."""
+
+    def __init__(self):
+        self.refs = {}          # storage key -> (weak reference, bytes)
+        self.held = set()       # keys of the arguments: alive all along
+        self.live = 0
+        self.peak = 0
+        self._swept_at = 0
+
+    def add(self, t: torch.Tensor, held: bool = False) -> None:
+        from torch.multiprocessing.reductions import StorageWeakRef
+        storage = t.untyped_storage()
+        key = storage._cdata
+        if key in self.refs or key in self.held:
+            return
+        nbytes = storage.nbytes()
+        if held:
+            self.held.add(key)
+        else:
+            self.refs[key] = (StorageWeakRef(storage), nbytes)
+        self.live += nbytes
+        if self.live > self.peak or len(self.refs) > 2 * self._swept_at \
+                + 4096:
+            self._sweep()
+            self.peak = max(self.peak, self.live)
+
+    def _sweep(self) -> None:
+        for key, (ref, nbytes) in list(self.refs.items()):
+            if ref.expired():
+                del self.refs[key]
+                self.live -= nbytes
+        self._swept_at = len(self.refs)
+
+
 class _CostCounter(TorchDispatchMode):
     """Sums the flops and bytes of every aten op dispatched under it, and
-    the kernels' own costs that ``kernels.ops`` records."""
+    the kernels' own costs that ``kernels.ops`` records; follows the live
+    bytes of the storages its ops make."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0
         self.bytes = 0
         self.op_out_bytes = 0
+        self.live = _LiveBytes()
 
     def kernel(self, name: str, ops: int, nbytes: int) -> None:
         self.flops += ops
@@ -162,10 +214,15 @@ class _CostCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        if func in _FREE or func.is_view:
-            return out
         outs = [t for t in tree_flatten(out)[0]
                 if isinstance(t, torch.Tensor)]
+        for t in outs:
+            self.live.add(t)
+        # a view, an allocation or a query of metadata (``prim.device``,
+        # which indexing dispatches on the whole indexed tensor) moves
+        # nothing
+        if func in _FREE or func.is_view or not outs:
+            return out
         ins = [t for t in tree_flatten((args, kwargs))[0]
                if isinstance(t, torch.Tensor)]
         out_b = sum(t.numel() * t.element_size() for t in outs)
@@ -184,17 +241,24 @@ def profile_fn(fn: Callable, *args, name: Optional[str] = None,
     """Trace one call ``fn(*args)`` under ``FakeTensorMode`` and count
     its cost. Nothing executes and no kernel launches: the arguments are
     replaced by fakes, so in-place updates touch none of the caller's
-    tensors. A call that reads a value on the host (a host sync inside
-    the step) cannot be traced and raises."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
+    tensors. Arguments that are FakeTensors already (a model's params
+    drawn under a fake mode, too large to hold) are traced as they are,
+    in their own mode. A call that reads a value on the host (a host
+    sync inside the step) cannot be traced and raises."""
+    from torch._subclasses.fake_tensor import FakeTensorMode, is_fake
     from repro_torch.kernels import _build
     counter = _CostCounter()
-    devices = []
-    _map(lambda t: devices.append(t.device.type), args)
-    backend = devices[0] if devices else "cpu"
+    tensors = []
+    _map(tensors.append, args)
+    backend = tensors[0].device.type if tensors else "cpu"
+    fakes = [t for t in tensors if is_fake(t)]
     peaks = peaks or backend_peaks(backend)
-    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
-        fake_args = _map(mode.from_tensor, args)
+    mode = fakes[0].fake_mode if fakes else \
+        FakeTensorMode(allow_non_fake_inputs=True)
+    with mode:
+        fake_args = _map(lambda t: t if is_fake(t) else mode.from_tensor(t),
+                         args)
+        _map(lambda t: counter.live.add(t, held=True), fake_args)
         _build.COST_SINKS.append(counter.kernel)
         try:
             with counter:
@@ -208,7 +272,8 @@ def profile_fn(fn: Callable, *args, name: Optional[str] = None,
         arg_bytes=_nbytes(args), out_bytes=out_bytes,
         temp_bytes=max(counter.op_out_bytes - out_bytes, 0),
         backend=backend, peak_flops_per_s=peaks.flops_per_s,
-        peak_bytes_per_s=peaks.bytes_per_s)
+        peak_bytes_per_s=peaks.bytes_per_s,
+        peak_live_bytes=counter.live.peak)
 
 
 # ---------------------------------------------------------------------------

@@ -163,10 +163,10 @@ def test_ring_cache_slot_positions():
 
 def test_other_families_name_the_roadmap_item():
     """Every family and config of the reference builds (Whisper's
-    encoder-decoder too); what the port still
-    lacks of the reference, its int8 KV cache, names its ROADMAP item,
-    and a family or a config the reference lacks raises naming what the
-    port has."""
+    encoder-decoder too), its int8 KV cache decodes (the new row
+    quantized into its slot; ``tests/test_torch_kv_int8.py`` holds it
+    against the reference), and a family or a config the reference
+    lacks raises naming what the port has."""
     with pytest.raises(NotImplementedError, match="families"):
         build_model(dataclasses.replace(get_config("edge-ladder"),
                                         arch_type="retnet"))
@@ -181,6 +181,10 @@ def test_other_families_name_the_roadmap_item():
     with torch.inference_mode():
         _, cache = m.prefill(p, {"tokens": toks}, max_len=8)
         seg = cache["segments"][0]
-        seg["k_s"] = seg["k"].new_ones(seg["k"].shape[:-1])
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            m.decode(p, cache, toks[:, :1])
+        for name in ("k", "v"):
+            seg[name + "_s"] = seg[name].new_ones(seg[name].shape[:-1])
+            seg[name] = seg[name].to(torch.int8)
+        _, cache = m.decode(p, cache, toks[:, :1])
+    seg = cache["segments"][0]
+    assert seg["k"].dtype == torch.int8 and cache["pos"] == 5
+    assert seg["k"][:, :, 4].abs().amax(-1).eq(127).all()
