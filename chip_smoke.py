@@ -728,6 +728,15 @@ def decode_regs(ptxas, dtype, hd, g, cap=False):
                          % (t, hd, gb, int(bool(cap))))
 
 
+def merge_regs(ptxas, dtype, hd, lse=False):
+    """The ptxas line of K4's merge kernel for ``dtype`` and head dim
+    ``hd``, serving or writing the rows' log-sum-exp (``lse``, the
+    ``kLse`` instance)."""
+    t = "I13__nv_bfloat16" if dtype == "bfloat16" else "If"
+    return instance_regs(ptxas, "decode_merge_kernel%sLi%dELb%dE"
+                         % (t, hd, int(bool(lse))))
+
+
 #: the cap of each capped case's second check: it bends most of the
 #: unit-scale inputs' scaled scores (~N(0, 1)), where ``SOFTCAP`` moves
 #: only their tails, so a kernel that left the cap out fails there
@@ -983,6 +992,124 @@ def decode_phase(torch, ops, decode_attention, cases=DECODE_CASES,
                 source="src/repro_torch/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:72",
                 max_abs_err=max(errs), **main)
+
+
+#: K4's ``kLse`` instance at the model_mesh phase's shapes: (name, batch,
+#: slots, heads, kv heads, head_dim). PaliGemma-3B's cache split along its
+#: 324 slots over the two ranks (162 a rank: three splits, the merge
+#: kernel writes the log-sum-exp); 40 slots, one split (the partial kernel
+#: writes it); a 16,384-slot half of a 32k cache
+DECODE_LSE_CASES = (("paligemma rank's slots", 4, 162, 8, 1, 256),
+                    ("one split", 4, 40, 8, 1, 256),
+                    ("32k half", 4, 16384, 8, 1, 256))
+LSE_CASE_MAIN = "paligemma rank's slots"
+
+
+def efficient_lse(torch, q, kc, vc, bias):
+    """The library's one call that gives both the output and the rows'
+    log-sum-exp: ``aten._scaled_dot_product_efficient_attention`` with
+    ``compute_log_sumexp``, the kv heads expanded as views and the bias
+    as its mask (its rows padded to 8 elements, the 16-byte alignment
+    the call asks of a mask, and viewed at the slots' width); None, with
+    the refusal printed, where this PyTorch build refuses the call."""
+    b, h, hd = q.shape
+    g = h // kc.shape[2]
+    k = kc.repeat_interleave(g, 2).transpose(1, 2)
+    v = vc.repeat_interleave(g, 2).transpose(1, 2)
+    sc = bias.shape[1]
+    rows = bias.new_zeros((b, -(-sc // 8) * 8), dtype=q.dtype)
+    rows[:, :sc] = bias
+    mask = rows[:, None, None, :sc].expand(b, h, 1, sc)
+    fn = torch.ops.aten._scaled_dot_product_efficient_attention
+    try:
+        fn(q[:, :, None], k, v, mask, True)
+    except RuntimeError as e:
+        print(f"efficient attention refused {tuple(q.shape)} x {sc} slots:"
+              f" {str(e).splitlines()[0]}", file=sys.stderr, flush=True)
+        return None
+    return lambda: fn(q[:, :, None], k, v, mask, True)
+
+
+def decode_lse_phase(torch, decode_attention, ptxas):
+    """K4's ``kLse`` instance (the rows' log-sum-exp beside o, what a
+    length-split cache merges over ranks by) at ``DECODE_LSE_CASES``
+    against ``plain_with_lse``, bf16 and float32; its o against the
+    serving instance's on the same inputs (bit-equal where the serving
+    call merges too); the registers of the partial kernel and of both
+    merge instances. Returns the kernels-line entry of the model_mesh
+    path's shape."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    errs, main = [], None
+    for name, b, sc, h, kv, hd in DECODE_LSE_CASES:
+        # every slot valid but a tail of the cache (a rank whose block
+        # ends past the current position)
+        bias = torch.zeros((b, sc), device="cuda")
+        bias[:, sc - sc // 8:] = -1e30
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q = torch.randn((b, h, hd), generator=g, device="cuda").to(dt)
+            kc, vc = (torch.randn((b, sc, kv, hd), generator=g,
+                                  device="cuda").to(dt) for _ in range(2))
+            o, lse = decode_attention.decode_attention_cuda(q, kc, vc, bias,
+                                                           lse=True)
+            served = decode_attention.decode_attention_cuda(q, kc, vc, bias)
+            want, want_lse = decode_attention.plain_with_lse(q, kc, vc, bias)
+            torch.cuda.synchronize()
+            err = float((o.float() - want.float()).abs().max())
+            lse_err = float((lse - want_lse).abs().max())
+            what = f"decode_attention kLse {name} {dtype}"
+            check(err <= ATTN_TOL[dtype], f"{what}: error {err}")
+            check(lse_err <= LSE_TOL, f"{what}: lse error {lse_err}")
+            splits = decode_attention.split_plan(b, kv, sc, h // kv)[0]
+            same = bool(torch.equal(o, served))
+            check(same or splits == 1, f"{what}: o differs from the "
+                  "serving instance's, which merges too")
+            errs.append(max(err, lse_err))
+            line = dict(phase="kernel_parity", kernel="decode_attention_lse",
+                        path="model_mesh", layout=name,
+                        shape=[b, sc, h, kv, hd], dtype=dtype,
+                        max_abs_err=err, lse_max_abs_err=lse_err,
+                        tolerance=ATTN_TOL[dtype], lse_tolerance=LSE_TOL,
+                        o_equal_to_serving=same, serving_splits=splits,
+                        registers_spills=decode_regs(ptxas, dtype, hd,
+                                                     h // kv),
+                        merge_registers_spills=merge_regs(ptxas, dtype, hd,
+                                                          lse=True),
+                        serving_merge_registers_spills=merge_regs(
+                            ptxas, dtype, hd))
+            if dtype != "bfloat16":   # checked, not timed
+                emit(**line)
+                continue
+            call = lambda: decode_attention.decode_attention_cuda(  # noqa
+                q, kc, vc, bias, lse=True)
+            ms, wall_ms, prof_ms = timed(call, profile=True)
+            plain_ms, _, _ = timed(lambda: decode_attention.plain_with_lse(
+                q, kc, vc, bias))
+            serving_ms, _, _ = timed(
+                lambda: decode_attention.decode_attention_cuda(q, kc, vc,
+                                                               bias))
+            lib = efficient_lse(torch, q, kc, vc, bias)
+            check(lib is not None or name != LSE_CASE_MAIN,
+                  f"{what}: the library call was refused at the main shape")
+            ops_, nbytes = decode_attention.cost(b, h, kv, hd, sc, 2,
+                                                 lse=True)
+            b_ms, b_by = bound(nbytes, ops_, BF16_TC_OPS_PER_S)
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by,
+                       library_ms=timed(lib)[0] if lib else None,
+                       cold_ms=cold_ms(call), serving_ms=serving_ms,
+                       bound_share=b_ms / ms, splits=max(splits, 2))
+            emit(**line, profiler_ms=prof_ms, wall_ms=wall_ms,
+                 library=("aten._scaled_dot_product_efficient_attention"
+                          if lib else None), **row)
+            if name == LSE_CASE_MAIN:
+                main = row
+    return dict(name="decode_attention_lse", route="cuda",
+                source="src/repro_torch/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:72",
+                max_abs_err=max(errs), **{k: main[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")})
 
 
 def int8_phase(torch, ref, int8_matmul, shapes=INT8_SHAPES, path="serving"):
@@ -2798,11 +2925,15 @@ def int8_kv_decode(torch, eng, build_model, tuning, kernels):
 
 # ------------------------------------------------------------ dry run ----
 #: one full-size pair of each kind on the card's fakes (the last under
-#: the int8 K/V cache), both production meshes from one trace
-DRYRUN_PAIRS = (("granite-moe-1b-a400m", "train_4k", "bf16"),
-                ("gemma3-4b", "prefill_32k", "bf16"),
-                ("falcon-mamba-7b", "decode_32k", "bf16"),
-                ("hymba-1.5b", "decode_32k", "int8"))
+#: the int8 K/V cache), with the production meshes each is rowed on
+#: (False: 16 x 16, True: 2 x 16 x 16): the train pair on both from one
+#: trace (split ideally); the prefill and decode pairs traced on each
+#: mesh (sharded rows: one device's trace, its collectives), Falcon-Mamba's
+#: decode also on 2 x 16 x 16, whose batch is split over pod and data
+DRYRUN_PAIRS = (("granite-moe-1b-a400m", "train_4k", "bf16", (False, True)),
+                ("gemma3-4b", "prefill_32k", "bf16", (False,)),
+                ("falcon-mamba-7b", "decode_32k", "bf16", (False, True)),
+                ("hymba-1.5b", "decode_32k", "int8", (False,)))
 #: the trace against the card, at shapes one card holds (mesh 1 x 1):
 #: Granite's training step and a Gemma3-4B prefill at 8 x 2,048
 DRYRUN_CHECKS = (("granite-moe-1b-a400m", ("train_8x2k", 2048, 8, "train")),
@@ -2835,16 +2966,22 @@ def dryrun_phase(torch, dryrun, tuning, mesh_mod, get_config, build_model,
     same call (counted from the memory in use before its arguments)."""
     from repro_torch.obs.prof import profile_fn
     before = {k.name: k.launches for k in kernels}
-    for arch, shape, kv in DRYRUN_PAIRS:
+    for arch, shape, kv, meshes in DRYRUN_PAIRS:
         tuning.FLAGS["kv_cache_dtype"] = kv
+        train = shape.startswith("train")
         try:
-            rows = dryrun.run_one(arch, shape, (False, True), device="cuda",
+            rows = dryrun.run_one(arch, shape, meshes, device="cuda",
                                   verbose=False)
         finally:
             tuning.FLAGS["kv_cache_dtype"] = "bf16"
         for r in rows:
             check(r["ok"], f"dryrun {arch} {shape}: {r.get('error')}")
             emit(phase="dryrun", part="pair", kv_cache_dtype=kv, **r)
+            if not train:
+                check(r["split"] == "sharded" and r["collective_s"]
+                      is not None and r["arg_bytes_traced"]
+                      == r["arg_bytes_per_device"],
+                      f"dryrun {arch} {shape}: not a sharded row")
     check(before == {k.name: k.launches for k in kernels},
           "the dry run's traces launched a kernel")
     one = mesh_mod.make_tier_mesh("S", device_type="cuda")
@@ -3987,6 +4124,97 @@ def sharded_runs(torch, R, mesh, steps=SHARD_STEPS):
     return out
 
 
+#: the routed dispatch of phase ``fleet_sharded``: the route_dispatch
+#: fleet (1,024 cells of 1-3 users) into the edge-ladder engines, two new
+#: tokens a request
+SHARD_ROUTE_KW = dict(max_new_tokens=2, batch_size=SERVE_BATCH,
+                      prompt_len=12, seed=0)
+#: the bridge's batch-formation window on the routed dispatch (ms)
+BRIDGE_FILL_MS = 1000.0
+
+
+def tiered_policy(R):
+    """The oracle at goal 85 whose second user goes to the edge and third
+    to the cloud, so that every tier's engines serve."""
+    class Tiered(R.api.OraclePolicy):
+        def decisions(self, counts, scen):
+            dec = super().decisions(counts, scen)[0].clone()
+            dec[:, 1] = R.dynamics.A_EDGE
+            dec[:, 2] = R.dynamics.A_CLOUD
+            return dec, self._ids(dec)
+    return Tiered(ROUTE_USERS, threshold=85.0)
+
+
+def routed_summary(res):
+    """What a routed dispatch keeps across the fleet mesh (as JSON): the
+    served requests with their tokens, the batches and per-(tier,
+    variant) counts, and whether each ``RouteResult`` identity holds
+    exactly."""
+    t, slo = res.timings, res.slo()
+    # the wall's residual is computed by subtraction: its sum returns
+    # the wall to the float's last bits
+    ids = {"wall": abs(t["batching_ms"] + t["compute_ms"] + t["dispatch_ms"]
+                       - t["wall_ms"]) <= 1e-9 * t["wall_ms"],
+           "e2e": all(r.queue_ms + r.measured_ms == r.e2e_ms
+                      for r in res.served),
+           "slo": slo["measured"]["attained"] + slo["measured"]["violated"]
+           == slo["requests"] == len(res.served)}
+    if res.bridge is not None:
+        b = res.bridge
+        ids["bridge"] = b["served"] + b["shed"]["total"] == b["submitted"]
+        ids["none_shed"] = b["shed"]["total"] == 0
+    return json.loads(json.dumps({
+        "served": [[r.cell, r.user, r.action, r.tier, r.variant,
+                    list(r.tokens)] for r in res.served],
+        "batches": res.batches,
+        "per_tv": {k: [v["requests"], v["batches"]]
+                   for k, v in t["per_tier_variant"].items()},
+        "ids": ids, "wall_ms": t["wall_ms"]}))
+
+
+def route_diff(got, want):
+    """Where two ``routed_summary``s differ: the requests served by one
+    only, those whose tier or variant differ, those whose tokens differ
+    (with the first few), and the batches and per-(tier, variant)
+    counts; an empty dict where they are equal."""
+    g = {tuple(x[:2]): x for x in got["served"]}
+    w = {tuple(x[:2]): x for x in want["served"]}
+    both = sorted(set(g) & set(w))
+    routed = [k for k in both if g[k][:5] != w[k][:5]]
+    tokens = [k for k in both if g[k][5] != w[k][5]]
+    diff = {"only_sharded": len(set(g) - set(w)),
+            "only_unsharded": len(set(w) - set(g)),
+            "routing_differs": len(routed), "tokens_differ": len(tokens),
+            "token_examples": [[g[k], w[k]] for k in tokens[:3]],
+            "batches": [got["batches"], want["batches"]],
+            "per_tv_equal": got["per_tv"] == want["per_tv"]}
+    return diff if any([diff["only_sharded"], diff["only_unsharded"],
+                        routed, tokens, not diff["per_tv_equal"],
+                        got["batches"] != want["batches"]]) else {}
+
+
+def routed_fleet(R, engines, mesh):
+    """The route_dispatch fleet routed by ``tiered_policy`` into
+    ``engines`` (on ``mesh``, or unsharded), synchronously and through the
+    serving bridge: a ``routed_summary`` of each."""
+    from repro_torch.serving.bridge import BridgeConfig
+    scen = route_fleet(R, ROUTE_CELLS, seed=11)
+    pol = tiered_policy(R)
+    out = {}
+    for mode in ("sync", "bridge"):
+        # queues that hold the whole fleet (nothing shed) and a
+        # batch-formation window far longer than the submit loop (every
+        # batch but a queue's last full): the batches, and with them the
+        # tokens, do not depend on the threads' timing
+        bridge = None if mode == "sync" else BridgeConfig(
+            max_batch=SERVE_BATCH, max_wait_ms=BRIDGE_FILL_MS,
+            max_queue=ROUTE_CELLS * ROUTE_USERS, drain_timeout_s=60)
+        res = R.api.FleetOrchestrator(pol, mesh=mesh).route(
+            scen=scen, dispatch=engines, bridge=bridge, **SHARD_ROUTE_KW)
+        out[mode] = routed_summary(res)
+    return out
+
+
 def sharded_rank(rank, world, init_file, out_dir):
     """One rank of phase ``fleet_sharded``: a gloo group of ``world``
     ranks on the one card, both agents on this rank's block of both
@@ -4011,6 +4239,11 @@ def sharded_rank(rank, world, init_file, out_dir):
             k.launches = 0
         res = sharded_runs(torch, R, mesh)
         res["launches"] = {k.name: k.launches for k in kernels}
+        from repro_torch.configs.base import get_config
+        from repro_torch.launch.serve import build_engines
+        engines = build_engines(get_config("edge-ladder"), max_len=MAX_LEN,
+                                device="cuda")
+        res["routed"] = routed_fleet(R, engines, mesh)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
     finally:
@@ -4037,14 +4270,19 @@ def _same_runs(got, want, what, blocks=None):
                                 f"{key} differs from the unsharded run")
 
 
-def fleet_sharded(torch, R, kernels):
+def fleet_sharded(torch, R, kernels, engines):
     """Phase ``fleet_sharded``: both agents on both fleets of
     ``shard_fleets`` at 32,768 x 5, unsharded; on a one-rank NCCL mesh
     in this process (bit-equal to unsharded); then on two gloo ranks
     sharing the card, spawned processes each on its block (the kernels
     built here first): every block digest, fleet mean, telemetry summary
     and holdout ratio equal to the unsharded run's, K1 and K2 launched
-    on every rank, every join under ``SHARD_JOIN_S``."""
+    on every rank, every join under ``SHARD_JOIN_S``. Then the routed
+    dispatch: the 1,024-cell fleet routed to edge-ladder engines
+    (``routed_fleet``, sync and through the bridge) on the two ranks,
+    the first dispatching, every rank's served requests, tokens and
+    batches equal to the unsharded route's here (``engines``), every
+    identity exact."""
     import tempfile
     import torch.distributed as dist
     import torch.multiprocessing as mp
@@ -4054,6 +4292,7 @@ def fleet_sharded(torch, R, kernels):
     os.makedirs(work, exist_ok=True)
     t0 = time.perf_counter()
     plain = sharded_runs(torch, R, None)
+    routed = routed_fleet(R, engines, None)
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
     init = tempfile.mkdtemp(dir=work)
     dist.init_process_group("nccl", init_method=f"file://{init}/nccl",
@@ -4089,6 +4328,29 @@ def fleet_sharded(torch, R, kernels):
         _same_runs(b, plain, f"gloo rank {r}", blocks=blocks)
         for name, n in b["launches"].items():
             check(n > 0, f"{name} was never launched on gloo rank {r}")
+        for mode, want in routed.items():
+            got = b["routed"][mode]
+            diff = route_diff(got, want)
+            if diff:
+                emit(phase="fleet_sharded", part="routed_dispatch_diff",
+                     rank=r, mode=mode, **diff)
+            for key in ("served", "batches", "per_tv"):
+                check(got[key] == want[key],
+                      f"fleet_sharded: gloo rank {r} {mode} route's {key} "
+                      "differ from the unsharded route's")
+            check(all(got["ids"].values()) and all(want["ids"].values()),
+                  f"fleet_sharded: gloo rank {r} {mode} route identities "
+                  f"{got['ids']} / unsharded {want['ids']}")
+    emit(phase="fleet_sharded", part="routed_dispatch", cells=ROUTE_CELLS,
+         users=ROUTE_USERS, ranks=SHARD_RANKS,
+         requests={m: len(w["served"]) for m, w in routed.items()},
+         batches={m: w["batches"] for m, w in routed.items()},
+         per_tier_variant={m: w["per_tv"] for m, w in routed.items()},
+         served_equal=True, identities_exact=True,
+         wall_ms={m: {"unsharded": w["wall_ms"],
+                      "sharded": [b["routed"][m]["wall_ms"]
+                                  for b in blocks]}
+                  for m, w in routed.items()})
     walls = {label: {kind: {
         "unsharded": plain[label][kind]["wall_ms_per_step"],
         "nccl_1": one[label][kind]["wall_ms_per_step"],
@@ -4106,6 +4368,185 @@ def fleet_sharded(torch, R, kernels):
          seconds=time.perf_counter() - t0)
     emit(phase="launches", fleet_sharded={
         f"rank{r}": b["launches"] for r, b in enumerate(blocks)})
+
+
+# ------------------------------------------------------- model mesh ----
+#: the model mesh on one card: two gloo ranks (NCCL runs no two ranks on
+#: one card) over (data 1, model 2)
+MESH_SHAPE, MESH_RANKS, MESH_JOIN_S = (1, 2), 2, 300
+#: (label, arch, variant, layers kept): Granite-3.0-1B-A400M d0 and d4
+#: (K3, K4, K5's expert batch; experts over 'model'), PaliGemma-3B (one
+#: kv head: its cache split along its slots, K4's kLse instance and the
+#: merge over ranks), Falcon-Mamba-7B (K6 over channel shards), each at
+#: full width, cut in depth
+MESH_CUTS = (("granite d0", "granite-moe-1b-a400m", "d0", 2),
+             ("granite d4", "granite-moe-1b-a400m", "d4", 2),
+             ("paligemma d0", "paligemma-3b", "d0", 2),
+             ("falcon d0", "falcon-mamba-7b", "d0", 1))
+MESH_BATCH, MESH_PROMPT, MESH_STEPS = 4, 64, 4
+
+
+def mesh_cut_config(get_config, build_ladder, arch, vid, n_layers):
+    import dataclasses
+    cfg = build_ladder(get_config(arch))[vid].cfg
+    return dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def mesh_run(torch, model, params, batch, max_len, tokens=None,
+             place=None):
+    """A prefill and ``MESH_STEPS`` decode steps: the logits of each
+    (float32, on the host; DTensors assembled whole) and the tokens fed
+    (greedy, or ``tokens``, each through ``place``)."""
+    from repro_torch.distributed.sharding import full as whole
+    lg, cache = model.prefill(params, batch, max_len=max_len)
+    out, fed = [whole(lg).float().cpu()], []
+    for i in range(MESH_STEPS):
+        tok = tokens[i] if tokens is not None else whole(lg)[
+            :, -1:, :model.cfg.vocab_size].argmax(-1).to(torch.int32)
+        fed.append(tok)
+        lg, cache = model.decode(params, cache,
+                                 tok if place is None else place(tok))
+        out.append(whole(lg).float().cpu())
+    return out, fed
+
+
+def mesh_rank(rank, world, init_file, out_dir):
+    """One rank of phase ``model_mesh``: a gloo group on the one card, a
+    (data 1, model 2) mesh; each ``MESH_CUTS`` model run unsharded, then
+    placed on the mesh (``distribute_params`` / ``distribute_inputs``)
+    and run under ``model_mesh`` with the unsharded run's tokens, K3-K6
+    and K4's kLse instance counted on that run alone."""
+    import faulthandler
+    faulthandler.enable()            # a rank that dies says where
+    sys.path.insert(0, SRC)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.configs.base import get_config
+        from repro_torch.distributed import sharding
+        from repro_torch.kernels import (decode_attention, flash_attention,
+                                         int8_matmul, selective_scan)
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.launch.serve import variant_seed
+        from repro_torch.models import build_model
+        from repro_torch.models.variants import build_ladder
+        mesh = make_mesh(MESH_SHAPE, device_type="cuda")
+        counters = (flash_attention.KERNEL, decode_attention.KERNEL,
+                    int8_matmul.KERNEL, selective_scan.KERNEL,
+                    decode_attention.LSE)
+        res = {"cuts": {}}
+        for label, arch, vid, n_layers in MESH_CUTS:
+            cfg = mesh_cut_config(get_config, build_ladder, arch, vid,
+                                  n_layers)
+            model = build_model(cfg)
+            params = model.init(variant_seed(0, vid), device="cuda")
+            g = torch.Generator(device="cuda").manual_seed(21)
+            batch = {"tokens": torch.randint(
+                0, cfg.vocab_size, (MESH_BATCH, MESH_PROMPT), generator=g,
+                device="cuda", dtype=torch.int32)}
+            n_img = cfg.n_img_tokens if cfg.arch_type == "vlm" else 0
+            if n_img:
+                batch["img_embeds"] = torch.randn(
+                    (MESH_BATCH, n_img, cfg.d_model), generator=g,
+                    device="cuda").to(getattr(torch, cfg.dtype))
+            max_len = n_img + MESH_PROMPT + MESH_STEPS
+            with torch.no_grad():
+                t0 = time.perf_counter()
+                plain, fed = mesh_run(torch, model, params, batch, max_len)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for k in counters:
+                    k.launches = 0
+                with sharding.model_mesh(mesh):
+                    placed = sharding.distribute_params(params, mesh)
+                    pb = sharding.distribute_inputs(batch, mesh)
+                    got, _ = mesh_run(
+                        torch, model, placed, pb, max_len, tokens=fed,
+                        place=lambda t: sharding.distribute_inputs(
+                            {"tokens": t}, mesh)["tokens"])
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+            counts = {k.name: k.launches for k in counters}
+            shares = [limit_share(a, b) for a, b in zip(got, plain)]
+            errs = [float((a - b).abs().max()) for a, b in zip(got, plain)]
+            res["cuts"][label] = dict(
+                arch=arch, variant=vid, layers=n_layers,
+                logits_limit_share=max(shares), max_abs_err=max(errs),
+                limit_share_by_step=shares,
+                finite=all(bool(torch.isfinite(a).all()) for a in got),
+                launches=counts, unsharded_s=t1 - t0, sharded_s=t2 - t1,
+                kv_heads=cfg.n_kv_heads)
+            del model, params, placed, pb
+            torch.cuda.empty_cache()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def model_mesh(torch, kernels):
+    """Phase ``model_mesh``: ``MESH_CUTS`` on two gloo ranks sharing the
+    card (spawned, the kernels built here first), each rank's sharded
+    logits within the card's tolerance (atol 0.125 + rtol 1e-2) of its
+    unsharded run on the card, K3 and K4 launched for every attention
+    model, K5 for d4, K6 for Falcon-Mamba and K4's kLse instance for
+    PaliGemma's length-split cache, on every rank. Returns rank 0's
+    launches of the sharded runs, by kernel."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.kernels import _build
+    _build.build(kernels)
+    work = os.path.join(ROOT, "build", "model_mesh")
+    os.makedirs(work, exist_ok=True)
+    init = tempfile.mkdtemp(dir=work)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        mesh_rank, args=(MESH_RANKS, f"{init}/gloo", init),
+        nprocs=MESH_RANKS, join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_JOIN_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  f"model_mesh: the {MESH_RANKS} ranks outlasted "
+                  f"{MESH_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(init, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    total = {}
+    for r, res in enumerate(ranks):
+        for label, cut in res["cuts"].items():
+            emit(phase="model_mesh", rank=r, cut=label, mesh=MESH_SHAPE,
+                 batch=MESH_BATCH, prompt=MESH_PROMPT, steps=MESH_STEPS,
+                 **cut)
+            check(cut["finite"] and cut["logits_limit_share"] <= 1.0,
+                  f"model_mesh rank {r} {label}: sharded logits use "
+                  f"{cut['logits_limit_share']:.3f} of the tolerance")
+            n = cut["launches"]
+            want = ["flash_attention", "decode_attention"] \
+                if "falcon" not in label else ["selective_scan"]
+            want += ["int8_matmul"] if cut["variant"] == "d4" else []
+            want += ["decode_attention_lse"] if "paligemma" in label else []
+            for name in want:
+                check(n[name] > 0, f"model_mesh rank {r} {label}: {name} "
+                      "was never launched")
+            if r == 0:
+                for name, c in n.items():
+                    total[name] = total.get(name, 0) + c
+    emit(phase="model_mesh", seconds=time.perf_counter() - t0,
+         ranks=MESH_RANKS)
+    return total
 
 
 # --------------------------------------------------------- training ----
@@ -4735,6 +5176,8 @@ def main():
                            ptxas=ptxas[flash_attention.KERNEL.name]),
                decode_phase(torch, ops, decode_attention,
                             ptxas=ptxas[decode_attention.KERNEL.name]),
+               decode_lse_phase(torch, decode_attention,
+                                ptxas[decode_attention.KERNEL.name]),
                int8_phase(torch, ref, int8_matmul),
                scan_phase(torch, selective_scan,
                           ptxas[selective_scan.KERNEL.name])]
@@ -4800,9 +5243,17 @@ def main():
 
     # the sharded fleet: one NCCL rank here, then two gloo ranks on the
     # card in their own processes, K1 and K2 counted on each rank
-    fleet_sharded(torch, R, fleet_kernels)
+    fleet_sharded(torch, R, fleet_kernels, engines)
     decode_profile(torch, engines, caches)
     del engines, caches
+
+    # the model mesh: Granite d0/d4, PaliGemma and Falcon-Mamba cuts on
+    # two gloo ranks sharing the card, K3-K6 and K4's kLse instance on
+    # local shards, counted on the sharded runs
+    free_card(torch)
+    mesh_launches = model_mesh(torch, kernels)
+    emit(phase="launches", model_mesh=mesh_launches)
+    launches["decode_attention_lse"] = mesh_launches["decode_attention_lse"]
 
     # the single-cell layer: the brute force and both agents on the card,
     # then the serving launcher's RL-orchestrated loop, its launches
@@ -5003,7 +5454,7 @@ def main():
                "int8_kv_decode": int8_kv_launches,
                "audio_serving": audio_launches,
                "ssm_training": ssm_train_launches,
-               "lm_training": train_launches}
+               "lm_training": train_launches, "model_mesh": mesh_launches}
     for e in entries:
         e["launches"] = launches[e["name"]]
         check(e["launches"] > 0,

@@ -51,9 +51,17 @@
 // InternLM2's and DBRX's 6, Yi's 7 and PaliGemma's 8, 16 the limit kMaxG
 // (G x hd at most kMaxGroupDims, so no 16 at hd 256).
 //
+// kLse (a template flag of the merge kernel, so the serving instances are
+// the kernels they were): the merge also writes each (batch, q head) row's
+// log-sum-exp of its scores, m + log l, beside o; a call with one range of
+// slots gets a second, empty one (m = -1e30, l = 0), so that it merges
+// too. A cache split along its length over ranks runs this instance on
+// each rank's slots, and the ranks merge their rows by that log-sum-exp
+// (repro_torch/kernels/ops.py _merge_over).
+//
 // Binding: plain C entry point decode_attention_launch (ctypes), dtype 0
 // float32, 1 bfloat16; it launches both kernels and returns
-// cudaGetLastError().
+// cudaGetLastError(). A null lse pointer takes the serving instances.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -318,10 +326,10 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 }
 
 // one warp per (batch, q head): rescale the splits to the largest max
-template <typename T, int HD>
+template <typename T, int HD, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 decode_merge_kernel(const float* __restrict__ ws, T* __restrict__ o, int BH,
-                    int splits) {
+                    int splits, float* __restrict__ lse) {
   const int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (w >= BH) return;
@@ -348,15 +356,19 @@ decode_merge_kernel(const float* __restrict__ ws, T* __restrict__ o, int BH,
     const int d = lane + 32 * i;
     if (d < HD) o[(long long)w * HD + d] = from_f<T>(a[i] * inv);
   }
+  if constexpr (kLse)
+    if (lane == 0) lse[w] = mx + logf(l);
 }
 
 template <typename T, int HD, int GB>
 cudaError_t launch(const void* q, const void* kc, const void* vc,
-                   const void* bias, void* ws, void* o, int B, int S, int H,
-                   int KV, int span, float scale, float cap,
+                   const void* bias, void* ws, void* o, void* lse, int B,
+                   int S, int H, int KV, int span, float scale, float cap,
                    cudaStream_t stream) {
   const int G = H / KV;
-  const int splits = (S + span - 1) / span;
+  // the kLse instance always merges: with one range of slots, a second,
+  // empty range (m = -1e30, l = 0, weighing nothing in the merge)
+  const int splits = max((S + span - 1) / span, lse ? 2 : 1);
   const size_t smem = sizeof(float) * smem_floats(G, span, HD);
   const dim3 grid(splits, KV, B);
   if (cap > 0.f)
@@ -374,53 +386,59 @@ cudaError_t launch(const void* q, const void* kc, const void* vc,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const int bh = B * H;
-  decode_merge_kernel<T, HD><<<(bh + kWarps - 1) / kWarps, kThreads, 0,
-                               stream>>>(static_cast<const float*>(ws),
-                                         static_cast<T*>(o), bh, splits);
+  const int blocks = (bh + kWarps - 1) / kWarps;
+  if (lse)
+    decode_merge_kernel<T, HD, true><<<blocks, kThreads, 0, stream>>>(
+        static_cast<const float*>(ws), static_cast<T*>(o), bh, splits,
+        static_cast<float*>(lse));
+  else
+    decode_merge_kernel<T, HD, false><<<blocks, kThreads, 0, stream>>>(
+        static_cast<const float*>(ws), static_cast<T*>(o), bh, splits,
+        static_cast<float*>(lse));
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t launch_g(const void* q, const void* kc, const void* vc,
-                     const void* bias, void* ws, void* o, int B, int S, int H,
-                     int KV, int span, float scale, float cap,
+                     const void* bias, void* ws, void* o, void* lse, int B,
+                     int S, int H, int KV, int span, float scale, float cap,
                      cudaStream_t stream) {
   const int G = H / KV;
   if (G <= 1)
-    return launch<T, HD, 1>(q, kc, vc, bias, ws, o, B, S, H, KV, span, scale,
-                            cap, stream);
+    return launch<T, HD, 1>(q, kc, vc, bias, ws, o, lse, B, S, H, KV, span,
+                            scale, cap, stream);
   if (G <= 2)
-    return launch<T, HD, 2>(q, kc, vc, bias, ws, o, B, S, H, KV, span, scale,
-                            cap, stream);
+    return launch<T, HD, 2>(q, kc, vc, bias, ws, o, lse, B, S, H, KV, span,
+                            scale, cap, stream);
   if (G <= 8)
-    return launch<T, HD, 8>(q, kc, vc, bias, ws, o, B, S, H, KV, span, scale,
-                            cap, stream);
+    return launch<T, HD, 8>(q, kc, vc, bias, ws, o, lse, B, S, H, KV, span,
+                            scale, cap, stream);
   if constexpr (16 * HD <= kMaxGroupDims)
-    return launch<T, HD, 16>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
+    return launch<T, HD, 16>(q, kc, vc, bias, ws, o, lse, B, S, H, KV, span,
                              scale, cap, stream);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t launch_hd(int hd, const void* q, const void* kc, const void* vc,
-                      const void* bias, void* ws, void* o, int B, int S,
-                      int H, int KV, int span, float scale, float cap,
+                      const void* bias, void* ws, void* o, void* lse, int B,
+                      int S, int H, int KV, int span, float scale, float cap,
                       cudaStream_t stream) {
   switch (hd) {
     case 16:
-      return launch_g<T, 16>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
+      return launch_g<T, 16>(q, kc, vc, bias, ws, o, lse, B, S, H, KV, span,
                              scale, cap, stream);
     case 32:
-      return launch_g<T, 32>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
+      return launch_g<T, 32>(q, kc, vc, bias, ws, o, lse, B, S, H, KV, span,
                              scale, cap, stream);
     case 64:
-      return launch_g<T, 64>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
+      return launch_g<T, 64>(q, kc, vc, bias, ws, o, lse, B, S, H, KV, span,
                              scale, cap, stream);
     case 128:
-      return launch_g<T, 128>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
+      return launch_g<T, 128>(q, kc, vc, bias, ws, o, lse, B, S, H, KV, span,
                               scale, cap, stream);
     case 256:
-      return launch_g<T, 256>(q, kc, vc, bias, ws, o, B, S, H, KV, span,
+      return launch_g<T, 256>(q, kc, vc, bias, ws, o, lse, B, S, H, KV, span,
                               scale, cap, stream);
     default:
       return cudaErrorInvalidValue;
@@ -429,15 +447,17 @@ cudaError_t launch_hd(int hd, const void* q, const void* kc, const void* vc,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, caches and o share it; bias and the
-// workspace are float32). span: slots per split, a multiple of 64; ws:
-// (B, H, ceil(S / span), hd + 2) float32, unused with one split. cap: the
-// logit soft-cap, 0 for none.
+// dtype: 0 float32, 1 bfloat16 (q, caches and o share it; bias, the
+// workspace and lse are float32). span: slots per split, a multiple of 64;
+// ws: (B, H, max(ceil(S / span), 2 with lse), hd + 2) float32, unused with
+// one split. lse: (B, H), the rows' log-sum-exp (the kLse instance), or
+// null. cap: the logit soft-cap, 0 for none.
 extern "C" int decode_attention_launch(const void* q, const void* kc,
                                        const void* vc, const void* bias,
-                                       void* ws, void* o, int B, int S, int H,
-                                       int KV, int hd, int span, float scale,
-                                       float cap, int dtype, void* stream) {
+                                       void* ws, void* o, void* lse, int B,
+                                       int S, int H, int KV, int hd, int span,
+                                       float scale, float cap, int dtype,
+                                       void* stream) {
   if (B <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || S <= 0 || H / KV > kMaxG ||
       (H / KV) * hd > kMaxGroupDims || span <= 0 || span % kTS != 0 ||
@@ -447,10 +467,10 @@ extern "C" int decode_attention_launch(const void* q, const void* kc,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_hd<float>(hd, q, kc, vc, bias, ws, o, B, S, H, KV, span,
+    err = launch_hd<float>(hd, q, kc, vc, bias, ws, o, lse, B, S, H, KV, span,
                            scale, cap, st);
   else if (dtype == 1)
-    err = launch_hd<__nv_bfloat16>(hd, q, kc, vc, bias, ws, o, B, S, H, KV,
+    err = launch_hd<__nv_bfloat16>(hd, q, kc, vc, bias, ws, o, lse, B, S, H, KV,
                                    span, scale, cap, st);
   else
     err = cudaErrorInvalidValue;

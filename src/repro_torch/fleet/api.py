@@ -533,6 +533,8 @@ class ServedRequest:
     queue_ms: float = 0.0       # submit -> batch-drain wait (ms)
     deadline_ms: float = float("inf")   # SLO stamped at submit
     deadline_met: Optional[bool] = None  # scored at drain: e2e <= deadline
+    #: the generated tokens (port-only: the reference keeps none)
+    tokens: Optional[tuple] = None
 
     @property
     def e2e_ms(self) -> float:
@@ -752,11 +754,12 @@ class FleetOrchestrator:
                                                 calib=scen.calib)
 
     @staticmethod
-    def _requests(dec, scen: FleetScenario, engines,
-                  prompts: Optional[Callable], prompt_len: int, seed: int):
+    def _requests(dec, active, engines, prompts: Optional[Callable],
+                  prompt_len: int, seed: int):
         """Every active user's routed request, in (cell, user) order:
-        ``(cell, user, action, tier, variant, prompt tokens)``. Prompts
-        are ``prompt_len`` random tokens from ``seed`` unless
+        ``(cell, user, action, tier, variant, prompt tokens)``, from the
+        whole fleet's decisions ``dec`` and request mask ``active``.
+        Prompts are ``prompt_len`` random tokens from ``seed`` unless
         ``prompts(cell, user)`` gives them."""
         local = sorted(int(v[1:]) for v in engines.get("S", {}))
         any_tier = next(iter(engines.values()), {})
@@ -769,7 +772,7 @@ class FleetOrchestrator:
         rng = np.random.default_rng(seed)
         dec_np = dec.cpu().numpy()
         out = []
-        for c, u in zip(*np.nonzero(scen.active.cpu().numpy())):
+        for c, u in zip(*np.nonzero(active.cpu().numpy())):
             a = int(dec_np[c, u])
             tier, variant = _tier_variant(a, local)
             if tier not in engines or variant not in engines[tier]:
@@ -782,20 +785,30 @@ class FleetOrchestrator:
             out.append((int(c), int(u), a, tier, variant, p))
         return out
 
+    def _whole(self, dec, scen: FleetScenario, whole):
+        """(predictions (cells, N) as numpy, request mask) of the whole
+        fleet: ``whole``, the sharded route's assembled pair, or computed
+        from the unsharded ``scen``."""
+        if whole is not None:
+            return whole[0].cpu().numpy(), whole[1]
+        return self._predicted_per_user_ms(dec, scen).cpu().numpy(), \
+            scen.active
+
     def _dispatch(self, dec, scen: FleetScenario, engines,
                   prompts: Optional[Callable], max_new_tokens: int,
                   batch_size: int, prompt_len: int, seed: int, spans=None,
-                  deadline_ms: float = float("inf")):
+                  deadline_ms: float = float("inf"), whole=None):
         """Drain every active user's routed request through per-(tier,
         variant) ``RequestBatcher``s into ``engines``, one engine at a
-        time. Returns (served sorted by (cell, user), batches, timings,
-        latency accumulator)."""
+        time. ``whole`` is a sharded route's (predictions, request mask),
+        each assembled whole. Returns (served sorted by (cell, user),
+        batches, timings, latency accumulator)."""
         from repro_torch.serving import Request, RequestBatcher
         t0 = time.perf_counter()
-        pred = self._predicted_per_user_ms(dec, scen).cpu().numpy()
+        pred, active = self._whole(dec, scen, whole)
         batchers, meta = {}, {}
         with _span(spans, "dispatch.batch_build"):
-            reqs = self._requests(dec, scen, engines, prompts, prompt_len,
+            reqs = self._requests(dec, active, engines, prompts, prompt_len,
                                   seed)
             for rid, (c, u, a, tier, variant, p) in enumerate(reqs):
                 meta[rid] = (c, u, a, tier, variant)
@@ -843,7 +856,8 @@ class FleetOrchestrator:
     def _dispatch_bridge(self, dec, scen: FleetScenario, engines, bridge,
                          prompts: Optional[Callable], max_new_tokens: int,
                          batch_size: int, prompt_len: int, seed: int,
-                         spans=None, deadline_ms: float = float("inf")):
+                         spans=None, deadline_ms: float = float("inf"),
+                         whole=None):
         """Async twin of ``_dispatch``: submit every active request into
         a ``ServingBridge`` (per-(tier, variant) worker queues, see
         ``repro_torch.serving.bridge``) and drain the fleet with the
@@ -862,7 +876,7 @@ class FleetOrchestrator:
         from repro_torch.serving import Request
         from repro_torch.serving.bridge import BridgeConfig, ServingBridge
         t0 = time.perf_counter()
-        pred = self._predicted_per_user_ms(dec, scen).cpu().numpy()
+        pred, active = self._whole(dec, scen, whole)
         if isinstance(bridge, ServingBridge):
             br, own = bridge, False
         else:
@@ -878,7 +892,7 @@ class FleetOrchestrator:
         meta = {}
         try:
             with _span(spans, "dispatch.batch_build"):
-                reqs = self._requests(dec, scen, engines, prompts,
+                reqs = self._requests(dec, active, engines, prompts,
                                       prompt_len, seed)
                 for i, (c, u, a, tier, variant, p) in enumerate(reqs):
                     rid = rid0 + i
@@ -968,7 +982,16 @@ class FleetOrchestrator:
         ``BridgeConfig`` customizes admission/overflow/timeout
         behaviour; an existing ``ServingBridge`` reuses its queues.
         ``RouteResult.bridge`` then carries the shed/reroute accounting
-        and ``overlap_x`` (engine compute over the post-submit wall)."""
+        and ``overlap_x`` (engine compute over the post-submit wall).
+
+        On a sharded fleet the decisions, the predictions and the
+        request mask are assembled whole on every rank, and the first
+        rank alone dispatches them, as the reference's one controller
+        does: the engines (and any ``ServingBridge``) passed on the other
+        ranks are not called. Every rank returns the first rank's
+        served requests, batches, timings and bridge stats, so the
+        served requests, their batches and their tokens equal an
+        unsharded route's on the same engines; only the walls differ."""
         policy = self.policy
         if scen is None:
             scen = getattr(policy, "scen", None)
@@ -987,10 +1010,6 @@ class FleetOrchestrator:
         if counts is None:
             counts = torch.zeros((scen.cells, 2), dtype=torch.int32,
                                  device=scen.device)
-        if dispatch is not None and scen.mesh is not None:
-            raise NotImplementedError(
-                "dispatching a sharded fleet to serving engines is not "
-                "ported: route it whole on one rank")
         decide = getattr(policy, "decisions", None) or policy.policy_decisions
         with _span(spans, "route.decide", cells=int(scen.cells)):
             dec, ids = decide(counts, scen)
@@ -1006,23 +1025,35 @@ class FleetOrchestrator:
                                                  active=scen.active)
                 if scen.topo is None and scen.mesh is not None:
                     util = gather_cells(util, scen)
+        whole = None
+        if dispatch is not None and scen.mesh is not None:
+            # the prediction on this rank's block, then both it and the
+            # request mask assembled whole, as the decisions are below
+            whole = (gather_cells(self._predicted_per_user_ms(dec, scen),
+                                  scen),
+                     gather_cells(scen.active, scen))
         dec, ids = gather_cells(dec, scen), gather_cells(ids, scen)
         if dispatch is not None:
             slo_ms = dynamics.MAX_RESPONSE_MS if deadline_ms is None \
                 else float(deadline_ms)
             brinfo = None
             with _span(spans, "route.dispatch"):
-                if bridge is not None and bridge is not False:
-                    served, batches, timings, lat, brinfo = \
-                        self._dispatch_bridge(
+                run = None
+                if scen.mesh is None or scen.mesh.rank == 0:
+                    if bridge is not None and bridge is not False:
+                        run = lambda: self._dispatch_bridge(  # noqa: E731
                             dec, scen, dispatch, bridge, prompts,
                             max_new_tokens, batch_size, prompt_len, seed,
-                            spans=spans, deadline_ms=slo_ms)
-                else:
-                    served, batches, timings, lat = self._dispatch(
-                        dec, scen, dispatch, prompts, max_new_tokens,
-                        batch_size, prompt_len, seed, spans=spans,
-                        deadline_ms=slo_ms)
+                            spans=spans, deadline_ms=slo_ms, whole=whole)
+                    else:
+                        run = lambda: self._dispatch(  # noqa: E731
+                            dec, scen, dispatch, prompts, max_new_tokens,
+                            batch_size, prompt_len, seed, spans=spans,
+                            deadline_ms=slo_ms, whole=whole) + (None,)
+                served, batches, timings, lat, brinfo = _first_rank(
+                    run, scen.mesh)
+                if lat is None:
+                    lat = _latency_acc(served, slo_ms, scen.device)
             return RouteResult(decisions=dec, ids=ids, served=served,
                                batches=batches, edge_util=util,
                                timings=timings, hot_edge_util=hot_edge_util,
@@ -1033,6 +1064,33 @@ class FleetOrchestrator:
         if with_edge_util:
             return dec, ids, util
         return dec, ids
+
+
+def _first_rank(run, mesh):
+    """``run()`` on the mesh's first rank (or without a mesh), as (served,
+    batches, timings, latency accumulator, bridge stats); every other
+    rank receives the first four but the accumulator, which it rebuilds
+    from the served list (None in its place). An exception on the first
+    rank is raised on every rank."""
+    if mesh is None or mesh.size == 1:
+        return run()
+    import torch.distributed as dist
+    box = [None]
+    if mesh.rank == 0:
+        try:
+            out = run()
+            box[0] = ("ok", out[:3] + (out[4],))
+        except Exception as e:  # noqa: BLE001 - raised on every rank
+            box[0] = ("error", e)
+    src = 0 if mesh.group is None else dist.get_global_rank(mesh.group, 0)
+    dist.broadcast_object_list(box, src=src, group=mesh.group)
+    kind, got = box[0]
+    if kind == "error":
+        raise got
+    if mesh.rank == 0:
+        return out
+    served, batches, timings, brinfo = got
+    return served, batches, timings, None, brinfo
 
 
 def _tier_entry(per_tv: dict, key: str) -> dict:
@@ -1065,7 +1123,9 @@ def _collect(served: list, per_tv: dict, r, tier: str, variant: str,
     served.append(ServedRequest(
         c, u, a, tier, variant, float(pred[c, u]),
         float(r.response_time * 1e3), queue_ms=q_ms,
-        deadline_ms=r.deadline_ms, deadline_met=r.deadline_met))
+        deadline_ms=r.deadline_ms, deadline_met=r.deadline_met,
+        tokens=None if r.output is None else
+        tuple(int(t) for t in np.asarray(r.output).reshape(-1))))
     if spans is not None:
         spans.complete("request.e2e", r.arrival_time,
                        r.queue_time + r.response_time, rid=r.rid,

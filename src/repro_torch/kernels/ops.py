@@ -13,6 +13,16 @@ own ``outputs``, so a traced peak of live bytes sees them. Under grad
 mode the attention and the scan go through their autograd functions on
 fakes too, so a traced training step records K3's and K6's training
 instances and their backwards, P2 and P3.
+
+Given DTensors (a model mesh, ``distributed.sharding``), K3, K4, K5 and
+K6 run on the local shards through ``local_map``, each at the
+placements it accepts (``_attention_places``, ``_decode_places``,
+``_matmul_places``, ``_sharded_scan``): the call on each rank's shards is
+the same call as above, so the card launches its kernel, the CPU takes
+the plain version and a fake records the local shard's cost. K4 over a
+cache sharded along its length runs its ``kLse`` instance on each
+rank's slots and merges the ranks' rows by all-reduces of the row max
+and of the rescaled sums and outputs (``_merge_over``).
 """
 from __future__ import annotations
 
@@ -26,6 +36,9 @@ from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import int8_matmul as _int8_matmul
 from repro_torch.kernels import selective_scan as _selective_scan
 from repro_torch.kernels import tabular_rl as _tabular_rl
+from repro_torch.distributed.sharding import (_k_major, is_dtensor,
+                                              on_shards, places, settled,
+                                              shard_dims)
 from repro_torch.kernels._build import record_cost
 from repro_torch.kernels.ref import NEG_INF
 
@@ -129,6 +142,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     and an input requires grad, the call goes through ``_FlashAttention``
     (K3 with its row log-sum-exp, P2 for the gradient); otherwise it is
     the serving call."""
+    if is_dtensor(q):
+        return _sharded_flash(q, k, v, causal, window, softcap)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, softcap)
@@ -137,6 +152,52 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     fn = _flash_attention.plain if _route(q) == "cpu" else \
         _flash_attention.flash_attention_cuda
     return fn(q, k, v, causal=causal, window=window, softcap=softcap)
+
+
+def _attention_places(q, k):
+    """K3's placements for q (B, Sq, H, hd) and k, v (B, Skv, KV, hd):
+    the batch where q shards it, q's heads where q shards them, the kv
+    heads where k shards them beside q's; everything else replicated.
+    Where q's heads are split and the kv heads are not, each rank keeps
+    the one kv head its q heads read (``kv_pick``: mesh dim, q heads a
+    kv head), or q's heads are gathered where a rank's q heads span
+    more than one kv head. Returns (q's, k's placements, kv_pick)."""
+    qs, ks = shard_dims(q), shard_dims(k)
+    mesh = q.device_mesh
+    qd = {i: d for i, d in qs.items() if d in (0, 2)}
+    kd = {i: 0 for i, d in qd.items() if d == 0}
+    pick = None
+    for i, d in list(qd.items()):
+        if d != 2:
+            continue
+        if ks.get(i) == 2:
+            kd[i] = 2
+            continue
+        g = q.shape[2] // k.shape[2]
+        h_loc = q.shape[2] // mesh.size(i)
+        if g % h_loc == 0 and pick is None:
+            pick = (i, g)
+        else:
+            del qd[i]
+    return places(mesh.ndim, qd), places(mesh.ndim, kd), pick
+
+
+def _sharded_flash(q, k, v, causal, window, softcap):
+    """K3 over the local shards (``_attention_places``)."""
+    qp, kp, pick = _attention_places(q, k)
+    first = None
+    if pick is not None:
+        i, g = pick
+        h_loc = q.shape[2] // q.device_mesh.size(i)
+        first = q.device_mesh.get_local_rank(i) * h_loc // g
+
+    def local(ql, kl, vl):
+        if first is not None:
+            kl = kl[:, :, first:first + 1].contiguous()
+            vl = vl[:, :, first:first + 1].contiguous()
+        return flash_attention(ql, kl, vl, causal=causal, window=window,
+                               softcap=softcap)
+    return on_shards(local, (q, k, v), (qp, kp, kp), qp)
 
 
 def decode_attention(q, k_cache, v_cache, kv_pos, cur_pos, *,
@@ -151,14 +212,75 @@ def decode_attention(q, k_cache, v_cache, kv_pos, cur_pos, *,
     if window:
         valid &= kv_pos > cur_pos[:, None] - window
     bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)
+    if is_dtensor(q):
+        return _sharded_decode(q, k_cache, v_cache, bias, softcap)
+    return _decode(q, k_cache, v_cache, bias, softcap)
+
+
+def _decode(q, k_cache, v_cache, bias, softcap, lse=False):
+    """K4 on one device's tensors (its ``kLse`` instance with ``lse``,
+    returning (o, row log-sum-exp (B, H) float32))."""
     if is_fake(q):
         b, h, hd = q.shape
         record_cost("decode_attention", *_decode_attention.cost(
-            b, h, k_cache.shape[2], hd, k_cache.shape[1], q.element_size()))
-        return _decode_attention.outputs(q, k_cache)[0]
+            b, h, k_cache.shape[2], hd, k_cache.shape[1], q.element_size(),
+            lse))
+        out = _decode_attention.outputs(q, k_cache, lse)
+        return (out[0], out[3]) if lse else out[0]
+    if lse:
+        fn = _decode_attention.plain_with_lse if _route(q) == "cpu" else \
+            _decode_attention.decode_attention_cuda
+        return fn(q, k_cache, v_cache, bias, softcap, lse=True)
     fn = _decode_attention.plain if _route(q) == "cpu" else \
         _decode_attention.decode_attention_cuda
     return fn(q, k_cache, v_cache, bias, softcap)
+
+
+def _decode_places(q, k_cache):
+    """K4's placements: the batch where the cache shards it; the heads
+    where the cache shards its kv heads (q's heads with them, G a rank);
+    the slots where it shards its length (q and its heads whole there).
+    Returns (q's, the caches', the bias's placements, the mesh dims of
+    the length)."""
+    cs = shard_dims(k_cache)
+    mesh = q.device_mesh
+    qd = {i: {0: 0, 2: 1}[d] for i, d in cs.items() if d in (0, 2)}
+    cd = {i: d for i, d in cs.items() if d in (0, 1, 2)}
+    bd = {i: d for i, d in cs.items() if d in (0, 1)}
+    return (places(mesh.ndim, qd), places(mesh.ndim, cd),
+            places(mesh.ndim, bd), [i for i, d in cs.items() if d == 1])
+
+
+def _merge_over(o, lse, mesh, dims):
+    """The rows of K4's ``kLse`` instance over each rank's slots merged
+    across the mesh dims ``dims`` that split the cache's length: the
+    row max all-reduced, then each rank's output and sum rescaled to it
+    and all-reduced. Returns o (B, H, hd) in o's dtype."""
+    from torch.distributed import _functional_collectives as funcol
+    m = lse
+    for i in dims:
+        m = funcol.wait_tensor(funcol.all_reduce(m, "max", (mesh, i)))
+    w = torch.exp(lse - m)
+    num = o.float() * w[..., None]
+    for i in dims:
+        num = funcol.wait_tensor(funcol.all_reduce(num, "sum", (mesh, i)))
+        w = funcol.wait_tensor(funcol.all_reduce(w, "sum", (mesh, i)))
+    return (num / w[..., None]).to(o.dtype)
+
+
+def _sharded_decode(q, k_cache, v_cache, bias, softcap):
+    """K4 over the local shards (``_decode_places``); over a cache split
+    along its length, the ``kLse`` instance and ``_merge_over``."""
+    qp, cp, bp, dims = _decode_places(q, k_cache)
+    mesh = q.device_mesh
+
+    def local(ql, kl, vl, bl):
+        if not dims:
+            return _decode(ql, kl, vl, bl, softcap)
+        o, lse = _decode(ql, kl, vl, bl, softcap, lse=True)
+        return _merge_over(o, lse, mesh, dims)
+    return on_shards(local, (q, k_cache, v_cache, bias), (qp, cp, cp, bp),
+                      qp)
 
 
 def int8_matmul(x_q, sx, w_q, sw, *, out_dtype=torch.float32):
@@ -168,6 +290,8 @@ def int8_matmul(x_q, sx, w_q, sw, *, out_dtype=torch.float32):
     ((E, M, K), (E, M, 1), (E, K, N), (E, 1, N)) the E products take one
     launch. On the card each ``w_q`` must be K-major (strides (1, K));
     see ``kernels/int8_matmul.py``."""
+    if is_dtensor(x_q):
+        return _sharded_int8(x_q, sx, w_q, sw, out_dtype)
     if is_fake(x_q):
         *lead, m, k = x_q.shape
         n = w_q.shape[-1]
@@ -179,6 +303,87 @@ def int8_matmul(x_q, sx, w_q, sw, *, out_dtype=torch.float32):
     fn = _int8_matmul.plain if _route(x_q) == "cpu" else \
         _int8_matmul.int8_matmul_cuda
     return fn(x_q, sx, w_q, sw, out_dtype)
+
+
+def _matmul_places(x_q, w_q):
+    """A product's placements (K5's, and a dense one's, ``sharded_matmul``)
+    for x_q (..., M, K), its scales sx (..., M, 1),
+    w_q (..., K, N), its scales sw (..., 1, N) and the output, per mesh
+    dim: an expert batch where w shards it (x with it); the rows M where
+    x splits them (the weight gathered there, as FSDP does); a
+    column-parallel weight (N split: x whole along K, the output split
+    along N); a row-parallel weight (K split, x split along K with it:
+    the output a ``Partial`` sum)."""
+    lead = x_q.dim() - 2
+    ws, xs = shard_dims(w_q), shard_dims(x_q)
+    m, k, n = lead, lead + 1, lead + 1
+    xd, wd, sxd, swd, od, part = {}, {}, {}, {}, {}, []
+    for i in range(x_q.device_mesh.ndim):
+        w, x = ws.get(i), xs.get(i)
+        if lead and w == 0:                          # experts
+            xd[i] = wd[i] = sxd[i] = swd[i] = od[i] = 0
+        elif x == m:                                 # rows
+            xd[i] = sxd[i] = od[i] = m
+        elif w == lead + 1:                          # column parallel
+            wd[i] = swd[i] = od[i] = n
+        elif w == lead:                              # row parallel
+            xd[i], wd[i] = k, lead
+            part.append(i)
+    nd = x_q.device_mesh.ndim
+    return (places(nd, xd), places(nd, sxd), places(nd, wd),
+            places(nd, swd), places(nd, od, part))
+
+
+def _partial_sum(y, dtype):
+    """A product's output whole, in ``dtype``: where it is a ``Partial``
+    sum over ranks (a row-parallel weight), the ranks' float32 partials
+    are reduced first and rounded to ``dtype`` once, as the one-device
+    product rounds its float32 accumulator once."""
+    from torch.distributed.tensor import Partial
+    if any(isinstance(p, Partial) for p in y.placements):
+        y = settled(y)
+    return y.to(dtype)
+
+
+def _sharded_int8(x_q, sx, w_q, sw, out_dtype):
+    """K5 over the local shards (``_matmul_places``), a row-parallel
+    weight's partial products in float32 (``_partial_sum``). A weight
+    that comes gathered (its K-major view lost) is made K-major again on
+    the card."""
+    from torch.distributed.tensor import Partial
+    xp, sxp, wp, swp, op = _matmul_places(x_q, w_q)
+    partial = any(isinstance(p, Partial) for p in op)
+
+    def local(xl, sxl, wl, swl):
+        if wl.is_cuda and not _k_major(wl):
+            wl = _int8_matmul.k_major(wl)
+        return int8_matmul(xl, sxl, wl, swl, out_dtype=torch.float32
+                           if partial else out_dtype)
+    return _partial_sum(on_shards(local, (x_q, sx, w_q, sw),
+                                   (xp, sxp, wp, swp), op), out_dtype)
+
+
+def sharded_matmul(x, w):
+    """``x @ w`` of a dense linear under a model mesh: x (M, K) and w (K,
+    N) DTensors, the product on the local shards at ``_matmul_places``
+    (column-parallel, row-parallel, rows), in x's dtype. A row-parallel
+    weight's partial products are taken in float32 (the same products,
+    a float32 accumulator) and reduced before the one rounding to x's
+    dtype (``_partial_sum``): on the card a bf16 product with a float32
+    output (``torch.mm``'s ``out_dtype``), at the tensor cores' rate."""
+    from torch.distributed.tensor import Partial
+    xp, _, wp, _, op = _matmul_places(x, w)
+    partial = any(isinstance(p, Partial) for p in op)
+
+    def local(xl, wl):
+        wl = wl.to(xl.dtype)
+        if not partial:
+            return xl @ wl
+        if xl.dtype == torch.float32 or _route(xl) == "cpu" \
+                and not is_fake(xl):
+            return xl.float() @ wl.float()      # the CPU has no mm.dtype
+        return torch.mm(xl, wl, out_dtype=torch.float32)
+    return _partial_sum(on_shards(local, (x, w), (xp, wp), op), x.dtype)
 
 
 class _SelectiveScan(torch.autograd.Function):
@@ -239,6 +444,8 @@ def selective_scan(u, dt, A, B, C, D):
     writing its chunk states, P3 for the gradient); otherwise it is the
     serving call."""
     args = tuple(t.contiguous() for t in (u, dt, A, B, C, D))
+    if is_dtensor(u):
+        return _sharded_scan(*args)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return _SelectiveScan.apply(*args)
     if is_fake(u):
@@ -246,6 +453,21 @@ def selective_scan(u, dt, A, B, C, D):
     if _route(u) == "cpu":
         return _selective_scan.plain(*args)
     return _selective_scan.selective_scan_cuda(*args)
+
+
+def _sharded_scan(u, dt, A, B, C, D):
+    """K6 over the local shards: per mesh dim the batch where u splits
+    it, or the d_inner channels (u, dt, A, D and the outputs with them;
+    B and C whole there); y as u, h_last (Bt, di, N) with it."""
+    nd = u.device_mesh.ndim
+    bd = {i: 0 for i, d in shard_dims(u).items() if d == 0}
+    cd = {i: 2 for i, d in shard_dims(u).items() if d == 2}
+    up = places(nd, {**bd, **cd})
+    ap = places(nd, {i: 0 for i in cd})
+    bcp = places(nd, bd)
+    hp = places(nd, {**bd, **{i: 1 for i in cd}})
+    return on_shards(selective_scan, (u, dt, A, B, C, D),
+                      (up, up, ap, bcp, bcp, ap), (up, hp))
 
 
 def best_response_round(idx, pu_table, end_b, edge_b, member, feas, cand_e,

@@ -20,20 +20,29 @@ record their own costs and allocations in the trace (``kernels.ops``).
 
 On a mesh of n devices (``launch.mesh``, built over a placeholder
 process group of 512 ranks as the reference forces 512 host devices), a
-row holds:
+prefill or decode row is one device's, from a trace of the pair on that
+mesh: the params placed by ``distributed.sharding.distribute_params``,
+the inputs and the cache by ``distribute_inputs``, the model run under
+``sharding.model_mesh`` (DTensors, the reference's annotations, the
+kernels on local shards), and ``obs.prof.profile_fn`` counting the local
+ops (``"split": "sharded"``):
 
 * ``arg_bytes_per_device``: exact, each leaf's local shard under
-  ``distributed.sharding.param_shardings`` (params and both AdamW
-  moments) and ``batch_specs`` (inputs and the decode cache);
+  ``param_shardings`` and ``batch_specs`` (the traced local shards' bytes
+  are checked equal to it, ``arg_bytes_traced``);
 * ``flops_per_device``, ``bytes_per_device``, ``out_bytes_per_device``
-  and ``temp_bytes_per_device`` (peak live bytes less the arguments):
-  the trace's totals over n, an ideal split (``"split": "ideal"``);
-* ``collective_bytes_per_device``, ``collectives``, ``collective_s``:
-  null, with a ``note``: a one-device trace runs no collectives, and
-  model-mesh execution waits for more cards;
+  and ``temp_bytes_per_device`` (peak live bytes less the arguments) from
+  the local trace;
+* ``collectives`` (wire bytes by kind, the reference's ring factors:
+  all-reduce 2, the rest 1), ``collective_bytes_per_device`` and
+  ``collective_s`` at one NVLink's rate (``launch.mesh``);
 * the terms against the H100's data-sheet peaks (``launch.mesh``):
   ``compute_s``, ``memory_s``, ``useful_flops_ratio`` (model flops over
-  traced flops) and ``dominant`` (of compute and memory).
+  traced flops) and ``dominant`` (of compute, memory and collective).
+
+A train row still traces one device once for both meshes and splits its
+totals ideally over n (``"split": "ideal"``, ``collective_s`` null, its
+``note`` naming the slice that shards the training step).
 
 A train pair is ``training.make_train_step(model, AdamWConfig(),
 remat=True)`` over ``init_state``; a prefill pair ``Model.prefill``; a
@@ -54,8 +63,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ARCH_IDS, INPUT_SHAPES, get_config
 from repro_torch.distributed import sharding
-from repro_torch.launch.mesh import (HBM_BW, PEAK_BF16_FLOPS,
-                                     make_production_mesh,
+from repro_torch.launch.mesh import (HBM_BW, NVLINK_BW_PER_LINK,
+                                     PEAK_BF16_FLOPS, make_production_mesh,
                                      placeholder_group)
 from repro_torch.models import build_model
 from repro_torch.obs.prof import profile_fn
@@ -64,8 +73,12 @@ from repro_torch.obs.prof import profile_fn
 # 524k decode
 LONG_CTX_OK = {"gemma3-4b", "hymba-1.5b", "falcon-mamba-7b"}
 
-NOTE = ("collectives: not counted; a one-device trace runs none, and "
-        "model-mesh execution waits for more cards")
+NOTE = ("collectives: not counted; the training step runs on one "
+        "device's trace split ideally until it runs under the model mesh "
+        "(the next slice: Model.loss, P2 and P3 through local_map, AdamW "
+        "on DTensors)")
+SHARDED_NOTE = ("one device's trace on the mesh: local ops, the kernels' "
+                "local costs, collectives at one NVLink's rate")
 
 
 def model_flops(cfg, shape) -> tuple:
@@ -129,44 +142,6 @@ def build_lowerable(arch: str, shape, *, device=None):
     return fn, args, meta
 
 
-def batch_specs(batch, mesh):
-    """The ``PartitionSpec`` of each input leaf (the reference's
-    ``_batch_shardings`` rule table): tokens over the batch; stub
-    embeddings over batch and embed; a K/V cache leaf (k, v, ck, cv, k_s,
-    v_s) over its kv heads where they divide the ``model`` axis, else
-    over its length; a Mamba cache over d_inner; ``pos`` and the rest
-    replicated."""
-    def one(name, leaf):
-        nd = len(leaf.shape)
-        if name == "tokens":
-            axes = ("batch",) + (None,) * (nd - 1)
-        elif name in ("img_embeds", "frames"):
-            axes = ("batch", None, "embed")
-        elif name in ("k", "v", "ck", "cv", "k_s", "v_s"):
-            kv_heads = leaf.shape[3] if nd >= 4 else leaf.shape[-1]
-            divisible = kv_heads % mesh.shape.get("model", 1) == 0
-            seq_ax = "kv_seq" if divisible else "cache_len"
-            axes = (None, "batch", seq_ax, "kv_heads", None)[:nd]
-        elif name == "conv":
-            axes = (None, "batch", None, "d_inner")
-        elif name == "h":
-            axes = (None, "batch", "d_inner", None)
-        else:
-            axes = (None,) * nd
-        return sharding.spec_for(leaf.shape, axes, mesh)
-
-    def walk(tree, name=""):
-        if isinstance(tree, dict):
-            return {k: walk(v, k) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [walk(v, name) for v in tree]
-        if not isinstance(tree, torch.Tensor):
-            return None                    # a Python int position
-        return one(name, tree)
-
-    return walk(batch)
-
-
 def arg_specs(args, kind: str, mesh):
     """The spec tree of a pair's arguments on ``mesh``: the params (and
     a train step's moments, which shard as their params) by
@@ -178,9 +153,10 @@ def arg_specs(args, kind: str, mesh):
                  "opt": {"m": sharding.param_shardings(opt["m"], mesh),
                          "v": sharding.param_shardings(opt["v"], mesh),
                          "step": None}},
-                batch_specs(batch, mesh))
+                sharding.batch_specs(batch, mesh))
     params, batch = args
-    return sharding.param_shardings(params, mesh), batch_specs(batch, mesh)
+    return (sharding.param_shardings(params, mesh),
+            sharding.batch_specs(batch, mesh))
 
 
 def shard_bytes(shape, spec, mesh, itemsize: int) -> int:
@@ -233,6 +209,56 @@ def roofline_row(prof, meta, args, mesh, label: str, seconds: float):
     return row
 
 
+def place_args(args, mesh):
+    """A prefill or decode pair's (params, batch) placed on ``mesh``: the
+    params at ``param_shardings``, the inputs and cache at
+    ``batch_specs``, each leaf this device's shard (fakes stay fakes)."""
+    from torch._guards import detect_fake_mode
+    from torch.utils._pytree import tree_leaves
+    params, batch = args
+    with detect_fake_mode(tree_leaves(params)):
+        return (sharding.distribute_params(params, mesh),
+                sharding.distribute_inputs(batch, mesh))
+
+
+def on_mesh(fn, mesh):
+    """``fn`` run under ``sharding.model_mesh(mesh)``."""
+    def call(*args):
+        with sharding.model_mesh(mesh):
+            return fn(*args)
+    return call
+
+
+def sharded_row(prof, meta, args, mesh, label: str, seconds: float):
+    """The reference's row of a prefill or decode pair on ``mesh`` from
+    one device's trace of it there (``place_args``, ``on_mesh``)."""
+    n_dev = mesh.size
+    coll = {k: float(v) for k, v in prof.collectives.items()}
+    coll_dev = float(sum(coll.values()))
+    row = dict(meta)
+    row.update(
+        mesh=label, n_devices=n_dev, ok=True, seconds=round(seconds, 1),
+        flops_per_device=prof.flops, bytes_per_device=prof.bytes_accessed,
+        collective_bytes_per_device=coll_dev, collectives=coll,
+        compute_s=prof.flops / PEAK_BF16_FLOPS,
+        memory_s=prof.bytes_accessed / HBM_BW,
+        collective_s=coll_dev / NVLINK_BW_PER_LINK,
+        model_flops_per_device=meta["model_flops"] / n_dev,
+        useful_flops_ratio=(meta["model_flops"] / n_dev)
+        / max(prof.flops, 1.0),
+        arg_bytes_per_device=arg_bytes_per_device(
+            args, arg_specs(args, meta["kind"], mesh), mesh),
+        arg_bytes_traced=prof.arg_bytes,
+        temp_bytes_per_device=prof.peak_live_bytes - prof.arg_bytes,
+        out_bytes_per_device=prof.out_bytes,
+        split="sharded", note=SHARDED_NOTE, device=prof.backend,
+        peak_live_bytes=prof.peak_live_bytes)
+    terms = {"compute": row["compute_s"], "memory": row["memory_s"],
+             "collective": row["collective_s"]}
+    row["dominant"] = max(terms, key=terms.get)
+    return row
+
+
 def _label(multi_pod: bool) -> str:
     return "2x16x16" if multi_pod else "16x16"
 
@@ -247,15 +273,24 @@ def run_one(arch: str, shape_name: str, multi_pod=False, *, device=None,
     try:
         t0 = time.time()
         fn, args, meta = build_lowerable(arch, shape_name, device=device)
-        prof = profile_fn(fn, *args, name=f"{arch}/{shape_name}")
-        secs = time.time() - t0
+        name = f"{arch}/{shape_name}"
         dev_type = resolve_device(device).type
+        if meta["kind"] == "train":
+            prof = profile_fn(fn, *args, name=name)
+            secs = time.time() - t0
         with placeholder_group():
             for mp in meshes:
                 mesh = make_production_mesh(multi_pod=mp,
                                             device_type=dev_type)
-                rows.append(roofline_row(prof, meta, args, mesh, _label(mp),
-                                         secs))
+                if meta["kind"] == "train":
+                    rows.append(roofline_row(prof, meta, args, mesh,
+                                             _label(mp), secs))
+                    continue
+                t1 = time.time()
+                placed = place_args(args, mesh)
+                prof = profile_fn(on_mesh(fn, mesh), *placed, name=name)
+                rows.append(sharded_row(prof, meta, args, mesh, _label(mp),
+                                        time.time() - t1))
     except Exception as e:  # noqa: BLE001 - a failed pair is a row
         if verbose:
             print(f"[FAIL] {arch} {shape_name}: {e}", flush=True)
@@ -265,10 +300,13 @@ def run_one(arch: str, shape_name: str, multi_pod=False, *, device=None,
     if verbose:
         for r in rows:
             if r["ok"]:
+                coll = r["collective_s"]
                 print(f"[OK] {arch:22s} {shape_name:12s} {r['mesh']:7s} "
                       f"compute={r['compute_s'] * 1e3:9.2f}ms "
                       f"memory={r['memory_s'] * 1e3:9.2f}ms "
-                      f"dom={r['dominant']:8s} "
+                      + ("coll=      n/a  " if coll is None else
+                         f"coll={coll * 1e3:9.2f}ms ")
+                      + f"dom={r['dominant']:10s} "
                       f"useful={r['useful_flops_ratio']:.2f} "
                       f"args={r['arg_bytes_per_device'] / 2**30:.2f}GiB "
                       f"temp={r['temp_bytes_per_device'] / 2**30:.2f}GiB "

@@ -59,6 +59,14 @@ def _world() -> int:
     return 1
 
 
+def make_mesh(shape, axes=("data", "model"), *,
+              device_type: str = "cuda") -> Mesh:
+    """A ``shape`` mesh over ``axes`` on the process group in place (the
+    first ``prod(shape)`` ranks), e.g. (``data`` 1, ``model`` 2) on two
+    ranks sharing one card, or 2 x 2 over four CPU ranks."""
+    return Mesh(_device_mesh(device_type, tuple(shape), tuple(axes)))
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda") -> Mesh:
     """16 x 16 = 256 devices per pod over ``("data", "model")``;

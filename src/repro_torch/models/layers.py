@@ -18,7 +18,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import int8_matmul, ops
 
 
@@ -54,6 +56,16 @@ def quantize_rows(x):
     # max |x| (exact in float32) and x / sx in float32 (x upcast exactly
     # by type promotion), in as few eager ops as the reference's rounding
     # allows
+    if isinstance(x, DTensor):
+        # a partial sum is reduced first; a row split over ranks gives a
+        # partial max, reduced before the scale is taken out of place
+        # (the same arithmetic)
+        x = sharding.settled(x)
+        amax = torch.linalg.vector_norm(x, math.inf, -1, keepdim=True,
+                                        dtype=torch.float32)
+        sx = (amax + 1e-8) / 127.0
+        return torch.div(x, sx).round().clamp(-127, 127).to(torch.int8), \
+            sx
     amax = torch.linalg.vector_norm(x, math.inf, -1, keepdim=True,
                                     dtype=torch.float32)
     sx = amax.add_(1e-8).div_(127.0)
@@ -65,13 +77,18 @@ def linear(params, x):
     (``quantize_rows``) and takes the int8 x int8 product through
     ``ops.int8_matmul`` (K5) with the per-column weight scales, which
     rounds it once to ``x.dtype``. Its ``w_q`` is held K-major
-    (``init_linear``)."""
+    (``init_linear``). Under a model mesh the dense product runs on the
+    local shards too (``ops.sharded_matmul``)."""
     if "w_q" in params:
         lead = x.shape[:-1]
         x_q, sx = quantize_rows(x.reshape(-1, x.shape[-1]))
         y = ops.int8_matmul(x_q, sx, params["w_q"], params["s"],
                             out_dtype=x.dtype)
         return y.reshape(*lead, -1)
+    if isinstance(x, DTensor):
+        lead = x.shape[:-1]
+        return ops.sharded_matmul(x.reshape(-1, x.shape[-1]),
+                                  params["w"]).reshape(*lead, -1)
     return x @ params["w"].to(x.dtype)
 
 
@@ -175,9 +192,9 @@ def init_attention(gen: torch.Generator, cfg):
 def attention_qkv(params, x, cfg, positions=None, *, rope: bool = True):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = linear(params["wq"], x).reshape(b, s, cfg.n_heads, hd)
-    k = linear(params["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
-    v = linear(params["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    q = sharding.split_heads(linear(params["wq"], x), cfg.n_heads, hd)
+    k = sharding.split_heads(linear(params["wk"], x), cfg.n_kv_heads, hd)
+    v = sharding.split_heads(linear(params["wv"], x), cfg.n_kv_heads, hd)
     if rope:
         if positions is None:
             positions = torch.arange(s, device=x.device)[None, :]

@@ -18,6 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
@@ -59,7 +60,12 @@ def _ssm_params(params, xc, cfg):
     afterwards, then ``softplus(dt_r @ dt_w + dt_b)``."""
     s = cfg.ssm
     dtr = s.resolved_dt_rank(cfg.d_model)
-    proj = L.linear(params["x_proj"], xc).to(torch.float32)
+    # under a model mesh x_proj's rows split over 'model' (d_inner): its
+    # partial sums reduced here, dt_r, B and C then whole on every rank
+    proj = L.linear(params["x_proj"], xc)
+    if sharding.is_dtensor(proj):
+        proj = sharding.settled(proj)
+    proj = proj.to(torch.float32)
     dt_r, b_, c_ = torch.split(proj, [dtr, s.state_dim, s.state_dim], -1)
     dt = F.softplus(dt_r @ params["dt_w"] + params["dt_b"])
     return dt, b_, c_
@@ -87,7 +93,15 @@ def mamba_block(params, x, cfg, *, cache=None):
     zero state, returning a new cache; for S == 1 with a cache, the
     recurrent step, updating that cache in place and returning it."""
     xz = L.linear(params["in_proj"], x)
-    xi, z = torch.chunk(xz, 2, dim=-1)                      # (Bt, S, di)
+    # a split of in_proj's 2 di columns does not split each half: on a
+    # model mesh xz is gathered first (``to_places``), then each half
+    # taken back to its channel split below
+    xi, z = torch.chunk(sharding.whole_last_dim(xz), 2, dim=-1)
+    # under a model mesh the channels split over 'model' (the d_inner
+    # rule of the block's weights), so the conv and the scan run on each
+    # rank's channels
+    xi = sharding.logical(xi, "batch", "seq", "d_inner")
+    z = sharding.logical(z, "batch", "seq", "d_inner")
     conv_state = cache["conv"] if cache is not None else None
     xc, new_conv = causal_conv1d(xi, params["conv_w"], params["conv_b"],
                                  state=conv_state)

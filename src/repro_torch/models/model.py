@@ -41,6 +41,7 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.mamba import mamba_cache_spec
@@ -101,9 +102,12 @@ class Model:
     def _embed(self, params, tokens):
         cfg = self.cfg
         dtype = L.dt(cfg.dtype)
-        x = params["embed"]["w"][tokens.long()]
-        return x.to(dtype) * torch.tensor(math.sqrt(cfg.d_model),
-                                          dtype=dtype)
+        w = params["embed"]["w"]
+        # a vocab-split table takes the lookup with a DTensor strategy
+        x = torch.nn.functional.embedding(tokens.long(), w) \
+            if sharding.is_dtensor(w) else w[tokens.long()]
+        x = x.to(dtype) * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)
+        return sharding.logical(x, "batch", "seq", "embed")
 
     def _inputs_full(self, params, batch):
         """Token embeddings, behind the projected image embeddings in a
@@ -112,6 +116,9 @@ class Model:
         if self.cfg.arch_type == "vlm":
             img = L.linear(params["proj_img"],
                            batch["img_embeds"].to(x.dtype))
+            # proj_img's columns split over 'model': the prefix placed
+            # as the token embeddings are before the two are joined
+            img = sharding.logical(img, "batch", "seq", "embed")
             return torch.cat([img, x], dim=1), img.shape[1]
         return x, 0
 
@@ -129,8 +136,10 @@ class Model:
     def _logits(self, params, x):
         x = L.rmsnorm(params["final_norm"], x, self.cfg.rms_norm_eps)
         if self.cfg.tie_embeddings:
-            return x @ params["embed"]["w"].to(x.dtype).T
-        return L.linear(params["lm_head"], x)
+            logits = x @ params["embed"]["w"].to(x.dtype).T
+        else:
+            logits = L.linear(params["lm_head"], x)
+        return sharding.logical(logits, "batch", "seq", "vocab")
 
     # ---------------- training forward ----------------
     def loss(self, params, batch, *, remat: bool = True,
@@ -223,20 +232,32 @@ class Model:
             c = {}
             if "k" in ys:
                 sc = self._seg_cache_len(seg, max_len)
-                n_keep = min(s, sc)
                 for name in ("k", "v"):
-                    kv = ys[name]                       # (Lseg, B, S, KV, hd)
-                    buf = kv.new_zeros(kv.shape[:2] + (sc,) + kv.shape[3:])
-                    slots = torch.arange(s - n_keep, s,
-                                         device=kv.device) % sc
-                    buf[:, :, slots] = kv[:, :, s - n_keep:]
-                    c[name] = buf
+                    kv = ys[name]               # (Lseg, B, S, KV, hd)
+                    if sharding.is_dtensor(kv):
+                        # no mesh axis splits S: the ring fill on each
+                        # rank's shard (an indexed write into a DTensor
+                        # has no strategy everywhere)
+                        where = tuple(kv.placements)
+                        c[name] = sharding.on_shards(
+                            lambda t: _ring(t, s, sc), (kv,), (where,),
+                            where)
+                    else:
+                        c[name] = _ring(kv, s, sc)
             if "ck" in ys:
                 c["ck"], c["cv"] = ys["ck"], ys["cv"]
             if "conv" in ys:
                 c["conv"], c["h"] = ys["conv"], ys["h"]
             segs.append(c)
-        return {"pos": s, "segments": segs}
+        cache = {"pos": s, "segments": segs}
+        mesh = sharding.current_mesh()
+        if sharding.is_model_mesh(mesh):
+            # the decode cache at its placements (``batch_specs``): a
+            # cache of kv heads the model axis does not divide goes to a
+            # split of its slots, each rank keeping its block
+            cache["segments"] = _placed(segs, sharding.batch_specs(
+                {"segments": segs}, mesh)["segments"], mesh)
+        return cache
 
     # ---------------- decode ----------------
     def decode(self, params, cache, tokens):
@@ -309,6 +330,26 @@ class Model:
             return spec
         return {"tokens": _meta((b, 1), torch.int32),
                 "cache": self.cache_spec(b, s)}
+
+
+def _ring(kv, s: int, sc: int):
+    """The last ``min(s, sc)`` of the ``s`` positions of ``kv`` (Lseg, B,
+    S, KV, hd) in ring slots ``arange(s - n_keep, s) % sc`` of a zeroed
+    (Lseg, B, sc, KV, hd) cache."""
+    n_keep = min(s, sc)
+    buf = kv.new_zeros(kv.shape[:2] + (sc,) + kv.shape[3:])
+    slots = torch.arange(s - n_keep, s, device=kv.device) % sc
+    buf[:, :, slots] = kv[:, :, s - n_keep:]
+    return buf
+
+
+def _placed(tree, specs, mesh):
+    """The tensors of ``tree`` redistributed to ``specs`` on ``mesh``."""
+    if isinstance(tree, dict):
+        return {k: _placed(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_placed(v, s, mesh) for v, s in zip(tree, specs)]
+    return sharding.place(tree, specs, mesh)
 
 
 def _meta(shape, dtype) -> torch.Tensor:

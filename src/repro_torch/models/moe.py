@@ -113,36 +113,68 @@ def moe_block(params, x, cfg):
     return y, moe_aux(probs, expert_ids, keep, cfg.moe.n_experts)
 
 
+def _dispatch(x, expert_ids, e: int, cap: int):
+    """Each (token, slot)'s position within its expert, per batch row, in
+    token-major (s, k) order (earlier tokens win capacity), and the
+    tokens scattered expert-major: a kept entry of row b at position p of
+    its expert goes to row (e B + b) C + p, a dropped one to the spare
+    row E B C, cut off. Returns (dispatched (E, B, C, D), pos (B, T), keep
+    (B, T)), T = S k."""
+    b, s, d = x.shape
+    k = expert_ids.shape[-1]
+    flat_ids = expert_ids.reshape(b, s * k)                         # (B,T)
+    onehot = F.one_hot(flat_ids, e).to(torch.int32)                 # (B,T,E)
+    pos_in_e = onehot.cumsum(1, dtype=torch.int32) - onehot
+    pos = pos_in_e.gather(2, flat_ids[..., None])[..., 0]           # (B,T)
+    keep = pos < cap
+    rows = torch.arange(b, device=x.device)[:, None]
+    slot = (flat_ids * b + rows) * cap                              # (B,T)
+    dest = torch.where(keep, slot + pos, e * b * cap)
+    buf = x.new_zeros((e * b * cap + 1, d))
+    buf[dest.view(b, s, k)] = x[:, :, None, :]
+    return buf[:-1].view(e, b, cap, d), pos, keep
+
+
+def _combine(out_e, expert_ids, pos, keep, gate_vals, e0=None):
+    """Each (token, slot)'s expert row of ``out_e`` (E, B, C, D), at
+    min(pos, C - 1), weighted by its gate (0 where dropped) and summed
+    over the slots: (B, S, D). With ``e0``, ``out_e`` holds one rank's
+    block of experts, ``e0`` the first, and a slot whose expert lies
+    elsewhere weighs 0: the rank's partial sum, summed in float32 (the
+    one-device sum's accumulator), rounded once after the ranks'."""
+    e, b, cap, d = out_e.shape
+    s, k = expert_ids.shape[1:]
+    flat_ids = expert_ids.reshape(b, s * k)
+    w = gate_vals.reshape(b, s * k) * keep
+    if e0 is not None:
+        flat_ids = flat_ids - e0
+        w = w * ((flat_ids >= 0) & (flat_ids < e))
+        flat_ids = flat_ids.clamp(0, e - 1)
+    rows = torch.arange(b, device=out_e.device)[:, None]
+    src = (flat_ids * b + rows) * cap + torch.clamp(pos, max=cap - 1)
+    gathered = out_e.reshape(e * b * cap, d)[src]                   # (B,T,D)
+    terms = (gathered * w.to(out_e.dtype)[..., None]).reshape(b, s, k, d)
+    return terms.sum(2) if e0 is None else terms.float().sum(2)
+
+
 def moe_apply(params, x, cfg):
     """The block without its aux statistics, as the served model calls it:
     x (B, S, D) -> (y (B, S, D), the router's probabilities (B, S, E),
     expert ids (B, S, k), keep (B, S k), False where a (token, slot) was
-    dropped), from which ``moe_aux`` computes them."""
+    dropped), from which ``moe_aux`` computes them. Under a model mesh
+    the dispatch and the combine run on each rank's batch rows
+    (``_sharded_dispatch``, ``_sharded_combine``)."""
     from repro_torch.tuning import FLAGS
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.n_experts, m.top_k
     cap = capacity(s, k, e, FLAGS["moe_cf"] or m.capacity_factor)
 
-    probs, gate_vals, expert_ids = router(params, x, cfg)
-
-    # Position of each (token, slot) within its expert, per batch row, in
-    # token-major (s, k) order: earlier tokens win capacity.
-    flat_ids = expert_ids.reshape(b, s * k)                         # (B,T)
-    onehot = F.one_hot(flat_ids, e).to(torch.int32)                 # (B,T,E)
-    pos_in_e = onehot.cumsum(1, dtype=torch.int32) - onehot
-    pos = pos_in_e.gather(2, flat_ids[..., None])[..., 0]           # (B,T)
-    keep = pos < cap
-
-    # Dispatch, expert-major: a kept entry of row b at position p of its
-    # expert e goes to row (e B + b) C + p, a dropped one to the spare row
-    # E B C.
-    rows = torch.arange(b, device=x.device)[:, None]
-    slot = (flat_ids * b + rows) * cap                              # (B,T)
-    dest = torch.where(keep, slot + pos, e * b * cap)
-    buf = x.new_zeros((e * b * cap + 1, d))
-    buf[dest.view(b, s, k)] = x[:, :, None, :]
-    dispatched = buf[:-1].view(e, b, cap, d)
+    sharded = sharding.is_dtensor(x)
+    probs, gate_vals, expert_ids = (_sharded_router if sharded else router)(
+        params, x, cfg)
+    dispatched, pos, keep = (_sharded_dispatch if sharded else _dispatch)(
+        x, expert_ids, e, cap)
     dispatched = sharding.shard_moe_dispatch(
         dispatched.transpose(0, 1)).transpose(0, 1)                 # (E,B,C,D)
     xe = dispatched.reshape(e, b * cap, d)
@@ -153,13 +185,69 @@ def moe_apply(params, x, cfg):
     out_e = _experts(_gathered(params["w_down"]), h)                # (E,BC,D)
     out_e = sharding.shard_moe_dispatch(
         out_e.view(e, b, cap, d).transpose(0, 1)).transpose(0, 1)
-
-    # Combine: each (token, slot)'s expert row, at min(pos, cap - 1).
-    src = slot + torch.clamp(pos, max=cap - 1)
-    gathered = out_e.reshape(e * b * cap, d)[src]                   # (B,T,D)
-    w = (gate_vals.reshape(b, s * k) * keep).to(x.dtype)
-    y = (gathered * w[..., None]).reshape(b, s, k, d).sum(2)
+    if sharded:
+        y = _sharded_combine(out_e, expert_ids, pos, keep, gate_vals)
+        y = sharding.settled(y).to(x.dtype)
+    else:
+        y = _combine(out_e, expert_ids, pos, keep, gate_vals)
     return y, probs, expert_ids, keep
+
+
+def _batch_dims(x) -> dict:
+    """{mesh dim: 0} of the mesh dims that split ``x``'s batch."""
+    return {i: 0 for i, d in sharding.shard_dims(x).items() if d == 0}
+
+
+def _sharded_router(params, x, cfg):
+    """``router`` on each rank's batch rows (its stable sort has no DTensor
+    strategy everywhere): the float32 router weight whole on every rank,
+    the outputs split along the batch as x is."""
+    nd = x.device_mesh.ndim
+    rows = sharding.places(nd, _batch_dims(x))
+    return sharding.on_shards(
+        lambda xl, wl: router({"router": {"w": wl}}, xl, cfg),
+        (x, params["router"]["w"]), (rows, sharding.places(nd, {})),
+        (rows, rows, rows))
+
+
+def _sharded_dispatch(x, expert_ids, e: int, cap: int):
+    """``_dispatch`` on each rank's batch rows (its scatter, the
+    positions' ``cumsum`` and one-hot have no DTensor strategy):
+    dispatched (E, B, C, D) split along B as x is, replicated over the
+    other mesh dims, where ``shard_moe_dispatch`` then keeps each rank's
+    experts without a collective."""
+    nd = x.device_mesh.ndim
+    bd = _batch_dims(x)
+    rows = sharding.places(nd, bd)
+    return sharding.on_shards(
+        lambda xl, il: _dispatch(xl, il, e, cap), (x, expert_ids),
+        (rows, rows), (sharding.places(nd, {i: 1 for i in bd}), rows, rows))
+
+
+def _sharded_combine(out_e, expert_ids, pos, keep, gate_vals):
+    """``_combine`` on each rank's batch rows and experts (its gather has
+    no DTensor strategy): each rank sums the slots its own experts
+    served, in float32, so the result is a ``Partial`` sum over the mesh
+    dims that split the experts (one all-reduce), never a gather of
+    every expert's rows."""
+    mesh = out_e.device_mesh
+    nd = mesh.ndim
+    dims = sharding.shard_dims(out_e)
+    ed = [i for i, d in dims.items() if d == 0]
+    bd = {i: 0 for i, d in dims.items() if d == 1}
+    rows = sharding.places(nd, bd)
+    # the first expert of this rank's block (experts split over ``ed`` in
+    # the mesh's axis order, outer first)
+    e0, span = 0, out_e.shape[0]
+    for i in ed:
+        span //= mesh.size(i)
+        e0 += mesh.get_local_rank(i) * span
+    experts = sharding.places(nd, {**{i: 0 for i in ed},
+                                   **{i: 1 for i in bd}})
+    return sharding.on_shards(
+        lambda ol, il, pl, kl, gl: _combine(ol, il, pl, kl, gl, e0),
+        (out_e, expert_ids, pos, keep, gate_vals),
+        (experts, rows, rows, rows, rows), sharding.places(nd, bd, ed))
 
 
 def moe_block_dense_ref(params, x, cfg):

@@ -54,6 +54,7 @@ import functools
 import torch
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import decode_attention, flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
@@ -159,6 +160,7 @@ def _ffn(p, x, cfg, want_aux: bool = False):
         return x + MOE.moe_apply(p["moe"], h, cfg)[0], None
     if "mlp" in p:
         h = L.rmsnorm(p["ln2"], x, cfg.rms_norm_eps)
+        h = sharding.logical(h, "batch", "seq", "embed")
         return x + L.mlp(p["mlp"], h, cfg.mlp_act), None
     return x, None
 
@@ -181,12 +183,12 @@ def _cross_full(p, x, cfg, cross_src):
     hd = cfg.resolved_head_dim
     b, se = cross_src.shape[:2]
     hc = L.rmsnorm(p["ln_cross"], x, cfg.rms_norm_eps)
-    ck = L.linear(p["cross"]["wk"], cross_src).reshape(b, se,
-                                                       cfg.n_kv_heads, hd)
-    cv = L.linear(p["cross"]["wv"], cross_src).reshape(b, se,
-                                                       cfg.n_kv_heads, hd)
-    qc = L.linear(p["cross"]["wq"], hc).reshape(*hc.shape[:2], cfg.n_heads,
-                                                hd)
+    ck = sharding.split_heads(L.linear(p["cross"]["wk"], cross_src),
+                              cfg.n_kv_heads, hd)
+    cv = sharding.split_heads(L.linear(p["cross"]["wv"], cross_src),
+                              cfg.n_kv_heads, hd)
+    qc = sharding.split_heads(L.linear(p["cross"]["wq"], hc), cfg.n_heads,
+                              hd)
     oc = L.chunked_attention(qc, ck, cv, causal=False)
     return x + L.linear(p["cross"]["wo"], oc.reshape(*hc.shape[:2], -1)), \
         (ck, cv)
@@ -203,8 +205,7 @@ def layer_full(p, x, cfg, window: int, positions, *, causal: bool = True,
     h = L.rmsnorm(p["ln1"], x, cfg.rms_norm_eps)
     outs, ys = {}, {}
     if "attn" in p:
-        q, k, v = L.attention_qkv(p["attn"], h, cfg, positions,
-                                  rope=(cfg.rope_theta > 0))
+        q, k, v = _qkv(p["attn"], h, cfg, positions)
         if not causal:
             o = L.chunked_attention(q, k, v, causal=False,
                                     softcap=cfg.logit_softcap)
@@ -214,6 +215,7 @@ def layer_full(p, x, cfg, window: int, positions, *, causal: bool = True,
         else:
             o = L.chunked_attention(q, k, v, causal=True, window=window,
                                     softcap=cfg.logit_softcap)
+        o = sharding.logical(o, "batch", "seq", "heads", None)
         outs["attn"] = L.linear(p["attn"]["wo"], o.reshape(*x.shape[:2], -1))
         ys["k"], ys["v"] = k, v
     if "ssm" in p:
@@ -223,7 +225,43 @@ def layer_full(p, x, cfg, window: int, positions, *, causal: bool = True,
     if cross_src is not None and "cross" in p:
         x, (ys["ck"], ys["cv"]) = _cross_full(p, x, cfg, cross_src)
     x, aux = _ffn(p, x, cfg, want_aux)
-    return x, ys, aux
+    return sharding.logical(x, "batch", "seq", "embed"), ys, aux
+
+
+def _qkv(p, h, cfg, positions):
+    """The attention block's q, k, v, each under its logical axes (the
+    reference's annotations: heads, kv heads over ``model``)."""
+    q, k, v = L.attention_qkv(p, h, cfg, positions,
+                              rope=(cfg.rope_theta > 0))
+    return (sharding.logical(q, "batch", "seq", "heads", None),
+            sharding.logical(k, "batch", "seq", "kv_heads", None),
+            sharding.logical(v, "batch", "seq", "kv_heads", None))
+
+
+def write_slot(cache, slot: int, row):
+    """``cache[:, slot] = row`` in place. On a cache split along its slots
+    (a length-sharded cache of a model mesh) the row is placed beside the
+    cache (its batch and heads split as the cache's) and the rank whose
+    block holds ``slot`` writes it into its local shard: an indexed write
+    into a split dim has no DTensor strategy."""
+    if sharding.is_dtensor(cache):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = cache.device_mesh
+        dims = [i for i, p in enumerate(cache.placements)
+                if isinstance(p, Shard) and p.dim == 1]
+        if dims:
+            where = tuple(Replicate() if not isinstance(p, Shard)
+                          or p.dim == 1 else Shard(max(p.dim - 1, 0))
+                          for p in cache.placements)
+            row = sharding.to_places(row, where, mesh).to_local()
+            n, lo = cache.shape[1], 0
+            for i in dims:          # this rank's block, outer axis first
+                n //= mesh.size(i)
+                lo += mesh.get_local_rank(i) * n
+            if lo <= slot < lo + n:
+                cache.to_local()[:, slot - lo] = row
+            return
+    cache[:, slot] = row
 
 
 # ---------------------------------------------------------------------------
@@ -245,8 +283,8 @@ def quantized_write(cache, scales, row, slot: int):
     amax = rf.abs().amax(-1) + 1e-8
     scale = amax / amax.new_full((), 127.0)
     q = torch.clamp(torch.round(rf / scale[..., None]), -127, 127)
-    cache[:, slot] = q.to(torch.int8)
-    scales[:, slot] = scale
+    write_slot(cache, slot, q.to(torch.int8))
+    write_slot(scales, slot, scale)
     return (cache.float() * scales[..., None]).to(row.dtype)
 
 
@@ -265,16 +303,15 @@ def layer_decode(p, x, cache_l, cfg, window: int, pos: int, cross=None):
     if "attn" in p:
         kc, vc = cache_l["k"], cache_l["v"]
         positions = torch.full((b, 1), pos, device=x.device)
-        q, k, v = L.attention_qkv(p["attn"], h, cfg, positions,
-                                  rope=(cfg.rope_theta > 0))
+        q, k, v = _qkv(p["attn"], h, cfg, positions)
         sc = kc.shape[1]
         slot = pos % sc
         if "k_s" in cache_l:
             kc = quantized_write(kc, cache_l["k_s"], k, slot)
             vc = quantized_write(vc, cache_l["v_s"], v, slot)
         else:
-            kc[:, slot] = k[:, 0]
-            vc[:, slot] = v[:, 0]
+            write_slot(kc, slot, k[:, 0])
+            write_slot(vc, slot, v[:, 0])
         # absolute position held by each ring slot after the write
         idx = torch.arange(sc, device=x.device)
         kv_pos = pos - (pos - idx) % sc
@@ -289,11 +326,13 @@ def layer_decode(p, x, cache_l, cfg, window: int, pos: int, cross=None):
     x = x + _mix(p, outs, cfg)
     if "cross" in p and cross is not None:
         hc = L.rmsnorm(p["ln_cross"], x, cfg.rms_norm_eps)
-        qc = L.linear(p["cross"]["wq"], hc).reshape(
-            b, 1, cfg.n_heads, cfg.resolved_head_dim)
+        qc = sharding.split_heads(L.linear(p["cross"]["wq"], hc),
+                                  cfg.n_heads, cfg.resolved_head_dim)
         oc = L.decode_attention(qc, cache_l["ck"], cache_l["cv"], *cross)
         x = x + L.linear(p["cross"]["wo"], oc.reshape(b, 1, -1))
-    return _ffn(p, x, cfg)[0]
+    # the residual stream whole over 'model' between layers, as
+    # ``layer_full`` leaves it
+    return sharding.logical(_ffn(p, x, cfg)[0], "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -371,10 +410,29 @@ def run_stack_full(segments, seg_params_list, x, cfg, positions, *,
             # so no layer's copy outlives its layer
             for name, t in y.items():
                 if name not in stacked:
-                    stacked[name] = t.new_empty((len(seg_params),) + t.shape)
+                    stacked[name] = _stacked(t, len(seg_params))
                 stacked[name][i] = t
         seg_caches.append(stacked if want_cache else None)
     return x, seg_caches, aux_total
+
+
+def _stacked(t, n: int):
+    """An empty (n,) + t.shape buffer for ``n`` layers' ``t``; a DTensor's
+    placed as ``t`` is, its split dims one further, so that writing each
+    layer's entry moves nothing."""
+    if not sharding.is_dtensor(t):
+        return t.new_empty((n,) + t.shape)
+    from torch.distributed.tensor import DTensor, Shard
+    local = t.to_local()
+    shape = (n,) + tuple(t.shape)
+    stride = [1] * len(shape)              # the whole buffer's, contiguous
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return DTensor.from_local(
+        local.new_empty((n,) + local.shape), t.device_mesh,
+        [Shard(p.dim + 1) if isinstance(p, Shard) else p
+         for p in t.placements], run_check=False, shape=shape,
+        stride=tuple(stride))
 
 
 def _without_cache(call, x):

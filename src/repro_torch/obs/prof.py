@@ -21,6 +21,14 @@ op the call dispatches —
   allocates nothing) and dropped when their storage is freed, which
   Python's reference counting decides as it does on the card.
 
+On DTensors (a model mesh, ``distributed.sharding``) the count is one
+device's: an op on DTensors is handed on to DTensor's own dispatch, whose
+ops on the local shards come back to the counter at their local shapes;
+DTensor's shape propagation (ops on fakes of its own mode) counts
+nothing; and each collective's output bytes, times the ring factor of
+its kind (all-reduce 2, the others 1, as the reference's
+``collective_bytes``), go to ``collectives`` instead of the op counts.
+
 The counts depend only on shapes, so they are deterministic. Stage
 costs split the agents' steps into the reference's stages and put
 measured wall time beside them; the scaling sweep classifies a per-cell
@@ -28,6 +36,7 @@ cliff as runtime overhead or algorithmic growth.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, Optional, Sequence
@@ -86,6 +95,9 @@ class CostProfile:
     peak_flops_per_s: float
     peak_bytes_per_s: float
     peak_live_bytes: int = 0
+    #: wire bytes of one device's collectives by kind ("all-reduce",
+    #: "all-gather", "reduce-scatter", "all-to-all"), ring factors in
+    collectives: dict = dataclasses.field(default_factory=dict)
 
     @property
     def arithmetic_intensity(self) -> float:
@@ -195,27 +207,102 @@ class _LiveBytes:
         self._swept_at = len(self.refs)
 
 
+#: collective ops (functional and in place) -> the reference's kind name
+_COLLECTIVES = {"all_reduce": "all-reduce", "allreduce": "all-reduce",
+                "all_gather": "all-gather", "allgather": "all-gather",
+                "reduce_scatter": "reduce-scatter",
+                "all_to_all": "all-to-all", "alltoall": "all-to-all"}
+#: effective wire multiplier per collective (ring algorithms), the
+#: reference's ``_WIRE_FACTOR``
+WIRE_FACTOR = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
+               "all-to-all": 1.0}
+
+
+def _collective(func) -> Optional[str]:
+    """The kind of a collective op, or None for any other op."""
+    ns = func.namespace
+    if ns not in ("_c10d_functional", "c10d"):
+        return None
+    name = func.overloadpacket.__name__
+    return next((kind for key, kind in _COLLECTIVES.items()
+                 if name.startswith(key)), "wait")
+
+
 class _CostCounter(TorchDispatchMode):
     """Sums the flops and bytes of every aten op dispatched under it, and
     the kernels' own costs that ``kernels.ops`` records; follows the live
-    bytes of the storages its ops make."""
+    bytes of the storages its ops make. Ops on fakes of another mode than
+    ``fake_mode`` (DTensor's shape propagation) count nothing."""
 
-    def __init__(self):
+    def __init__(self, fake_mode=None):
         super().__init__()
         self.flops = 0
         self.bytes = 0
         self.op_out_bytes = 0
         self.live = _LiveBytes()
+        self.fake_mode = fake_mode
+        self.collectives = {}
+        self.muted = 0
+
+    def _foreign(self, tensors) -> bool:
+        from torch._subclasses.fake_tensor import FakeTensor
+        return self.muted > 0 or self.fake_mode is not None and any(
+            isinstance(t, FakeTensor) and t.fake_mode is not self.fake_mode
+            for t in tensors)
+
+    @contextlib.contextmanager
+    def muting_propagation(self):
+        """Count nothing while DTensor propagates an op's global shapes
+        (it runs the op on global fakes, in the fake mode in place).
+        Raises where this PyTorch names that step otherwise: a sharded
+        trace would count the whole model's ops beside one device's."""
+        from torch.distributed.tensor._sharding_prop import \
+            ShardingPropagator as SP
+        name = next((n for n in ("_propagate_tensor_meta_non_cached",
+                                 "_propagate_tensor_meta")
+                     if hasattr(SP, n)), None)
+        if name is None:
+            raise RuntimeError(
+                f"torch {torch.__version__}: ShardingPropagator has no "
+                "_propagate_tensor_meta[_non_cached]; DTensor's global "
+                "shape propagation cannot be left out of the count")
+        orig = getattr(SP, name)
+
+        def muted(prop, *a, **kw):
+            self.muted += 1
+            try:
+                return orig(prop, *a, **kw)
+            finally:
+                self.muted -= 1
+        setattr(SP, name, muted)
+        try:
+            yield
+        finally:
+            setattr(SP, name, orig)
 
     def kernel(self, name: str, ops: int, nbytes: int) -> None:
         self.flops += ops
         self.bytes += nbytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented     # its local ops come back here
         kwargs = kwargs or {}
+        ins = [t for t in tree_flatten((args, kwargs))[0]
+               if isinstance(t, torch.Tensor)]
         out = func(*args, **kwargs)
         outs = [t for t in tree_flatten(out)[0]
                 if isinstance(t, torch.Tensor)]
+        if self._foreign(ins) or self._foreign(outs):
+            return out
+        kind = _collective(func)
+        if kind is not None:
+            if kind != "wait":
+                self.collectives[kind] = self.collectives.get(kind, 0.0) + \
+                    WIRE_FACTOR[kind] * sum(t.numel() * t.element_size()
+                                            for t in outs)
+            return out
         for t in outs:
             self.live.add(t)
         # a view, an allocation or a query of metadata (``prim.device``,
@@ -223,8 +310,6 @@ class _CostCounter(TorchDispatchMode):
         # nothing
         if func in _FREE or func.is_view or not outs:
             return out
-        ins = [t for t in tree_flatten((args, kwargs))[0]
-               if isinstance(t, torch.Tensor)]
         out_b = sum(t.numel() * t.element_size() for t in outs)
         self.bytes += out_b + sum(t.numel() * t.element_size() for t in ins)
         self.op_out_bytes += out_b
@@ -247,33 +332,41 @@ def profile_fn(fn: Callable, *args, name: Optional[str] = None,
     sync inside the step) cannot be traced and raises."""
     from torch._subclasses.fake_tensor import FakeTensorMode, is_fake
     from repro_torch.kernels import _build
-    counter = _CostCounter()
     tensors = []
     _map(tensors.append, args)
     backend = tensors[0].device.type if tensors else "cpu"
-    fakes = [t for t in tensors if is_fake(t)]
+    fakes = [_local(t) for t in tensors if is_fake(_local(t))]
     peaks = peaks or backend_peaks(backend)
     mode = fakes[0].fake_mode if fakes else \
         FakeTensorMode(allow_non_fake_inputs=True)
+    counter = _CostCounter(mode)
     with mode:
-        fake_args = _map(lambda t: t if is_fake(t) else mode.from_tensor(t),
-                         args)
-        _map(lambda t: counter.live.add(t, held=True), fake_args)
+        fake_args = _map(lambda t: t if is_fake(_local(t))
+                         else mode.from_tensor(t), args)
+        _map(lambda t: counter.live.add(_local(t), held=True), fake_args)
         _build.COST_SINKS.append(counter.kernel)
         try:
-            with counter:
+            with counter.muting_propagation(), counter:
                 out = fn(*fake_args)
         finally:
             _build.COST_SINKS.remove(counter.kernel)
-    out_bytes = _nbytes(out)
+    out_bytes = _nbytes(_map(_local, out))
     return CostProfile(
         name=name or getattr(fn, "__name__", "fn"),
         flops=float(counter.flops), bytes_accessed=float(counter.bytes),
-        arg_bytes=_nbytes(args), out_bytes=out_bytes,
+        arg_bytes=_nbytes(_map(_local, args)), out_bytes=out_bytes,
         temp_bytes=max(counter.op_out_bytes - out_bytes, 0),
         backend=backend, peak_flops_per_s=peaks.flops_per_s,
         peak_bytes_per_s=peaks.bytes_per_s,
-        peak_live_bytes=counter.live.peak)
+        peak_live_bytes=counter.live.peak,
+        collectives=dict(counter.collectives))
+
+
+def _local(t):
+    """A DTensor's local shard (this device's bytes), any other tensor as
+    it is."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ of no member, a member with every top-k entry masked, every q tied, one
 user and the most users; attention with sequences that are no
 tile multiple, one kv head and a window, the bf16 tensor-core instance of
 flash attention at the edges of its tiles and masks, and decode attention
-split over many slot ranges with wholly masked splits and rows; the int8
+split over many slot ranges with wholly masked splits and rows, and its
+``kLse`` instance (the rows' log-sum-exp) with one split and several; the int8
 product on the K-major weight at ragged M, N and K (K zero-padded to a
 multiple of 32), M = 1, in float32 and bfloat16, and a row-major weight
 refused, also batched over experts in one launch (Granite d4's shapes);
@@ -326,6 +327,42 @@ def test_decode_attention_split_cases(cuda, dtype, b, h, kv, hd, s, masked):
     if masked == "row":               # the uniform average over all slots
         mean = vc[1].float().mean(0).repeat_interleave(h // kv, 0)
         torch.testing.assert_close(got[1].float(), mean, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,kv,hd,s,cap", [
+    (2, 8, 2, 32, 1000, 0.0),              # 16 splits: the merge writes it
+    (72, 8, 4, 32, 100, 0.0),              # one split: the partial kernel
+    (4, 8, 1, 256, 162, 0.0),              # PaliGemma's rank's slots
+    (2, 8, 4, 256, 300, 50.0),             # capped
+])
+def test_decode_attention_lse_instance(cuda, dtype, b, h, kv, hd, s, cap):
+    """K4's ``kLse`` instance: o bit-equal to the serving instance's on
+    the same inputs where that merges too (several splits), the rows'
+    log-sum-exp within 1e-3 of ``plain_with_lse``'s, with one split (an
+    empty second range merged) and with several, a masked tail; one
+    launch counted in ``KERNEL`` and in ``LSE``."""
+    g = torch.Generator(device=cuda).manual_seed(s + h)
+    q = torch.randn((b, h, hd), generator=g, device=cuda).to(dtype)
+    kc, vc = (torch.randn((b, s, kv, hd), generator=g, device=cuda)
+              .to(dtype) for _ in range(2))
+    bias = torch.zeros((b, s), device=cuda)
+    bias[:, s - s // 5:] = -1e30
+    before = (decode_attention.KERNEL.launches,
+              decode_attention.LSE.launches)
+    o, lse = decode_attention.decode_attention_cuda(q, kc, vc, bias, cap,
+                                                   lse=True)
+    assert (decode_attention.KERNEL.launches,
+            decode_attention.LSE.launches) == (before[0] + 1, before[1] + 1)
+    served = decode_attention.decode_attention_cuda(q, kc, vc, bias, cap)
+    want, want_lse = decode_attention.plain_with_lse(q, kc, vc, bias, cap)
+    torch.cuda.synchronize()
+    if decode_attention.split_plan(b, kv, s, h // kv)[0] > 1:
+        assert torch.equal(o, served)
+    assert lse.shape == (b, h) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-5)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(o.float(), want.float(), atol=tol, rtol=tol)
 
 
 #: (b, sq, skv, h, kv, hd, causal, window) of K3 at head_dim 128 and 256:

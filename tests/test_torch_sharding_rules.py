@@ -4,8 +4,11 @@ reference's, bit for bit, on duck-typed meshes: the reference's spec code
 reads only a mesh's ``shape`` and ``axis_names``. The parameter specs
 cover every architecture's parameter tree at its published size (shapes
 only, from ``jax.eval_shape``)."""
+import math
+
 import jax
 import pytest
+import torch
 
 from repro.configs import ARCH_IDS, get_config
 from repro.distributed import sharding as jsharding
@@ -101,6 +104,13 @@ def test_param_specs_equal_the_references(arch):
 
 
 def test_logical_is_the_identity_but_under_a_model_mesh():
+    """Without a mesh and on a fleet mesh ``logical`` returns its input;
+    under the production meshes (a DeviceMesh over a placeholder group of
+    fake ranks, this process rank 0) it places each activation at the
+    DTensor placements of the reference's spec: rank 0's block of every
+    split dim (fakes: nothing is allocated)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.launch import mesh as tmesh
     x = object()
     assert sharding.current_mesh() is None
     assert sharding.logical(x, "batch", "seq") is x
@@ -109,14 +119,33 @@ def test_logical_is_the_identity_but_under_a_model_mesh():
         assert sharding.current_mesh() is MESHES["fleet8"]
         assert sharding.logical(x, "batch") is x
         assert sharding.shard_moe_dispatch(x) is x
-        for name in ("data16x16", "pod2x16x16"):
-            sharding.activate_mesh(MESHES[name])
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                sharding.logical(x, "batch")
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                sharding.shard_moe_dispatch(x)
     finally:
         sharding.activate_mesh(None)
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with tmesh.placeholder_group():
+        for name, mp in (("data16x16", False), ("pod2x16x16", True)):
+            m = tmesh.make_production_mesh(multi_pod=mp, device_type="cpu")
+            duck = MESHES[name]
+            with sharding.model_mesh(m), FakeTensorMode():
+                for shape, axes in ACTIVATIONS[:8]:
+                    t = torch.zeros(shape, dtype=torch.int8)
+                    y = sharding.logical(t, *axes)
+                    spec = jsharding.spec_for(shape, axes, duck)
+                    want = [Replicate()] * len(duck.axis_names)
+                    for d, e in enumerate(spec):
+                        for ax in (e if isinstance(e, tuple) else
+                                   (() if e is None else (e,))):
+                            want[duck.axis_names.index(ax)] = Shard(d)
+                    assert tuple(y.placements) == tuple(want), (name, shape)
+                    local = [n // math.prod(
+                        duck.shape[a] for a in (
+                            e if isinstance(e, tuple) else
+                            (() if e is None else (e,))))
+                        for n, e in zip(shape, tuple(spec) + (None,) * 4)]
+                    assert list(y.to_local().shape) == local, (name, shape)
+                d = sharding.shard_moe_dispatch(torch.zeros(4, 16, 64, 8))
+                assert tuple(d.placements)[-1] == Shard(1)
+            assert sharding.current_mesh() is None
 
 
 def test_rules_equal_the_references():

@@ -9,7 +9,10 @@ meshes side by side (``PERF.md`` §6), from the JSONL rows of
 Usage: ``python3 tools/dryrun_table.py BF16 [INT8]``. Terms in ms
 against the H100's data-sheet peaks, bytes in GiB a device; ``a / b``
 is 16 x 16 / 2 x 16 x 16. With INT8, a decode pair's memory term and
-argument bytes under the int8 K/V cache follow in brackets.
+argument bytes under the int8 K/V cache follow in brackets. The
+collective term is a sharded row's (prefill and decode pairs, traced on
+the mesh), "n/a" on a train row, which splits one device's trace
+ideally.
 """
 import json
 import sys
@@ -25,9 +28,9 @@ def load(path):
 
 
 def two(rows, arch, shape, key, scale, fmt):
-    vals = [rows[(arch, shape, m)][key] * scale for m in ("16x16",
-                                                          "2x16x16")]
-    return " / ".join(fmt.format(v) for v in vals)
+    vals = [rows[(arch, shape, m)][key] for m in ("16x16", "2x16x16")]
+    return " / ".join("n/a" if v is None else fmt.format(v * scale)
+                      for v in vals)
 
 
 def main(argv):
@@ -41,9 +44,9 @@ def main(argv):
     print(f"{ok} / {len(bf16)} rows ok" + (
         f"; int8: {sum(r['ok'] for r in int8.values())} / {len(int8)}"
         if int8 else ""))
-    print("| arch | shape | compute ms | memory ms | dominant | useful "
-          "| args GiB | temp GiB | trace s |")
-    print("|---|---|---|---|---|---|---|---|---|")
+    print("| arch | shape | split | compute ms | memory ms | collective ms "
+          "| dominant | useful | args GiB | temp GiB | trace s |")
+    print("|---|---|---|---|---|---|---|---|---|---|---|")
     gib = 1 / 2 ** 30
     for arch, shape in pairs:
         r = bf16[(arch, shape, "16x16")]
@@ -56,7 +59,9 @@ def main(argv):
                                gib, "{:.2f}") + "]"
         comp = two(bf16, arch, shape, "compute_s", 1e3, "{:.3g}")
         temp = two(bf16, arch, shape, "temp_bytes_per_device", gib, "{:.2f}")
-        print(f"| {arch} | {shape} | {comp} | {mem} | {r['dominant']} | "
+        coll = two(bf16, arch, shape, "collective_s", 1e3, "{:.3g}")
+        print(f"| {arch} | {shape} | {r.get('split', 'ideal')} | {comp} | "
+              f"{mem} | {coll} | {r['dominant']} | "
               f"{r['useful_flops_ratio']:.2f} | {args} | {temp} | "
               f"{r['seconds']} |")
 
